@@ -1,0 +1,72 @@
+"""Carry state across from the reference package.
+
+The reference keeps its states as pytrees of arrays (NamedTuples).
+``scenario_state`` and ``asa_state`` take such a tree whose leaves are
+numpy arrays (or anything ``numpy.asarray`` accepts) and return the
+port's tensors, field by field and dtype for dtype: float32 stays
+float32, int32 stays int32, bool stays bool, and uint32 PRNG keys become
+the port's int64 keys with the same values. Nothing here imports the
+reference: it reads fields by name.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.asa import ASAState
+from repro_torch.device import resolve_device
+from repro_torch.xsim.state import ScenarioState
+
+_DTYPES = {np.dtype(np.float32): torch.float32,
+           np.dtype(np.int32): torch.int32,
+           np.dtype(np.bool_): torch.bool,
+           np.dtype(np.uint32): torch.int64}
+
+
+def tensor(x, device: str | torch.device = "cpu") -> torch.Tensor:
+    """One array leaf as a tensor of the matching dtype."""
+    a = np.asarray(x)
+    if a.dtype not in _DTYPES:
+        raise TypeError(f"unexpected leaf dtype {a.dtype}")
+    dtype = _DTYPES[a.dtype]
+    return torch.as_tensor(a.astype(np.int64) if dtype == torch.int64
+                           else a.copy(), dtype=dtype, device=device)
+
+
+def asa_state(ref, device: str | torch.device = "cpu") -> ASAState:
+    """An ``ASAState`` (batched or not) from the reference's."""
+    dev = resolve_device(device)
+    return ASAState(*(tensor(getattr(ref, f), dev) for f in ASAState._fields))
+
+
+def scenario_state(ref, device: str | torch.device = "cpu"
+                   ) -> ScenarioState:
+    """A batched ``ScenarioState`` from the reference's, as
+    ``grid.ScenarioGrid.build`` returns it. Traced states (a non-None
+    ``trace``) are not ported and raise."""
+    dev = resolve_device(device)
+    if getattr(ref, "trace", None) is not None:
+        raise NotImplementedError("traced states are not ported yet")
+    fields = {}
+    for f in ScenarioState._fields:
+        if f == "trace":
+            continue
+        v = getattr(ref, f)
+        fields[f] = asa_state(v, dev) if f == "est" else tensor(v, dev)
+    return ScenarioState(**fields, trace=None)
+
+
+def to_numpy(state) -> dict[str, np.ndarray]:
+    """Flatten a port state (``ScenarioState`` or ``ASAState``) to
+    ``{field: numpy array}``, ``est`` fields as ``est.<name>``."""
+    out = {}
+    for f, v in state._asdict().items():
+        if v is None:
+            continue
+        if isinstance(v, ASAState):
+            for g, w in v._asdict().items():
+                out[f"{f}.{g}"] = w.cpu().numpy()
+        else:
+            out[f] = v.cpu().numpy()
+    return out

@@ -1,0 +1,148 @@
+"""Counter-based threefry2x32 PRNG with ``jax.random``'s stream.
+
+The fleet engine's semantics rest on per-scenario keys that are split
+call for call (Algorithm-1 draws at stage submissions, tuned updates at
+stage starts), so the port carries the same explicit keys as the
+reference and reproduces ``jax.random`` bit for bit under
+``jax_threefry_partitionable=True`` (the default of jax 0.9.0):
+
+* a key is a ``(..., 2)`` tensor of uint32 values, held as int64;
+* ``split(key, n)[i]`` and ``fold_in(key, i)`` are both
+  ``threefry2x32(key, (0, i))`` (the "fold-like" split);
+* ``bits(key, shape)`` hashes the flat row-major index ``i`` of each
+  element as the counter ``(i >> 32, i & 0xffffffff)`` and returns the
+  XOR of the two output words.
+
+``torch.Generator`` cannot stand in: its streams are neither splittable
+per scenario nor equal to the reference's. The 32-bit arithmetic runs in
+int64 masked to 32 bits, which every torch backend supports (torch's
+uint32 support is partial). Leading key dimensions batch: a ``(B, 2)``
+key gives ``(B, *shape)`` draws, one independent stream per row.
+
+``uniform`` and ``categorical`` are bitwise equal to the reference for
+the same key. ``normal`` (via ``erfinv``) and ``exponential`` (via
+``log1p``) agree to a few ULP: the transcendental functions of the two
+frameworks round differently in the last bits.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+M32 = 0xFFFFFFFF
+_KS_PARITY = 0x1BD11BDA
+_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+_ONE_F32_BITS = 0x3F800000  # bit pattern of float32 1.0
+
+
+def _rotl(v: torch.Tensor, r: int) -> torch.Tensor:
+    return ((v << r) & M32) | (v >> (32 - r))
+
+
+def threefry2x32(k1: torch.Tensor, k2: torch.Tensor, x1: torch.Tensor,
+                 x2: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The threefry2x32 hash (20 rounds) on broadcastable int64 tensors
+    holding uint32 values; returns the two output words."""
+    ks = (k1, k2, k1 ^ k2 ^ _KS_PARITY)
+    x0 = (x1 + ks[0]) & M32
+    x1 = (x2 + ks[1]) & M32
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x0 = (x0 + x1) & M32
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & M32
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & M32
+    return x0, x1
+
+
+def PRNGKey(seed: int, device: str | torch.device = "cpu") -> torch.Tensor:
+    """``jax.random.PRNGKey(seed)``: the key ``(seed >> 32, seed & M32)``."""
+    seed = int(seed)
+    return torch.tensor([(seed >> 32) & M32, seed & M32], dtype=torch.int64,
+                        device=device)
+
+
+def _hash_counters(key: torch.Tensor, lo: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """threefry2x32(key, (0, lo)) with key ``(..., 2)`` broadcast against
+    the trailing counter dims of ``lo``."""
+    extra = lo.dim()
+    k = key.reshape(key.shape[:-1] + (1,) * extra + (2,))
+    return threefry2x32(k[..., 0], k[..., 1], torch.zeros_like(lo), lo)
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split``: ``(..., 2)`` → ``(..., num, 2)``."""
+    lo = torch.arange(num, dtype=torch.int64, device=key.device)
+    b1, b2 = _hash_counters(key, lo)
+    return torch.stack([b1, b2], dim=-1)
+
+
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """``jax.random.fold_in``; ``data`` is an int or an int tensor that
+    broadcasts against the key's leading dims."""
+    d = torch.as_tensor(data, dtype=torch.int64, device=key.device) & M32
+    b1, b2 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(d), d)
+    return torch.stack([b1, b2], dim=-1)
+
+
+def bits(key: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
+    """``jax.random.bits`` (32-bit): uint32 values as int64, shape
+    ``key.shape[:-1] + shape``."""
+    shape = tuple(shape)
+    n = math.prod(shape)
+    if n >= 2 ** 32:
+        raise NotImplementedError("more than 2**32 draws from one key")
+    lo = torch.arange(n, dtype=torch.int64, device=key.device).reshape(shape)
+    b1, b2 = _hash_counters(key, lo)
+    return b1 ^ b2
+
+
+def uniform(key: torch.Tensor, shape: tuple[int, ...] = (),
+            minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform`` in float32, bit for bit: 23 random mantissa
+    bits under exponent 0 give [1, 2), then ``f·(hi − lo) + lo``.
+
+    XLA contracts that multiply-add into one fused multiply-add, so it is
+    evaluated here in float64 (the float32 product is exact there) and
+    rounded once to float32."""
+    b = bits(key, shape)
+    f = ((b >> 9) | _ONE_F32_BITS).to(torch.int32).view(torch.float32) - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    span = (hi - lo).double()
+    u = (f.double() * span + lo.double()).float()
+    return torch.maximum(lo, u)
+
+
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+_SQRT2 = float(np.float32(np.sqrt(2)))
+_TINY = float(np.finfo(np.float32).tiny)
+
+
+def normal(key: torch.Tensor, shape: tuple[int, ...] = ()) -> torch.Tensor:
+    """``jax.random.normal``: sqrt(2)·erfinv(u), u uniform on (-1, 1)."""
+    u = uniform(key, shape, _NORMAL_LO, 1.0)
+    return _SQRT2 * torch.erfinv(u)
+
+
+def exponential(key: torch.Tensor, shape: tuple[int, ...] = ()
+                ) -> torch.Tensor:
+    """``jax.random.exponential``: -log1p(-u)."""
+    return -torch.log1p(-uniform(key, shape))
+
+
+def gumbel(key: torch.Tensor, shape: tuple[int, ...] = ()) -> torch.Tensor:
+    """``jax.random.gumbel`` (the default low-range mode)."""
+    return -torch.log(-torch.log(uniform(key, shape, _TINY, 1.0)))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical`` over the last axis (Gumbel-argmax; the
+    first index wins a tie). ``key`` is ``(..., 2)`` with leading dims
+    equal to ``logits.shape[:-1]``; returns int64 indices."""
+    g = gumbel(key, (logits.shape[-1],))
+    return torch.argmax(g + logits, dim=-1)

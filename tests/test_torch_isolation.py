@@ -1,0 +1,72 @@
+"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
+neither ``jax`` nor any module of ``repro``, and its entry points refuse
+to run without a CUDA device unless the CPU is asked for."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _sources() -> list[Path]:
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imports(path: Path) -> list[str]:
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            names.append(str(node.args[0].value))
+    return names
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    assert path.exists(), path
+    bad = [n for n in _imports(path)
+           if n.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_import_leaves_jax_unloaded():
+    code = ("import sys, repro_torch, repro_torch.convert, "
+            "repro_torch.xsim, repro_torch.xsim.grid, repro_torch.cuda_build;"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')];"
+            "assert not bad, bad")
+    env_path = str(ROOT / "src")
+    subprocess.run([sys.executable, "-c", code], check=True,
+                   env={"PYTHONPATH": env_path, "PATH": "/usr/bin:/bin"})
+
+
+def test_entry_points_default_to_cuda():
+    from repro_torch.xsim import grid, policies
+
+    cfg = grid.XSimConfig(n_warm=4, n_backlog=4, n_arrivals=4)
+    if torch.cuda.is_available():
+        assert policies.init_fleet(2).log_p.is_cuda
+        return
+    for call in (lambda: policies.init_fleet(2),
+                 lambda: grid.make_grid(cfg, n_seeds=1),
+                 lambda: grid.center_params(grid.CENTERS["hpc2n"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    g = grid.make_grid(cfg, n_seeds=1, policy_ids=(1,), device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        grid.run_grid(g)
