@@ -6,20 +6,38 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
 It builds every hand-written kernel of the port from the sources in the
 checkout, holds each kernel against its plain PyTorch version on the
-card, drives the port's main path (the fleet simulator's Table-1 sweep),
-and checks the results. Phases:
+card, drives the port's main paths (the fleet simulator's Table-1 sweep,
+and model serving of a dense and an MoE transformer), and checks the
+results. Phases:
 
 1. the card (``nvidia-smi`` name and power limit) and the kernel build;
-2. each kernel against its plain version at the shapes the sweep uses,
-   bitwise, with its time, the plain version's time and its bound;
+2. each kernel against its plain version at the shapes its path uses
+   (``freed_scan`` bitwise; ``flash_attention`` and ``grouped_matmul``
+   within the tolerances of the reference's own kernel tests), with its
+   time, the plain version's time, one library call's time and its bound;
 3. the Table-1 path at the repository's own benchmark setting
    (``benchmarks/run.py``'s xsim leg: 1/64-size centers, policies 0-2,
    warmed fleet), once through the kernel and once through the plain
    reservation scan: the final states must be bitwise identical;
-4. the main path at full size: both centers at their real core counts,
+4. the sweep at full size: both centers at their real core counts,
    their three paper scales, three workflows, policies 0-2, two seeds
    (108 scenarios of 2313 job slots), through the user-facing entry
-   points; the kernel's launches in this run are counted.
+   points; the kernel's launches in this run are counted;
+5. serving ``qwen2-0.5b`` at full size (24 layers, d896; batch 8, prompt
+   2048, 32 new tokens) through ``repro_torch.launch.serve.serve``, whose
+   prefill runs the flash-attention kernel; then the same params and
+   prompts through the "twin" route (each kernel swapped for its plain
+   version) and the plain route (``sdpa``): logits within stated
+   bfloat16 tolerances, the share of greedy tokens that agree, times,
+   peak memory and a profiled prefill and decode;
+6. the same for ``moonshot-v1-16b-a3b`` at full width and depth (48
+   layers, d2048, 64 experts top-6; batch 4, prompt 1024, 16 new tokens),
+   whose MoE layers run the grouped-matmul kernel in prefill and decode.
+   Its end-to-end logits are reported, not checked (see ``LAYER_TOL``):
+   each layer is checked against the other routes on the same input.
+
+Matrix products of the plain versions run in full float32 where their
+inputs are float32: TF32 is switched off for matmuls and cuDNN.
 
 The second-to-last line is a JSON object with one entry per ported
 kernel; the last line is ``{"ok": true, "device": {...}}``. Any failure
@@ -29,6 +47,7 @@ device it exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -44,13 +63,67 @@ SRC = ROOT / "src"
 
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12      # float32 outside the tensor cores
+H100_BF16_OPS_PER_S = 989e12    # bfloat16 tensor cores, dense
 
 # the port's kernels: name -> source, the TPU kernel it replaces
 KERNELS = {
     "freed_scan": dict(route="cuda",
                        source="src/repro_torch/csrc/freed_scan.cu",
                        replaces="src/repro/xsim/backfill.py:124"),
+    "flash_attention": dict(
+        route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:82"),
+    "grouped_matmul": dict(
+        route="cuda", source="src/repro_torch/csrc/moe_gmm.cu",
+        replaces="src/repro/kernels/moe_gmm/kernel.py:39"),
 }
+
+# the tolerances of the reference's own kernel tests (tests/test_kernels.py)
+FLASH_ATOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+GMM_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (0.0, 3e-2)}
+
+# phase 2 flash shapes (B, S, H, hd, window, dtype), all causal: the serve
+# shapes of phases 5 (qwen2) and 6 (moonshot), a ragged S, a window, f32
+FLASH_SHAPES = ((8, 2048, 14, 64, 0, torch.bfloat16),
+                (4, 1024, 16, 128, 0, torch.bfloat16),
+                (2, 1000, 4, 64, 0, torch.bfloat16),
+                (2, 1000, 4, 128, 256, torch.float32),
+                (2, 1024, 16, 128, 0, torch.float32))
+# phase 2 gmm shapes (E, C, D, F, dtype): moonshot's gate/up and down
+# projections at prefill (C = capacity of 4096 tokens) and decode (C = 8),
+# and a ragged f32 one
+GMM_SHAPES = ((64, 480, 2048, 1408, torch.bfloat16),
+              (64, 480, 1408, 2048, torch.bfloat16),
+              (64, 8, 2048, 1408, torch.bfloat16),
+              (64, 8, 1408, 2048, torch.bfloat16),
+              (8, 250, 600, 1000, torch.float32))
+
+# phases 5 and 6: arch, batch, prompt, new tokens
+SERVE = {"dense": ("qwen2-0.5b", 8, 2048, 32),
+         "moe": ("moonshot-v1-16b-a3b", 4, 1024, 16)}
+# Route comparisons of phases 5 and 6, all in bfloat16. "twin": the same
+# route with each kernel swapped for its plain version (only float32
+# summation order differs, so outputs differ by single bfloat16 steps).
+# "plain": the reference's default route (sdpa and einsum expert FFNs),
+# which rounds attention scores and weights to bfloat16 where the flash
+# kernel keeps float32. A wrong mask, head or expert moves a value by its
+# whole scale (rel_rms about 1.4 between unrelated values).
+# Dense: the logits at the end of 24 layers, (largest |Δ|, rms(Δ)/rms).
+SERVE_TOL = {"twin": (0.125, 0.02), "plain": (0.25, 0.05)}
+# MoE: the end-to-end logits are reported, not checked. Router logits are
+# rounded to bfloat16 before top-k, so a change in the last bit of a
+# token's hidden state can send it to another expert; with the reference's
+# init (expert weights of std 1/sqrt(n_experts) = 0.125) an expert's output
+# is large against the residual, and over 48 layers every row of every
+# route ends on another trajectory. Instead each layer of the kernel route
+# is held against the same layer of the other route on the kernel route's
+# own input, over the tokens the two routed alike (the same experts, kept
+# or dropped alike; see ``recording_routes``): (largest |Δ| over the
+# largest |output|, rms(Δ)/rms(output)): a few bfloat16 steps against the
+# twin, twice that against the plain route, which rounds at three more
+# places in attention.
+LAYER_TOL = {"twin": (0.02, 0.01), "plain": (0.04, 0.02)}
+LAYER_MIN_ALIKE = 0.5     # share of tokens routed alike, in every layer
 
 # phase 2 shapes: (B, N) of the repository's grids — the throughput grid
 # (53 slots), the run.py Table-1 grid (73), the default config (153) and
@@ -99,15 +172,44 @@ def cuda_ms(fn, reps: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def _bound(ops: float, nbytes: float, dtype=torch.float32
+           ) -> tuple[float, str]:
+    """The larger of ``nbytes`` over the memory rate and ``ops`` over the
+    peak rate for ``dtype`` (bf16 tensor cores, else float32), in ms."""
+    peak = (H100_BF16_OPS_PER_S if dtype == torch.bfloat16
+            else H100_F32_OPS_PER_S)
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    ops_ms = ops / peak * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                          "operations")
+
+
 def freed_bound_ms(b: int, n: int) -> tuple[float, str]:
     """Least time for ``freed_matrix`` on a (b, n) table: read ends and
     cores (f32) and the running mask (bool) once, write freed (f32) once;
     the sort and scan do about n·(log2 n + 3) float32 operations a row."""
-    bytes_ms = b * n * (4 + 4 + 1 + 4) / H100_BYTES_PER_S * 1e3
-    ops = b * n * (math.ceil(math.log2(max(n, 2))) + 3)
-    ops_ms = ops / H100_F32_OPS_PER_S * 1e3
-    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
-                                                          "operations")
+    return _bound(b * n * (math.ceil(math.log2(max(n, 2))) + 3),
+                  b * n * (4 + 4 + 1 + 4))
+
+
+def flash_bound_ms(b, s, h, hd, window, dtype) -> tuple[float, str]:
+    """Least time for causal attention over (b, s, h, hd): read q, k, v
+    once and write o once; 4·hd operations (q·k and p·v) for each visible
+    (query, key) pair."""
+    q = torch.arange(s, dtype=torch.float64)
+    pairs = float((q + 1).clamp(max=window).sum()) if window else \
+        s * (s + 1) / 2
+    size = torch.finfo(dtype).bits // 8
+    return _bound(4.0 * b * h * hd * pairs, 4.0 * b * s * h * hd * size,
+                  dtype)
+
+
+def gmm_bound_ms(e, c, d, f, dtype) -> tuple[float, str]:
+    """Least time for (e, c, d) @ (e, d, f): read x and w once, write the
+    output once; 2·c·d·f operations an expert."""
+    size = torch.finfo(dtype).bits // 8
+    return _bound(2.0 * e * c * d * f,
+                  (e * c * d + e * d * f + e * c * f) * size, dtype)
 
 
 def random_tables(b: int, n: int, gen: torch.Generator, dev):
@@ -152,6 +254,346 @@ def kernel_vs_plain(backfill, dev) -> dict:
               f"({by}) scan_only_ms={scan_ms:.6f} "
               f"scan_bound_ms={scan_bound:.6f}")
     return rows
+
+
+def flash_vs_plain(dev) -> dict:
+    """Phase 2: the flash-attention kernel against ``attention_ref`` (and,
+    for the serve shapes, ``F.scaled_dot_product_attention`` timed as a
+    yardstick) at ``FLASH_SHAPES``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    rows = {}
+    for b, s, h, hd, window, dtype in FLASH_SHAPES:
+        q, k, v = (torch.randn((b, s, h, hd), generator=gen, device=dev)
+                   .to(dtype) for _ in range(3))
+        got = ops.flash_attention(q, k, v, causal=True, window=window)
+        want = ref.attention_ref(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        key = f"{b}x{s}x{h}x{hd}" + (f"w{window}" if window else "") + \
+            ("-f32" if dtype == torch.float32 else "")
+        check(err <= FLASH_ATOL[dtype],
+              f"flash_attention {key}: max err {err} > {FLASH_ATOL[dtype]}")
+        ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True,
+                                                 window=window), reps=10)
+        plain_ms = cuda_ms(lambda: ref.attention_ref(q, k, v, causal=True,
+                                                     window=window), reps=10)
+        lib_ms = None
+        if not window:
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True), reps=10)
+        bound, by = flash_bound_ms(b, s, h, hd, window, dtype)
+        rows[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=bound, bound_by=by)
+        print(f"kernel/flash_attention {key}: max_abs_err={err:.6g} "
+              f"(atol {FLASH_ATOL[dtype]}) ms={ms:.6f} "
+              f"plain_ms={plain_ms:.6f} library_ms={lib_ms} "
+              f"bound_ms={bound:.6f} ({by})")
+        del q, k, v, got, want
+    return rows
+
+
+def gmm_vs_plain(dev) -> dict:
+    """Phase 2: the grouped-matmul kernel against ``grouped_matmul_ref``
+    (and ``torch.bmm`` timed as a yardstick) at ``GMM_SHAPES``. bfloat16
+    inputs are scaled as activations and fan-in-scaled weights, so outputs
+    stay below 4, where one bfloat16 step is at most 0.0156."""
+    from repro_torch.kernels.moe_gmm import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    rows = {}
+    for e, c, d, f, dtype in GMM_SHAPES:
+        bf = dtype == torch.bfloat16
+        x = (torch.randn((e, c, d), generator=gen, device=dev)
+             * (0.5 if bf else 1.0)).to(dtype)
+        w = (torch.randn((e, d, f), generator=gen, device=dev)
+             * (d ** -0.5 if bf else 1.0)).to(dtype)
+        got = ops.grouped_matmul(x, w)
+        want = ref.grouped_matmul_ref(x, w)
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        rtol, atol = GMM_TOL[dtype]
+        check(bool((diff <= atol + rtol * want.float().abs()).all()),
+              f"grouped_matmul {(e, c, d, f, dtype)}: max err {err}")
+        ms = cuda_ms(lambda: ops.grouped_matmul(x, w), reps=10)
+        plain_ms = cuda_ms(lambda: ref.grouped_matmul_ref(x, w), reps=10)
+        lib_ms = cuda_ms(lambda: torch.bmm(x, w), reps=10)
+        bound, by = gmm_bound_ms(e, c, d, f, dtype)
+        key = f"{e}x{c}x{d}x{f}" + ("" if bf else "-f32")
+        rows[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=bound, bound_by=by)
+        print(f"kernel/grouped_matmul {key}: max_abs_err={err:.6g} "
+              f"(rtol {rtol} atol {atol}) ms={ms:.6f} "
+              f"plain_ms={plain_ms:.6f} library_ms={lib_ms:.6f} "
+              f"bound_ms={bound:.6f} ({by})")
+        del x, w, got, want, diff
+    return rows
+
+
+@contextlib.contextmanager
+def patched(*swaps):
+    """Within the block, each ``(module, name, fn)`` has ``module.name``
+    set to ``fn``; the originals come back after it."""
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def plain_kernels():
+    """The "twin" route: the kernel wrappers run their plain versions on
+    CUDA tensors too."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.kernels.moe_gmm import ops as gmm_ops
+    from repro_torch.kernels.moe_gmm import ref as gmm_ref
+
+    return patched((flash_ops, "flash_attention", flash_ref.attention_ref),
+                   (gmm_ops, "grouped_matmul", gmm_ref.grouped_matmul_ref))
+
+
+def recording_routes(log: list):
+    """Append, for each MoE dispatch, an (N, E) int8 table of each token's
+    routing to ``log``: 0 for an expert not picked, 1 for a pick dropped
+    by the capacity limit, 2 for a pick kept. A token's output follows
+    from its table smoothly; a change in the table changes it wholesale
+    (and a flip of one token can push another past an expert's
+    capacity)."""
+    from repro_torch.models import moe
+
+    dispatch = moe.dispatch
+
+    def spy(expert_idx, C, n_experts):
+        order, keep, dest = dispatch(expert_idx, C, n_experts)
+        kept = torch.empty_like(keep)
+        kept[order] = keep
+        table = torch.zeros((expert_idx.shape[0], n_experts),
+                            dtype=torch.int8, device=expert_idx.device)
+        table.scatter_(1, expert_idx,
+                       1 + kept.view(expert_idx.shape).to(torch.int8))
+        log.append(table)
+        return order, keep, dest
+    return patched((moe, "dispatch", spy))
+
+
+def _compare(res, other, v: int) -> dict:
+    """Largest and relative-rms logit differences of two routes: prefill
+    logits over all rows, first-decode logits over the rows whose first
+    greedy token agreed; and the share of greedy tokens that agree."""
+    same = (res["tokens"][:, 0] == other["tokens"][:, 0])
+    out = dict(token_agreement=float((res["tokens"] == other["tokens"])
+                                     .float().mean()))
+    for name, key, rows in (("prefill", "prefill_logits", None),
+                            ("decode", "decode_logits", same)):
+        a, b = (r[key].float()[..., :v] for r in (res, other))
+        if rows is not None:
+            a, b = a[rows], b[rows]
+        d = a - b
+        out[f"{name}_rows"] = a.shape[0]
+        out[f"{name}_max"] = float(d.abs().max()) if a.numel() else 0.0
+        out[f"{name}_rel"] = float(d.pow(2).mean().sqrt()
+                                   / b.pow(2).mean().sqrt()) \
+            if a.numel() else 0.0
+    return out
+
+
+def layer_check(tag: str, params, prompts, cfg) -> None:
+    """MoE: each layer of the kernel route (prefill, then the first decode
+    step) against the same layer of the twin and the plain route, on the
+    kernel route's own layer inputs, over the tokens the two routed alike
+    (see ``LAYER_TOL``)."""
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import transformer as T
+
+    block, calls, picks = T._block, [], []
+
+    def spy(lp, x, cfg_, **kw):
+        out, kv = block(lp, x, cfg_, **kw)
+        calls.append((lp, x, kw, out))
+        return out, kv
+
+    with patched((T, "_block", spy)), recording_routes(picks):
+        launch_serve.generate(params, prompts, cfg, 1, use_flash=True,
+                              use_moe_kernel=True)
+    failed = []
+    for route in ("twin", "plain"):
+        worst_max = worst_rel = 0.0
+        min_alike, at = 1.0, {}
+        for i, ((lp, x, kw, out), mine) in enumerate(zip(calls, picks)):
+            theirs = []
+            if route == "twin":
+                ctx, flags = plain_kernels(), {}
+            else:
+                ctx = contextlib.nullcontext()
+                flags = dict(use_flash=False, use_moe_kernel=False)
+            with ctx, recording_routes(theirs):
+                other, _ = block(lp, x, cfg, **dict(kw, **flags))
+            alike = (mine == theirs[0]).all(dim=1)
+            a = out.reshape(alike.numel(), -1)[alike].float()
+            b = other.reshape(alike.numel(), -1)[alike].float()
+            d = a - b
+            ratio = float(d.abs().max() / b.abs().max())
+            rel = float(d.pow(2).mean().sqrt() / b.pow(2).mean().sqrt())
+            share = float(alike.float().mean())
+            if ratio > worst_max:
+                worst_max, at["max"] = ratio, i
+            if rel > worst_rel:
+                worst_rel, at["rel"] = rel, i
+            if share < min_alike:
+                min_alike, at["alike"] = share, i
+        tol_max, tol_rel = LAYER_TOL[route]
+        print(f"{tag}/layers_vs_{route}: {len(calls)} layer calls "
+              f"(prefill and first decode step) worst max_abs_diff/max_abs="
+              f"{worst_max:.6f} worst rel_rms={worst_rel:.6f} "
+              f"least share routed alike={min_alike:.6f} (at layer calls "
+              f"{at}; tolerance: {tol_max}, {tol_rel}, share >= "
+              f"{LAYER_MIN_ALIKE})")
+        if not (worst_max <= tol_max and worst_rel <= tol_rel
+                and min_alike >= LAYER_MIN_ALIKE):
+            failed.append(route)
+    check(not failed, f"{tag}: layers of the kernel route differ from the "
+          f"{failed} route(s) beyond tolerance")
+
+
+def profile_serve(tag: str, params, prompts, cfg, steps: int = 4) -> None:
+    """Where the kernel route's time goes: one profiled prefill, then
+    ``steps`` profiled decode steps."""
+    from repro_torch.models.transformer import init_kv_caches
+    from repro_torch.serve.step import (greedy_sample, make_decode_step,
+                                        make_prefill_step)
+
+    prefill = make_prefill_step(cfg, use_flash=True, use_moe_kernel=True)
+    decode = make_decode_step(cfg, use_moe_kernel=True)
+    names = ("flash_kernel", "gmm_kernel")
+    device_profile(f"{tag}/profile_prefill",
+                   lambda: prefill(params, prompts), 1, "prefill", names)
+    b, s = prompts.shape
+    logits, pf = prefill(params, prompts)
+    caches = init_kv_caches(cfg, b, s + steps, device=prompts.device)
+    caches["k"][:, :, :s] = pf["k"]
+    caches["v"][:, :, :s] = pf["v"]
+    del pf
+    first = greedy_sample(logits)
+
+    def run():
+        tok = first
+        for i in range(steps):
+            out, _ = decode(params, tok, caches, s + i)
+            tok = greedy_sample(out)
+    device_profile(f"{tag}/profile_decode", run, steps, "decode steps",
+                   names)
+
+
+def serve_phase(family: str, dev) -> dict:
+    """Phases 5 and 6: ``launch.serve.serve`` at full size through the
+    kernels (the main path; the counts are reset just before it and read
+    just after), then the same params and prompts through the kernel route
+    again (steady times), the twin route and the plain route (no kernel
+    may launch in either), compared; for the MoE model layer by layer
+    too; then a profiled prefill and decode."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.moe_gmm import ops as gmm_ops
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models.transformer import flatten, padded_vocab
+
+    counters = (flash_ops.KERNEL_LAUNCHES, gmm_ops.KERNEL_LAUNCHES)
+
+    def reset():
+        for cnt in counters:
+            for k in cnt:
+                cnt[k] = 0
+
+    def read():
+        return {k: v for cnt in counters for k, v in cnt.items()}
+
+    arch, batch, prompt_len, gen = SERVE[family]
+    tag = f"serve/{family}"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t0 = time.perf_counter()
+    res = launch_serve.serve(arch, reduced=False, batch=batch,
+                             prompt_len=prompt_len, gen=gen, seed=0,
+                             device=dev)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read()
+    peak = torch.cuda.max_memory_allocated()
+    cfg, params, prompts = res["cfg"], res["params"], res["prompts"]
+    leaves = flatten(params).values()
+    n_params = sum(t.numel() for t in leaves)
+    weight_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    print(f"{tag}: arch={arch} layers={cfg.n_layers} d_model={cfg.d_model} "
+          f"params={n_params} weight_bytes={weight_bytes} batch={batch} "
+          f"prompt_len={prompt_len} gen={gen}")
+    if family == "moe":
+        print(f"{tag}/cut: none (all {cfg.n_layers} layers at full width)")
+
+    v = cfg.vocab_size
+    pf = res["prefill_logits"].float()
+    check(pf.shape == (batch, 1, padded_vocab(cfg))
+          and bool(torch.isfinite(pf[..., :v]).all()),
+          f"{tag}: prefill logits not finite of shape ({batch}, 1, V)")
+    toks = res["tokens"]
+    check(toks.shape == (batch, gen) and int(toks.min()) >= 0
+          and int(toks.max()) < v, f"{tag}: tokens out of range")
+
+    routes = {"kernel": res}
+    routes["kernel_steady"] = launch_serve.generate(
+        params, prompts, cfg, gen, use_flash=True, use_moe_kernel=True)
+    check(torch.equal(toks, routes["kernel_steady"]["tokens"]),
+          f"{tag}: the kernel route is not repeatable")
+    reset()
+    with plain_kernels():
+        routes["twin"] = launch_serve.generate(
+            params, prompts, cfg, gen, use_flash=True, use_moe_kernel=True)
+    routes["plain"] = launch_serve.generate(
+        params, prompts, cfg, gen, use_flash=False, use_moe_kernel=False)
+    check(not any(read().values()),
+          f"{tag}: the twin or plain route launched kernels: {read()}")
+
+    for route, r in routes.items():
+        total = r["prefill_s"] + r["decode_s"]
+        print(f"{tag}/{route}: prefill_ms={r['prefill_s'] * 1e3:.3f} "
+              f"prefill_tok_per_s={batch * prompt_len / r['prefill_s']:.1f} "
+              f"decode_ms_per_step={r['decode_s'] * 1e3 / gen:.3f} "
+              f"tok_per_s={batch * gen / total:.3f}")
+    print(f"{tag}: serve_wall_s={wall_s:.3f} (init and prompts included) "
+          f"peak_mem_bytes={peak} launches={launches}")
+    failed = []
+    for other, (tol_max, tol_rel) in SERVE_TOL.items():
+        c = _compare(res, routes[other], v)
+        checked = family == "dense"
+        print(f"{tag}/vs_{other}: prefill_logits max_abs_diff="
+              f"{c['prefill_max']:.6f} rel_rms={c['prefill_rel']:.6f} over "
+              f"{c['prefill_rows']} rows; first_decode_logits max_abs_diff="
+              f"{c['decode_max']:.6f} rel_rms={c['decode_rel']:.6f} over "
+              f"{c['decode_rows']} of {batch} rows (same first token); "
+              f"greedy_token_agreement={c['token_agreement']:.6f} " + (
+                  f"(tolerance: max {tol_max}, rel_rms {tol_rel})"
+                  if checked else "(not checked: MoE routing, see the "
+                  "layer check)"))
+        if checked and not (c["decode_rows"] > 0 and all(
+                c[f"{n}_max"] <= tol_max and c[f"{n}_rel"] <= tol_rel
+                for n in ("prefill", "decode"))):
+            failed.append(other)
+    check(not failed, f"{tag}: the kernel route differs from the "
+          f"{failed} route(s) beyond tolerance")
+    del routes, res
+    if family == "moe":
+        layer_check(tag, params, prompts, cfg)
+    profile_serve(tag, params, prompts, cfg)
+    del params, prompts
+    torch.cuda.empty_cache()
+    return dict(launches=launches)
 
 
 def strategy_rows(grid, m: dict) -> None:
@@ -273,16 +715,15 @@ def full_size(grid_mod, policies, backfill, dev, RUNNING) -> dict:
     return dict(launches=launches, inputs=first_inputs, state=s0)
 
 
-def profile_window(events_mod, state, n_steps: int = 16) -> None:
-    """Device busy and idle share over a short window of full-size event
-    steps, and the kernels that took the device's time (torch.profiler;
-    prints "not measured" if the trace holds no device time)."""
+def device_profile(tag: str, run, n_steps: int, what: str,
+                   kernels: tuple[str, ...]) -> None:
+    """Device busy and idle share over one call of ``run`` (after one
+    warm-up call), the kernels that took the device's time, and the share
+    of each named kernel (torch.profiler; prints "not measured" if the
+    trace holds no device time). The profiler's own host cost inflates the
+    wall time, so the idle share is an upper bound."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    def run():
-        return events_mod.simulate(state, n_steps=n_steps, chunk_steps=0,
-                                   pred_mode="greedy")
 
     run()
     torch.cuda.synchronize()
@@ -300,21 +741,29 @@ def profile_window(events_mod, state, n_steps: int = 16) -> None:
             and ev.self_device_time_total > 0]
     busy_us = sum(r[0] for r in rows)
     if busy_us <= 0:
-        print(f"profile: {n_steps} steps wall_us={wall_us:.3f} device "
+        print(f"{tag}: {n_steps} {what} wall_us={wall_us:.3f} device "
               f"time not measured (the trace holds no device events)")
         return
     launches = sum(r[2] for r in rows)
-    print(f"profile: {n_steps} full-size steps wall_us={wall_us:.3f} "
+    print(f"{tag}: {n_steps} {what} wall_us={wall_us:.3f} "
           f"device_busy_us={busy_us:.3f} "
           f"idle_share={1.0 - busy_us / wall_us:.6f} "
           f"device_launches={launches} "
           f"launches_per_step={launches / n_steps:.1f}")
     for dev, key, count in sorted(rows, reverse=True)[:8]:
-        print(f"profile/top: {dev:.3f} us x{count} {key[:90]}")
-    scan = [r for r in rows if "freed_scan" in r[1]]
-    scan_us = sum(r[0] for r in scan)
-    print(f"profile/freed_scan: {scan_us:.3f} us x{sum(r[2] for r in scan)} "
-          f"= {scan_us / busy_us:.6f} of device busy time")
+        print(f"{tag}/top: {dev:.3f} us x{count} {key[:90]}")
+    for name in kernels:
+        mine = [r for r in rows if name in r[1]]
+        us = sum(r[0] for r in mine)
+        print(f"{tag}/{name}: {us:.3f} us x{sum(r[2] for r in mine)} "
+              f"= {us / busy_us:.6f} of device busy time")
+
+
+def profile_window(events_mod, state, n_steps: int = 16) -> None:
+    """Where a full-size event step's time goes (16 steps from t=0)."""
+    device_profile("profile", lambda: events_mod.simulate(
+        state, n_steps=n_steps, chunk_steps=0, pred_mode="greedy"),
+        n_steps, "full-size steps", ("freed_scan",))
 
 
 def main() -> None:
@@ -330,21 +779,26 @@ def main() -> None:
 
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     print(card_line())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
 
     # phase 1: build every kernel, one nvcc per source, in parallel
+    sources = [Path(k["source"]).stem for k in KERNELS.values()]
     t0 = time.perf_counter()
-    cuda_build.build(list(KERNELS))
-    print(f"build: {sorted(KERNELS)} in {time.perf_counter() - t0:.3f} s")
-    for name in KERNELS:
+    cuda_build.build(sources)
+    print(f"build: {sorted(sources)} in {time.perf_counter() - t0:.3f} s")
+    for name in sources:
         for line in cuda_build.BUILD_INFO[name]["log"].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"build/{name}: {line.strip()}")
 
     # phase 2: kernels against their plain versions
     checks = kernel_vs_plain(backfill, dev)
+    flash_rows = flash_vs_plain(dev)
+    gmm_rows = gmm_vs_plain(dev)
 
     # phase 3: the repository's Table-1 setting, kernel vs plain path
     table1_setting(grid_mod, policies, backfill, dev)
@@ -375,7 +829,33 @@ def main() -> None:
                  ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                  library_ms=None, max_abs_diff_vs_plain=err, kernel_ms=ms,
                  shapes={f"{bb}x{nn}": v for (bb, nn), v in checks.items()})
-    print(json.dumps({"kernels": [entry]}))
+
+    # phases 5 and 6: model serving (counts reset inside, per path)
+    served = {fam: serve_phase(fam, dev) for fam in SERVE}
+    by_path = {name: {f"serve/{fam}": r["launches"][name]
+                      for fam, r in served.items()}
+               for name in ("flash_attention", "grouped_matmul")}
+    check(by_path["flash_attention"]["serve/dense"] > 0
+          and by_path["flash_attention"]["serve/moe"] > 0,
+          f"serving never launched flash_attention: {by_path}")
+    check(by_path["grouped_matmul"]["serve/moe"] > 0,
+          f"MoE serving never launched grouped_matmul: {by_path}")
+
+    entries = [entry]
+    # each kernel's numbers at its first serve path's own shape
+    for name, rows, key in (("flash_attention", flash_rows, "8x2048x14x64"),
+                            ("grouped_matmul", gmm_rows,
+                             "64x480x2048x1408")):
+        r = rows[key]
+        entries.append(dict(
+            name=name, **KERNELS[name],
+            launches=sum(by_path[name].values()),
+            launches_by_path=by_path[name],
+            max_abs_err=max(v["max_abs_err"] for v in rows.values()),
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"], shape=key,
+            shapes=rows))
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

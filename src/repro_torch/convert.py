@@ -5,8 +5,9 @@ The reference keeps its states as pytrees of arrays (NamedTuples).
 numpy arrays (or anything ``numpy.asarray`` accepts) and return the
 port's tensors, field by field and dtype for dtype: float32 stays
 float32, int32 stays int32, bool stays bool, and uint32 PRNG keys become
-the port's int64 keys with the same values. Nothing here imports the
-reference: it reads fields by name.
+the port's int64 keys with the same values. ``lm_params`` takes the
+reference's language-model parameter tree (``init_params``) and returns
+the port's. Nothing here imports the reference: it reads fields by name.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 
 from repro_torch.core.asa import ASAState
 from repro_torch.device import resolve_device
+from repro_torch.models import transformer
 from repro_torch.xsim.state import ScenarioState
 
 _DTYPES = {np.dtype(np.float32): torch.float32,
@@ -70,3 +72,37 @@ def to_numpy(state) -> dict[str, np.ndarray]:
         else:
             out[f] = v.cpu().numpy()
     return out
+
+
+def lm_params(tree, cfg, device: str | torch.device = "cpu",
+              dtype: torch.dtype | None = None) -> dict:
+    """The port's transformer parameters from the reference's
+    ``init_params(key, cfg)`` tree (nested dicts, numpy or jax leaves,
+    per-layer leaves stacked on a leading L axis).
+
+    The port keeps the reference's layout (``transformer.param_specs``), so
+    each leaf goes to the same path. Matrices, embeddings and the attention
+    and MLP biases are stored in ``dtype`` (default: ``cfg.dtype``), the
+    type the reference casts them to at use, which is exact and halves the
+    memory of a bfloat16 model; norm scales and biases stay float32, the
+    type the reference applies them in. Raises on a leaf of ``tree`` the
+    port has no place for, on a port leaf missing from ``tree``, and on a
+    shape that differs."""
+    dev = resolve_device(device)
+    dtype = dtype or transformer.act_dtype(cfg)
+    flat = transformer.flatten(tree)
+    specs = transformer.flat_specs(cfg)
+    extra = sorted(flat.keys() - specs.keys())
+    missing = sorted(specs.keys() - flat.keys())
+    if extra or missing:
+        raise ValueError(f"lm_params: leaves left over {extra}, missing "
+                         f"{missing}")
+    out = {}
+    for path, leaf in specs.items():
+        a = np.asarray(flat[path], dtype=np.float32)
+        if a.shape != leaf.shape:
+            raise ValueError(f"lm_params: {path} has shape {a.shape}, the "
+                             f"port wants {leaf.shape}")
+        out[path] = torch.from_numpy(a.copy()).to(
+            device=dev, dtype=torch.float32 if leaf.f32 else dtype)
+    return transformer.unflatten(out)

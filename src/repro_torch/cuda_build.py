@@ -94,3 +94,15 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_target(name)[1]))
         _LIBS[name] = lib
     return lib
+
+
+def function(name: str, symbol: str, n_ptrs: int, n_ints: int):
+    """The C launcher ``symbol`` of kernel library ``name``, typed: its
+    ``n_ptrs`` device pointers, then ``n_ints`` ints, then the stream, all
+    declared (a pointer passed untyped is cut to 32 bits); returns int."""
+    fn = getattr(load(name), symbol)
+    if fn.argtypes is None:
+        p = ctypes.c_void_p
+        fn.argtypes = [p] * n_ptrs + [ctypes.c_int] * n_ints + [p]
+        fn.restype = ctypes.c_int
+    return fn

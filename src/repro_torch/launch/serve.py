@@ -1,0 +1,122 @@
+"""Batched serving entry point: prefill a batch of prompts, decode greedily
+(port of ``repro.launch.serve``, the ``dense`` and ``moe`` families).
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
+      --device cuda --batch 8 --prompt-len 2048 --gen 32
+
+On the card ``serve`` runs prefill with ``use_flash=True,
+use_moe_kernel=True`` and decode with ``use_moe_kernel=True``, so prefill
+attention and every MoE expert FFN go through the hand-written CUDA
+kernels (``csrc/flash_attention.cu``, ``csrc/moe_gmm.cu``). This differs
+from ``repro.launch.serve``, whose default route is XLA's (``sdpa`` and
+einsum expert FFNs): the reference reaches its Pallas kernels only behind
+those flags and only on a TPU, and this port exists to run the kernels.
+On CPU tensors (``--device cpu``) the same flags run the kernels' plain
+versions.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.configs import ARCHS, get_arch
+from repro_torch.device import resolve_device
+from repro_torch.models.transformer import init_kv_caches, init_lm
+from repro_torch.serve.step import (greedy_sample, make_decode_step,
+                                    make_prefill_step)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def generate(params: dict, prompts: torch.Tensor, cfg, gen: int, *,
+             use_flash: bool = False, use_moe_kernel: bool = False) -> dict:
+    """Prefill ``prompts`` (B, S), fill a (S + gen)-long KV cache with the
+    prefill's keys and values, then decode greedily: ``gen`` decode steps,
+    as the reference's loop does (the last step's token is not kept).
+
+    Returns ``tokens`` (B, gen), ``prefill_logits`` (B, 1, V_padded), the
+    first decode step's ``decode_logits`` (None if gen is 0), and the host
+    times ``prefill_s`` (prefill and cache fill) and ``decode_s``, each
+    ending in a device synchronise."""
+    B, S = prompts.shape
+    dev = prompts.device
+    prefill = make_prefill_step(cfg, use_flash=use_flash,
+                                use_moe_kernel=use_moe_kernel)
+    decode = make_decode_step(cfg, use_moe_kernel=use_moe_kernel)
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, pf = prefill(params, prompts)
+    caches = init_kv_caches(cfg, B, S + gen, device=dev)
+    caches["k"][:, :, :S] = pf["k"]
+    caches["v"][:, :, :S] = pf["v"]
+    del pf
+    _sync(dev)
+    t1 = time.perf_counter()
+    prefill_logits, first = logits, None
+    token = greedy_sample(logits)
+    generated = []
+    for i in range(gen):
+        generated.append(token)
+        logits, caches = decode(params, token, caches, S + i)
+        if i == 0:
+            first = logits
+        token = greedy_sample(logits)
+    _sync(dev)
+    t2 = time.perf_counter()
+    tokens = (torch.cat(generated, dim=1) if generated
+              else torch.empty((B, 0), dtype=torch.int64, device=dev))
+    return {"tokens": tokens, "prefill_logits": prefill_logits,
+            "decode_logits": first, "prefill_s": t1 - t0,
+            "decode_s": t2 - t1}
+
+
+def serve(arch: str, *, reduced: bool = True, batch: int = 4,
+          prompt_len: int = 32, gen: int = 16, seed: int = 0,
+          device: str | torch.device = "cuda") -> dict:
+    """Serve ``batch`` random prompts of ``arch`` with random weights (both
+    from ``seed``) through the kernels; returns ``generate``'s results plus
+    ``elapsed_s``, ``tok_per_s``, the ``cfg``, and the ``params`` and
+    ``prompts`` it served, so a caller can replay them on another route."""
+    dev = resolve_device(device)
+    cfg = get_arch(arch)
+    if reduced:
+        cfg = cfg.reduced()
+    make_prefill_step(cfg)   # raises for a family that is not ported
+    params = init_lm(cfg, seed=seed, device=dev)
+    prompts = torch.randint(
+        0, cfg.vocab_size, (batch, prompt_len), device=dev,
+        generator=torch.Generator(device=dev).manual_seed(seed))
+    res = generate(params, prompts, cfg, gen, use_flash=True,
+                   use_moe_kernel=True)
+    dt = res["prefill_s"] + res["decode_s"]
+    res.update(elapsed_s=dt, tok_per_s=(batch * gen) / dt if gen else 0.0,
+               cfg=cfg, params=params, prompts=prompts)
+    return res
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True, choices=sorted(ARCHS))
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the default) or cpu")
+    args = ap.parse_args()
+    res = serve(args.arch, reduced=args.reduced, batch=args.batch,
+                prompt_len=args.prompt_len, gen=args.gen, device=args.device)
+    print(f"generated {tuple(res['tokens'].shape)} in "
+          f"{res['elapsed_s']:.1f}s ({res['tok_per_s']:.1f} tok/s; prefill "
+          f"{res['prefill_s'] * 1e3:.1f} ms, decode "
+          f"{res['decode_s'] * 1e3 / max(args.gen, 1):.1f} ms/step)")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,114 @@
+"""Mixture-of-Experts layer: top-k router + sort-based capacity dispatch
+(port of ``repro.models.moe``).
+
+The grouped expert FFN runs through ``kernels.moe_gmm.ops.grouped_ffn``
+(the CUDA kernel on CUDA tensors) with ``use_kernel``, else as plain
+einsums. Routing follows the reference exactly:
+
+* ``lax.top_k`` puts the lower expert index first among equal
+  probabilities; a stable descending sort does the same (router logits are
+  rounded to the activation type, so ties among 64 experts are common in
+  bfloat16);
+* the dispatch sorts slots by expert with a stable argsort, counts them
+  with ``bincount``, keeps the first C of each expert and sends the rest to
+  the drop row E·C;
+* the combine adds each token's top_k weighted rows in ascending expert
+  order, the order in which the reference's scatter-add meets them, one
+  rounded add at a time, without atomics: the result does not depend on
+  the run.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.moe_gmm import ops as gmm_ops
+from repro_torch.kernels.moe_gmm.ref import activation
+from repro_torch.models.layers import _dense_init
+
+
+def init_moe(cfg: ModelConfig) -> dict:
+    m = cfg.moe
+    return {
+        "router": _dense_init((cfg.d_model, m.n_experts), scale=0.02),
+        "w_gate": _dense_init((m.n_experts, cfg.d_model, m.d_ff_expert)),
+        "w_up": _dense_init((m.n_experts, cfg.d_model, m.d_ff_expert)),
+        "w_down": _dense_init((m.n_experts, m.d_ff_expert, cfg.d_model)),
+    }
+
+
+def capacity(n_tokens: int, cfg: ModelConfig) -> int:
+    m = cfg.moe
+    c = int(n_tokens * m.top_k * m.capacity_factor / m.n_experts)
+    return max(8, -(-c // 8) * 8)  # round up to 8 for lane alignment
+
+
+def route(p: dict, xt: torch.Tensor, cfg: ModelConfig):
+    """Router for (N, D) tokens -> (gate_vals (N, k) float32, expert_idx
+    (N, k) int64), experts in descending probability, ties to the lower
+    index, gates renormalised over the k picked."""
+    k = cfg.moe.top_k
+    logits = (xt @ p["router"]).float()
+    probs = torch.softmax(logits, dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, expert_idx = vals[:, :k], idx[:, :k]
+    return gate_vals / gate_vals.sum(dim=-1, keepdim=True), expert_idx
+
+
+def dispatch(expert_idx: torch.Tensor, C: int, n_experts: int):
+    """Sort-based dispatch of the (N, k) picks into E·C capacity slots.
+
+    Returns (order, keep, dest): ``order`` sorts the flat slots by expert
+    (stable), ``keep[s]`` says sorted slot s fits its expert's capacity and
+    ``dest[s]`` is its row in the (E·C + 1, D) buffer (E·C: dropped)."""
+    flat_e = expert_idx.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    se = flat_e[order]
+    counts = torch.bincount(se, minlength=n_experts)
+    starts = torch.cumsum(counts, dim=0) - counts
+    pos_in_e = torch.arange(se.numel(), device=se.device) - starts[se]
+    keep = pos_in_e < C
+    dest = torch.where(keep, se * C + pos_in_e, n_experts * C)
+    return order, keep, dest
+
+
+def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig,
+              use_kernel: bool = False) -> torch.Tensor:
+    """x: (B, S, D) -> (B, S, D)."""
+    m = cfg.moe
+    B, S, D = x.shape
+    N, E, k = B * S, m.n_experts, m.top_k
+    xt = x.reshape(N, D)
+    gate_vals, expert_idx = route(p, xt, cfg)
+
+    # ---- sort-based dispatch with capacity dropping
+    C = capacity(N, cfg)
+    order, keep, dest = dispatch(expert_idx, C, E)
+    sg = gate_vals.reshape(-1).to(x.dtype)[order]
+    stok = torch.div(order, k, rounding_mode="floor")  # token of each slot
+    buf = torch.zeros((E * C + 1, D), dtype=x.dtype, device=x.device)
+    buf[dest] = xt[stok] * keep[:, None].to(x.dtype)   # row E·C is dropped
+    eb = buf[:-1].view(E, C, D)
+
+    # ---- grouped expert FFN (hot spot)
+    if use_kernel:
+        h = gmm_ops.grouped_ffn(eb, p["w_gate"], p["w_up"], p["w_down"],
+                                mlp=cfg.mlp)
+    else:
+        g = activation(cfg.mlp)(torch.einsum("ecd,edf->ecf", eb,
+                                             p["w_gate"]))
+        u = torch.einsum("ecd,edf->ecf", eb, p["w_up"])
+        h = torch.einsum("ecf,efd->ecd", g * u, p["w_down"])
+
+    # ---- combine: each token's k weighted rows, in ascending expert order
+    rows = torch.cat([h.reshape(E * C, D),
+                      torch.zeros((1, D), dtype=x.dtype, device=x.device)])
+    contrib = rows[dest] * sg[:, None]                 # (N·k, D), sorted
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(order.numel(), device=order.device)
+    per_tok = rank.view(N, k).sort(dim=1).values       # ascending expert
+    out = contrib[per_tok[:, 0]]
+    for j in range(1, k):
+        out = out + contrib[per_tok[:, j]]
+    return out.reshape(B, S, D)

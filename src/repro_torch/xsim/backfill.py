@@ -22,8 +22,6 @@ submit times are broken by row index, as in the reference.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch import cuda_build
@@ -121,27 +119,17 @@ def freed_scan(ends_sorted: torch.Tensor, cores_sorted: torch.Tensor,
     rows, n = ends_sorted.shape
     if n > 29_056:
         raise ValueError(f"freed_scan holds at most 29056 slots, got {n}")
-    lib = _freed_scan_lib()
+    launch = cuda_build.function("freed_scan", "freed_scan_launch", 4, 2)
     out = torch.empty_like(ends_sorted)
     with torch.cuda.device(ends_sorted.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.freed_scan_launch(ends_sorted.data_ptr(),
+        rc = launch(ends_sorted.data_ptr(),
                                    cores_sorted.data_ptr(), order.data_ptr(),
                                    out.data_ptr(), rows, n, stream)
     if rc != 0:
         raise RuntimeError(f"freed_scan launch failed: cudaError {rc}")
     KERNEL_LAUNCHES["freed_scan"] += 1
     return out
-
-
-def _freed_scan_lib() -> ctypes.CDLL:
-    lib = cuda_build.load("freed_scan")
-    fn = lib.freed_scan_launch
-    if fn.argtypes is None:   # pointers as c_void_p, or ctypes cuts them
-        p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, p, ctypes.c_int, ctypes.c_int, p]
-        fn.restype = ctypes.c_int
-    return lib
 
 
 def freed_matrix(ends: torch.Tensor, cores: torch.Tensor,

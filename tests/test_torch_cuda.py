@@ -9,14 +9,25 @@ the ``cuda`` marker and skips without a GPU. This file imports neither
 import pytest
 import torch
 
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention import ref as flash_ref
+from repro_torch.kernels.moe_gmm import ops as gmm_ops
+from repro_torch.kernels.moe_gmm import ref as gmm_ref
 from repro_torch.xsim import backfill
+
+# the tolerances of the reference's own kernel tests (tests/test_kernels.py)
+FLASH_ATOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+GMM_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-4),
+           torch.bfloat16: dict(rtol=0, atol=3e-2)}
 
 
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the freed_scan kernel has no CPU "
-                    "or interpret mode")
+        pytest.skip("needs an NVIDIA GPU: the hand-written CUDA kernels have "
+                    "no CPU or interpret mode")
+    torch.backends.cuda.matmul.allow_tf32 = False   # full-f32 plain versions
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -56,3 +67,94 @@ def test_freed_scan_refuses_bad_inputs(cuda_device):
         backfill.freed_scan(e.t().contiguous().t(), c, order)
     with pytest.raises(ValueError, match="shapes"):
         backfill.freed_scan(e, c[:, :4].contiguous(), order)
+
+
+def _randn(shape, seed, dev, dtype, scale=1.0):
+    gen = torch.Generator().manual_seed(seed)
+    return (torch.randn(shape, generator=gen) * scale).to(dev, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,hd,causal,window,dtype", [
+    (2, 256, 4, 64, True, 0, torch.float32),
+    (2, 256, 4, 64, False, 0, torch.float32),
+    (1, 1000, 3, 128, True, 256, torch.float32),
+    (2, 77, 2, 72, True, 0, torch.float32),
+    (1, 130, 2, 256, True, 0, torch.float32),
+    (1, 64, 1, 8, True, 16, torch.float32),
+    (8, 2048, 14, 64, True, 0, torch.bfloat16),
+    (4, 1024, 16, 128, True, 0, torch.bfloat16),
+    (1, 300, 2, 256, True, 100, torch.bfloat16),
+])
+def test_flash_attention_kernel_against_plain(cuda_device, b, s, h, hd,
+                                              causal, window, dtype):
+    q, k, v = (_randn((b, s, h, hd), i, cuda_device, dtype)
+               for i in range(3))
+    before = flash_ops.KERNEL_LAUNCHES["flash_attention"]
+    got = flash_ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_ops.KERNEL_LAUNCHES["flash_attention"] == before + 1
+    want = flash_ref.attention_ref(q, k, v, causal=causal, window=window)
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=FLASH_ATOL[dtype], rtol=0)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_refuses_bad_inputs(cuda_device):
+    q = _randn((1, 16, 2, 64), 0, cuda_device, torch.float32)
+    with pytest.raises(TypeError):
+        flash_ops.flash_attention(q.double(), q.double(), q.double())
+    with pytest.raises(TypeError):
+        flash_ops.flash_attention(q, q.bfloat16(), q)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_ops.flash_attention(q.transpose(1, 2).contiguous()
+                                  .transpose(1, 2), q, q)
+    with pytest.raises(ValueError, match="shapes"):
+        flash_ops.flash_attention(q, q[:, :, :1].contiguous(), q)
+    odd = _randn((1, 16, 2, 60), 0, cuda_device, torch.float32)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        flash_ops.flash_attention(odd, odd, odd)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_ops.flash_attention(q, q.cpu(), q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,c,d,f,dtype", [
+    (4, 128, 256, 512, torch.float32), (8, 128, 128, 1024, torch.float32),
+    (3, 37, 100, 130, torch.float32), (2, 8, 176, 88, torch.float32),
+    (5, 1, 33, 1, torch.float32),
+    (64, 480, 2048, 1408, torch.bfloat16), (64, 480, 1408, 2048,
+                                            torch.bfloat16),
+    (64, 8, 2048, 1408, torch.bfloat16), (3, 17, 100, 130, torch.bfloat16),
+])
+def test_grouped_matmul_kernel_against_plain(cuda_device, e, c, d, f, dtype):
+    x = _randn((e, c, d), 0, cuda_device, dtype,
+               1.0 if dtype == torch.float32 else 0.5)
+    w = _randn((e, d, f), 1, cuda_device, dtype,
+               1.0 if dtype == torch.float32 else d ** -0.5)
+    before = gmm_ops.KERNEL_LAUNCHES["grouped_matmul"]
+    got = gmm_ops.grouped_matmul(x, w)
+    torch.cuda.synchronize()
+    assert gmm_ops.KERNEL_LAUNCHES["grouped_matmul"] == before + 1
+    assert got.dtype == dtype and got.shape == (e, c, f)
+    torch.testing.assert_close(got.float(),
+                               gmm_ref.grouped_matmul_ref(x, w).float(),
+                               **GMM_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_grouped_matmul_kernel_refuses_bad_inputs(cuda_device):
+    x = _randn((2, 8, 16), 0, cuda_device, torch.float32)
+    w = _randn((2, 16, 24), 1, cuda_device, torch.float32)
+    with pytest.raises(TypeError):
+        gmm_ops.grouped_matmul(x, w.bfloat16())
+    with pytest.raises(TypeError):
+        gmm_ops.grouped_matmul(x.double(), w.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        gmm_ops.grouped_matmul(x, w.transpose(1, 2).contiguous()
+                               .transpose(1, 2))
+    with pytest.raises(ValueError, match="E, D, F"):
+        gmm_ops.grouped_matmul(x, w[:, :8].contiguous())
+    with pytest.raises(ValueError, match="CUDA"):
+        gmm_ops.grouped_matmul(x, w.cpu())
