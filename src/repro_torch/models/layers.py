@@ -160,48 +160,6 @@ def sdpa(q, k, v, *, causal: bool, window: int = 0,
     return torch.einsum("bhqs,bshk->bqhk", w, v)
 
 
-def chunked_sdpa(q, k, v, *, causal: bool, window: int = 0,
-                 chunk: int = 1024) -> torch.Tensor:
-    """Flash-equivalent attention in plain torch: iterate kv blocks with a
-    running (max, denom, acc) in float32, as the reference's twin of its
-    flash kernel does."""
-    B, Sq, H, hd = q.shape
-    Sk = k.shape[1]
-    chunk = min(chunk, Sk)
-    if Sk % chunk:
-        raise ValueError(f"chunked_sdpa wants Sk % chunk == 0, got {Sk}, "
-                         f"{chunk}")
-    scale = 1.0 / math.sqrt(hd)
-    qf = q.float()
-    m = torch.full((B, H, Sq), -1e30, dtype=torch.float32, device=q.device)
-    denom = torch.zeros((B, H, Sq), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((B, Sq, H, hd), dtype=torch.float32, device=q.device)
-    qpos = torch.arange(Sq, device=q.device)
-    for ci in range(Sk // chunk):
-        k0 = ci * chunk
-        if causal and k0 > Sq - 1:
-            break
-        kc = k[:, k0:k0 + chunk].float()
-        vc = v[:, k0:k0 + chunk].float()
-        s = torch.einsum("bqhk,bshk->bhqs", qf, kc) * scale
-        kpos = k0 + torch.arange(chunk, device=q.device)
-        mask = torch.ones((Sq, chunk), dtype=torch.bool, device=q.device)
-        if causal:
-            mask &= kpos[None, :] <= qpos[:, None]
-        if window:
-            mask &= kpos[None, :] > qpos[:, None] - window
-        s = torch.where(mask[None, None], s, -1e30)
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        p_ = torch.exp(s - m_new[..., None])
-        alpha = torch.exp(m - m_new)
-        denom = denom * alpha + p_.sum(dim=-1)
-        acc = (acc * alpha.permute(0, 2, 1)[..., None]
-               + torch.einsum("bhqs,bshk->bqhk", p_, vc))
-        m = m_new
-    out = acc / denom.clamp_min(1e-20).permute(0, 2, 1)[..., None]
-    return out.to(q.dtype)
-
-
 def attention(
     p: dict,
     x: torch.Tensor,

@@ -168,16 +168,16 @@ def _embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     return x
 
 
-def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
-            use_flash: bool = False, use_moe_kernel: bool = False
+def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig
             ) -> torch.Tensor:
-    """Teacher-forced forward -> logits (B, S, V_padded)."""
+    """Teacher-forced forward -> logits (B, S, V_padded), through the plain
+    route (``sdpa`` and einsum expert FFNs), as the reference's default."""
     x = _embed(params, tokens, cfg)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     for i in range(cfg.n_layers):
         x, _ = _block(_layer(params["layers"], i), x, cfg,
-                      positions=positions, use_flash=use_flash,
-                      use_moe_kernel=use_moe_kernel)
+                      positions=positions, use_flash=False,
+                      use_moe_kernel=False)
     return _unembed(params, x, cfg)
 
 
