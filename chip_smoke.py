@@ -7,14 +7,14 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 It builds every hand-written kernel of the port from the sources in the
 checkout, holds each kernel against its plain PyTorch version on the
 card, drives the port's main paths (the fleet simulator's Table-1 sweep,
-and model serving of a dense and an MoE transformer), and checks the
-results. Phases:
+and model serving of a dense and an MoE transformer and of RWKV-6), and
+checks the results. Phases:
 
 1. the card (``nvidia-smi`` name and power limit) and the kernel build;
 2. each kernel against its plain version at the shapes its path uses
-   (``freed_scan`` bitwise; ``flash_attention`` and ``grouped_matmul``
-   within the tolerances of the reference's own kernel tests and within
-   limits relative to the output, row by row), with its
+   (``freed_scan`` bitwise; ``flash_attention``, ``grouped_matmul`` and
+   ``wkv6`` within the tolerances of the reference's own kernel tests
+   and within limits relative to the output, row by row), with its
    time, the plain version's time, one library call's time and its bound;
 3. the Table-1 path at the repository's own benchmark setting
    (``benchmarks/run.py``'s xsim leg: 1/64-size centers, policies 0-2,
@@ -39,7 +39,23 @@ results. Phases:
 7. moonshot end to end where routing is not chaotic: full width, depth
    cut to 4 layers, float32, the kernel route's logits and greedy tokens
    held against the twin and plain routes; bfloat16 at 4 layers and at
-   48 from another seed printed beside it.
+   48 from another seed printed beside it;
+8. serving ``rwkv6-3b`` at full width and depth (32 layers, d2560, 40
+   heads of 64; batch 8, prompt 2048, 32 new tokens) through
+   ``launch.serve.serve``, whose prefill runs the ``wkv6`` kernel in
+   every layer, against the twin route (the kernel swapped for its plain
+   version, which is also the reference's default route): the bfloat16
+   logits reported beside a witness that runs no kernel, each layer held
+   on the kernel route's own inputs, and the logits held end to end in
+   float32 at full depth; times, peak memory and a profiled prefill and
+   decode;
+9. RWKV-6 against the reference's own serving route: full width, depth
+   cut to 4 layers, a ragged prompt (500 = 3 × 128 + 116, so the tail
+   block runs the kernel from a carried state), the kernel route's
+   ``generate`` against the token-by-token prompt loop of the
+   reference's serve (``decode_step`` one token at a time, no kernel):
+   in float32 greedy tokens equal and logits and the state after the
+   prompt within limits, in bfloat16 logits within limits.
 
 Matrix products of the plain versions run in full float32 where their
 inputs are float32: TF32 is switched off for matmuls and cuDNN.
@@ -53,8 +69,10 @@ device it exits non-zero before printing any result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -81,6 +99,9 @@ KERNELS = {
     "grouped_matmul": dict(
         route="cuda", source="src/repro_torch/csrc/moe_gmm.cu",
         replaces="src/repro/kernels/moe_gmm/kernel.py:39"),
+    "wkv6": dict(
+        route="cuda", source="src/repro_torch/csrc/wkv6.cu",
+        replaces="src/repro/kernels/rwkv6_scan/kernel.py:70"),
 }
 
 # the tolerances of the reference's own kernel tests (tests/test_kernels.py)
@@ -115,9 +136,42 @@ GMM_SHAPES = ((64, 480, 2048, 1408, torch.bfloat16),
               (64, 8, 1408, 2048, torch.bfloat16),
               (8, 250, 600, 1000, torch.float32))
 
-# phases 5 and 6: arch, batch, prompt, new tokens
+# phase 2 wkv6 cases (B, S, H, K, chunk, dtype, w range, state0, held
+# against the sequential wkv6_ref too): rwkv6-3b's prefill at the serve
+# shape, a ragged prompt's tail block from a carried state, strong decay
+# (w down to 1e-6: a 128-step chunk reaches cum ≈ -1770, where only the
+# pairwise decay form stays finite), and a small case drawn as the
+# reference's kernel tests draw theirs. w = exp(-exp(z)), z uniform so
+# that w spans the range; r, k, v ~ N(0, 1); u ~ N(0, 0.5); state0 ~
+# N(0, 0.3).
+WKV_SHAPES = ((8, 2048, 40, 64, 128, torch.bfloat16, (1e-4, 0.999), False,
+               False),
+              (8, 116, 40, 64, 116, torch.bfloat16, (1e-4, 0.999), True,
+               False),
+              (4, 512, 40, 64, 128, torch.float32, (1e-6, 0.999), True,
+               False),
+              (2, 256, 4, 64, 64, torch.float32, (0.45, 0.95), True, True))
+# wkv6 against its plain chunked version, (largest ||Δ|| / ||want|| over
+# output rows, rms(Δ)/rms(want)), out by the type of r and the final
+# state (float32 in both); both sum in float32 in other orders. The
+# sequential wkv6_ref is another algorithm (a product of decays where the
+# chunked form takes exp of a sum): WKV_SEQ_REL. The small case also
+# within the reference's kernel-test tolerances (out 2e-4, state 2e-5).
+# Measured on an H100 (all passed the provisional limits 1e-2 / 5e-3 bf16
+# and 1e-4 / 1e-5 f32): bf16 out worst row 0.0027, rel_rms 2.6e-5; f32
+# out 9.8e-7 and 1.5e-7; the state bitwise equal to the plain version's;
+# against the sequential oracle 2.6e-6 and 6.2e-7. Each limit is about
+# ten times its reading (the bf16 row limit: one bfloat16 step; the
+# state's: a few float32 roundings).
+WKV_REL = {torch.float32: (1e-5, 2e-6), torch.bfloat16: (8e-3, 3e-4)}
+WKV_STATE_REL = (1e-6, 1e-7)
+WKV_SEQ_REL = (3e-5, 6e-6)
+WKV_ATOL = (2e-4, 2e-5)
+
+# phases 5, 6 and 8: arch, batch, prompt, new tokens
 SERVE = {"dense": ("qwen2-0.5b", 8, 2048, 32),
-         "moe": ("moonshot-v1-16b-a3b", 4, 1024, 16)}
+         "moe": ("moonshot-v1-16b-a3b", 4, 1024, 16),
+         "ssm": ("rwkv6-3b", 8, 2048, 32)}
 # Route comparisons of phases 5 and 6, all in bfloat16. "twin": the same
 # route with each kernel swapped for its plain version (only float32
 # summation order differs, so outputs differ by single bfloat16 steps).
@@ -154,6 +208,39 @@ LAYER_MIN_ALIKE = 0.9
 # against the plain route (no kernel on either side) included.
 MOE_SHORT_LAYERS = 4
 MOE_F32_TOL = {"twin": (3e-4, 5e-5), "plain": (3e-4, 5e-5)}
+# RWKV-6, phase 8. The kernel and twin routes differ in float32 summation
+# order inside the scan only (the plain route is the twin route here: the
+# reference's default route is the plain chunked scan). In bfloat16 their
+# logits at the end of 32 layers part by rel_rms 0.039 on an H100, with
+# the scan's outputs within one bfloat16 step of each other, and so does
+# a witness that runs no kernel (the plain scan at chunk 64 against chunk
+# 128: 0.041): the random-weight model amplifies rounding over depth. So
+# the end-to-end bf16 logits are reported, and held instead layer by
+# layer on the kernel route's own inputs (SSM_LAYER_TOL: largest |Δ| over
+# the largest |output| and rms(Δ)/rms of each layer's output, rms(Δ)/rms
+# of its WKV state) and end to end in float32 at full depth (SSM_F32_TOL:
+# largest |Δ| and rms(Δ)/rms of the logits, and the share of greedy
+# tokens that agree). Measured on an H100: layers 0.0065, 1.1e-3 and
+# 5.9e-8; float32 logits 5.1e-5 and 9.6e-6, tokens all equal. Each limit
+# is about ten times its reading; the token share lets one row of the 8
+# part at a near-tie of its top logits (0.875 would be one row's 8
+# tokens).
+SSM_LAYER_TOL = (0.05, 0.01, 1e-6)
+SSM_F32_TOL = (5e-4, 1e-4, 0.85)
+SSM_F32_GEN = 8
+# phase 9: arch, batch, prompt, new tokens, depth. 500 = 3 × 128 + 116.
+SSM_E2E = ("rwkv6-3b", 4, 500, 8, 4)
+# ... the kernel route's serve against the reference's token-by-token
+# route: logits (largest |Δ|, rms(Δ)/rms) and the state after the prompt
+# (rms(Δ)/rms of the WKV state, largest |Δ| of the shifts), and in
+# float32 greedy tokens equal. Measured on an H100: float32 logits 2.0e-5
+# and 4.1e-6, state 1.6e-6, shifts 1.8e-5; the float32 limits are about
+# ten times that. bfloat16 logits 0.072 and 0.013, state 0.0030, shifts
+# 0.0625 (one bfloat16 step at 8-16), greedy agreement 0.875: rounding
+# amplified over 4 layers, as in phase 8; its limits are about four times
+# the reading (the shifts', four steps).
+SSM_E2E_TOL = {"float32": dict(logits=(2e-4, 4e-5), wkv=2e-5, shift=2e-4),
+               "bfloat16": dict(logits=(0.25, 0.05), wkv=0.015, shift=0.25)}
 
 # phase 2 shapes: (B, N) of the repository's grids — the throughput grid
 # (53 slots), the run.py Table-1 grid (73), the default config (153) and
@@ -240,6 +327,27 @@ def gmm_bound_ms(e, c, d, f, dtype) -> tuple[float, str]:
     size = torch.finfo(dtype).bits // 8
     return _bound(2.0 * e * c * d * f,
                   (e * c * d + e * d * f + e * c * f) * size, dtype)
+
+
+def wkv_bound_ms(b, s, h, k, chunk, dtype, state0: bool
+                 ) -> tuple[float, str]:
+    """Least time for the chunked WKV6 over (b, s, h, k): read r, k, v (in
+    ``dtype``), w (float32) and state0 once, write out (in ``dtype``) and
+    the final state (float32) once. Operations per head and chunk of c
+    steps: for each pair s < t and channel, 5 for the pair term (the
+    exponent, its exp, two products, the sum) and 2 for its product with
+    v; for each (t, channel), 2 for r ⊙ exp(cum_excl), 2·k for its
+    product with the state and 5 for the bonus; for the update, 2 for
+    each (s, channel) decay, 2·k for each (s, channel) outer product and
+    2 for each state entry."""
+    size = torch.finfo(dtype).bits // 8
+    n = b * s * h * k
+    nbytes = n * (3 * size + 4 + size) + b * h * k * k * 4 * (1 + state0)
+    c = chunk
+    pairs = c * (c - 1) // 2
+    per_chunk = (pairs * k * 7 + c * k * (2 + 2 * k + 5)
+                 + c * k * (2 + 2 * k) + 2 * k * k)
+    return _bound(float(b * h * (s // c) * per_chunk), nbytes, dtype)
 
 
 def rel_errs(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
@@ -342,6 +450,76 @@ def flash_vs_plain(dev) -> dict:
     return rows
 
 
+def wkv_vs_plain(dev) -> dict:
+    """Phase 2: the wkv6 kernel against its plain chunked version at
+    ``WKV_SHAPES`` (out and final state), the small case against the
+    sequential ``wkv6_ref`` too. Every case is read before any is
+    checked."""
+    from repro_torch.kernels.rwkv6_scan import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    rows, failed = {}, []
+    for b, s, h, k, chunk, dtype, (w_lo, w_hi), with_state, seq in \
+            WKV_SHAPES:
+        shape = (b, s, h, k)
+        r, kk, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                    for _ in range(3))
+        z_lo, z_hi = math.log(-math.log(w_hi)), math.log(-math.log(w_lo))
+        w = torch.exp(-torch.exp(z_lo + (z_hi - z_lo) * torch.rand(
+            shape, generator=gen, device=dev)))
+        u = torch.randn((h, k), generator=gen, device=dev) * 0.5
+        s0 = (torch.randn((b, h, k, k), generator=gen, device=dev) * 0.3
+              if with_state else None)
+        got_o, got_s = ops.wkv6(r, kk, v, w, u, chunk=chunk, state0=s0)
+        want_o, want_s = ref.wkv_chunked_ref(r, kk, v, w, u, chunk=chunk,
+                                             state0=s0)
+        torch.cuda.synchronize()
+        key = f"{b}x{s}x{h}x{k}c{chunk}" + ("-state0" if with_state else "") \
+            + ("-f32" if dtype == torch.float32 else "") \
+            + (f"-wmin{w_lo:g}" if w_lo < 1e-5 else "")
+        finite = bool(torch.isfinite(got_o.float()).all()
+                      and torch.isfinite(got_s).all())
+        err = float((got_o.float() - want_o.float()).abs().max())
+        serr = float((got_s - want_s).abs().max())
+        row, rms = rel_errs(got_o, want_o)
+        srow, srms = rel_errs(got_s, want_s)
+        lim, slim = WKV_REL[dtype], WKV_STATE_REL
+        ok = (finite and row <= lim[0] and rms <= lim[1]
+              and srow <= slim[0] and srms <= slim[1])
+        extra = ""
+        if seq:
+            ok = ok and err <= WKV_ATOL[0] and serr <= WKV_ATOL[1]
+            seq_o, seq_s = ref.wkv6_ref(r, kk, v, w, u, state0=s0)
+            q_row, q_rms = rel_errs(got_o, seq_o)
+            qs_row, qs_rms = rel_errs(got_s, seq_s)
+            ok = ok and max(q_row, qs_row) <= WKV_SEQ_REL[0] \
+                and max(q_rms, qs_rms) <= WKV_SEQ_REL[1]
+            extra = (f" vs_sequential: out worst_row_rel={q_row:.6g} "
+                     f"rel_rms={q_rms:.6g} state worst_row_rel={qs_row:.6g}"
+                     f" rel_rms={qs_rms:.6g} (limits {WKV_SEQ_REL}); "
+                     f"atol {WKV_ATOL}")
+        if not ok:
+            failed.append(key)
+        ms = cuda_ms(lambda: ops.wkv6(r, kk, v, w, u, chunk=chunk,
+                                      state0=s0), reps=10)
+        plain_ms = cuda_ms(lambda: ref.wkv_chunked_ref(
+            r, kk, v, w, u, chunk=chunk, state0=s0), reps=3, warmup=1)
+        bound, by = wkv_bound_ms(b, s, h, k, chunk, dtype, with_state)
+        rows[key] = dict(max_abs_err=err, state_max_abs_err=serr,
+                         rel_row_err=row, rel_rms=rms, state_rel_row_err=srow,
+                         state_rel_rms=srms, ms=ms, plain_ms=plain_ms,
+                         library_ms=None, bound_ms=bound, bound_by=by)
+        print(f"kernel/wkv6 {key}: finite={finite} out max_abs_err={err:.6g}"
+              f" worst_row_rel={row:.6g} rel_rms={rms:.6g} (limits {lim}) "
+              f"state max_abs_err={serr:.6g} worst_row_rel={srow:.6g} "
+              f"rel_rms={srms:.6g} (limits {slim}){extra} ms={ms:.6f} "
+              f"plain_ms={plain_ms:.6f} library_ms=None bound_ms="
+              f"{bound:.6f} ({by})")
+        del r, kk, v, w, u, s0, got_o, got_s, want_o, want_s
+    check(not failed, f"wkv6 beyond its limits at {failed}")
+    return rows
+
+
 def gmm_vs_plain(dev) -> dict:
     """Phase 2: the grouped-matmul kernel against ``grouped_matmul_ref``
     (and ``torch.bmm`` timed as a yardstick) at ``GMM_SHAPES``. bfloat16
@@ -407,9 +585,12 @@ def plain_kernels():
     from repro_torch.kernels.flash_attention import ref as flash_ref
     from repro_torch.kernels.moe_gmm import ops as gmm_ops
     from repro_torch.kernels.moe_gmm import ref as gmm_ref
+    from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
+    from repro_torch.kernels.rwkv6_scan import ref as wkv_ref
 
     return patched((flash_ops, "flash_attention", flash_ref.attention_ref),
-                   (gmm_ops, "grouped_matmul", gmm_ref.grouped_matmul_ref))
+                   (gmm_ops, "grouped_matmul", gmm_ref.grouped_matmul_ref),
+                   (wkv_ops, "wkv6", wkv_ref.wkv_chunked_ref))
 
 
 def recording_routes(log: list):
@@ -474,8 +655,6 @@ def moe_end_to_end(dev) -> None:
     unchecked: bfloat16 at that depth, and at full depth from another
     seed (the twin against the plain route runs no kernel on either
     side)."""
-    import dataclasses
-
     from repro_torch.configs import get_arch
     from repro_torch.launch import serve as launch_serve
     from repro_torch.models.transformer import init_lm
@@ -491,14 +670,12 @@ def moe_end_to_end(dev) -> None:
         prompts = torch.randint(
             0, cfg.vocab_size, (batch, prompt_len), device=dev,
             generator=torch.Generator(device=dev).manual_seed(seed))
-        routes = {"kernel": launch_serve.generate(
-            params, prompts, cfg, gen, use_flash=True, use_moe_kernel=True)}
+        routes = {"kernel": launch_serve.generate(params, prompts, cfg, gen,
+                                                  use_kernels=True)}
         with plain_kernels():
-            routes["twin"] = launch_serve.generate(
-                params, prompts, cfg, gen, use_flash=True,
-                use_moe_kernel=True)
-        routes["plain"] = launch_serve.generate(
-            params, prompts, cfg, gen, use_flash=False, use_moe_kernel=False)
+            routes["twin"] = launch_serve.generate(params, prompts, cfg, gen,
+                                                   use_kernels=True)
+        routes["plain"] = launch_serve.generate(params, prompts, cfg, gen)
         held = dtype == "float32"
         tag = f"serve/moe/e2e_{dtype}_L{n_layers}_seed{seed}"
         for a, b in (("kernel", "twin"), ("kernel", "plain"),
@@ -533,8 +710,7 @@ def layer_check(tag: str, params, prompts, cfg) -> None:
         return out, kv
 
     with patched((T, "_block", spy)), recording_routes(picks):
-        launch_serve.generate(params, prompts, cfg, 1, use_flash=True,
-                              use_moe_kernel=True)
+        launch_serve.generate(params, prompts, cfg, 1, use_kernels=True)
     failed = []
     for route in ("twin", "plain"):
         worst_max = worst_rel = 0.0
@@ -575,48 +751,134 @@ def layer_check(tag: str, params, prompts, cfg) -> None:
           f"{failed} route(s) beyond tolerance")
 
 
+def ssm_layer_check(tag: str, params, prompts, cfg) -> None:
+    """RWKV-6: each layer of the kernel route (prefill, then the first
+    decode step) against the same layer of the twin route, on the kernel
+    route's own layer inputs and carried state (``SSM_LAYER_TOL``)."""
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import rwkv6 as R
+
+    block, calls = R._block, []
+
+    def spy(lp, x, cfg_, **kw):
+        # the carried state is a view the caller overwrites after the call
+        kw = {k: v.clone() if isinstance(v, torch.Tensor) else v
+              for k, v in kw.items()}
+        out = block(lp, x, cfg_, **kw)
+        calls.append((lp, x, kw, out))
+        return out
+
+    with patched((R, "_block", spy)):
+        launch_serve.generate(params, prompts, cfg, 1, use_kernels=True)
+    worst, at = [0.0, 0.0, 0.0], [0, 0, 0]
+    with plain_kernels():
+        for i, (lp, x, kw, out) in enumerate(calls):
+            other = block(lp, x, cfg, **kw)
+            a, b = out[0].float(), other[0].float()
+            d = a - b
+            errs = (float(d.abs().max() / b.abs().max()),
+                    float(d.pow(2).mean().sqrt() / b.pow(2).mean().sqrt()),
+                    rel_errs(out[1][2], other[1][2])[1])
+            for j, e in enumerate(errs):
+                if e > worst[j]:
+                    worst[j], at[j] = e, i
+    print(f"{tag}/layers_vs_twin: {len(calls)} layer calls (prefill and "
+          f"first decode step) worst max_abs_diff/max_abs={worst[0]:.6g} "
+          f"worst rel_rms={worst[1]:.6g} worst wkv state rel_rms="
+          f"{worst[2]:.6g} (at layer calls {at}; tolerance: "
+          f"{SSM_LAYER_TOL})")
+    check(all(w <= t for w, t in zip(worst, SSM_LAYER_TOL)),
+          f"{tag}: layers of the kernel route differ from the twin route "
+          f"beyond tolerance")
+
+
+def ssm_float32_full_depth(dev) -> None:
+    """RWKV-6 end to end in float32 at full width and depth (the bfloat16
+    model's weights, unrounded): the kernel route against the twin route
+    (``SSM_F32_TOL``)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import rwkv6 as R
+
+    arch, batch, prompt_len, _ = SERVE["ssm"]
+    cfg = dataclasses.replace(get_arch(arch), dtype="float32")
+    params = R.init_lm(cfg, seed=0, device=dev)
+    prompts = torch.randint(
+        0, cfg.vocab_size, (batch, prompt_len), device=dev,
+        generator=torch.Generator(device=dev).manual_seed(0))
+    kern = launch_serve.generate(params, prompts, cfg, SSM_F32_GEN,
+                                 use_kernels=True)
+    with plain_kernels():
+        twin = launch_serve.generate(params, prompts, cfg, SSM_F32_GEN,
+                                     use_kernels=True)
+    c = _compare(kern, twin, cfg.vocab_size)
+    tol_max, tol_rel, tol_agree = SSM_F32_TOL
+    tag = f"serve/ssm/e2e_float32_L{cfg.n_layers}"
+    print_compare(f"{tag}/kernel_vs_twin", c, batch,
+                  f"(tolerance: max {tol_max}, rel_rms {tol_rel}, "
+                  f"agreement >= {tol_agree})")
+    print(f"{tag}: logits prefill max_abs_diff={c['prefill_max']:.6g} "
+          f"rel_rms={c['prefill_rel']:.6g}, first decode "
+          f"{c['decode_max']:.6g} and {c['decode_rel']:.6g}; prefill_ms "
+          f"kernel={kern['prefill_s'] * 1e3:.3f} twin="
+          f"{twin['prefill_s'] * 1e3:.3f}")
+    del params, prompts, kern, twin
+    torch.cuda.empty_cache()
+    check(c["token_agreement"] >= tol_agree and all(
+        c[f"{n}_max"] <= tol_max and c[f"{n}_rel"] <= tol_rel
+        for n in ("prefill", "decode")),
+        f"{tag}: the kernel route differs from the twin route beyond "
+        f"tolerance")
+
+
 def profile_serve(tag: str, params, prompts, cfg, steps: int = 4) -> None:
     """Where the kernel route's time goes: one profiled prefill, then
-    ``steps`` profiled decode steps."""
+    ``steps`` profiled decode steps (RWKV-6's carry the prefill's state
+    on, in place, from one call of the window to the next)."""
     from repro_torch.models.transformer import init_kv_caches
     from repro_torch.serve.step import (greedy_sample, make_decode_step,
                                         make_prefill_step)
 
-    prefill = make_prefill_step(cfg, use_flash=True, use_moe_kernel=True)
-    decode = make_decode_step(cfg, use_moe_kernel=True)
-    names = ("flash_kernel", "gmm_kernel")
+    prefill = make_prefill_step(cfg, use_kernels=True)
+    decode = make_decode_step(cfg, use_kernels=True)
+    ssm = cfg.family == "ssm"
+    names = ("wkv6_kernel",) if ssm else ("flash_kernel", "gmm_kernel")
     device_profile(f"{tag}/profile_prefill",
                    lambda: prefill(params, prompts), 1, "prefill", names)
     b, s = prompts.shape
     logits, pf = prefill(params, prompts)
-    caches = init_kv_caches(cfg, b, s + steps, device=prompts.device)
-    caches["k"][:, :, :s] = pf["k"]
-    caches["v"][:, :, :s] = pf["v"]
-    del pf
+    if not ssm:
+        caches = init_kv_caches(cfg, b, s + steps, device=prompts.device)
+        caches["k"][:, :, :s] = pf["k"]
+        caches["v"][:, :, :s] = pf["v"]
+        del pf
     first = greedy_sample(logits)
 
     def run():
         tok = first
         for i in range(steps):
-            out, _ = decode(params, tok, caches, s + i)
+            out, _ = (decode(params, tok, pf) if ssm
+                      else decode(params, tok, caches, s + i))
             tok = greedy_sample(out)
     device_profile(f"{tag}/profile_decode", run, steps, "decode steps",
                    names)
 
 
 def serve_phase(family: str, dev) -> dict:
-    """Phases 5 and 6: ``launch.serve.serve`` at full size through the
+    """Phases 5, 6 and 8: ``launch.serve.serve`` at full size through the
     kernels (the main path; the counts are reset just before it and read
     just after), then the same params and prompts through the kernel route
-    again (steady times), the twin route and the plain route (no kernel
-    may launch in either), compared; for the MoE model layer by layer
-    too; then a profiled prefill and decode."""
+    again (steady times), the twin route and, for a transformer, the plain
+    route (no kernel may launch in either), compared; for the MoE model
+    layer by layer too; then a profiled prefill and decode."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.moe_gmm import ops as gmm_ops
+    from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
     from repro_torch.launch import serve as launch_serve
-    from repro_torch.models.transformer import flatten, padded_vocab
+    from repro_torch.models.lm import flatten, padded_vocab
 
-    counters = (flash_ops.KERNEL_LAUNCHES, gmm_ops.KERNEL_LAUNCHES)
+    counters = (flash_ops.KERNEL_LAUNCHES, gmm_ops.KERNEL_LAUNCHES,
+                wkv_ops.KERNEL_LAUNCHES)
 
     def reset():
         for cnt in counters:
@@ -646,7 +908,7 @@ def serve_phase(family: str, dev) -> dict:
     print(f"{tag}: arch={arch} layers={cfg.n_layers} d_model={cfg.d_model} "
           f"params={n_params} weight_bytes={weight_bytes} batch={batch} "
           f"prompt_len={prompt_len} gen={gen}")
-    if family == "moe":
+    if family != "dense":
         print(f"{tag}/cut: none (all {cfg.n_layers} layers at full width)")
 
     v = cfg.vocab_size
@@ -659,16 +921,23 @@ def serve_phase(family: str, dev) -> dict:
           and int(toks.max()) < v, f"{tag}: tokens out of range")
 
     routes = {"kernel": res}
-    routes["kernel_steady"] = launch_serve.generate(
-        params, prompts, cfg, gen, use_flash=True, use_moe_kernel=True)
+    routes["kernel_steady"] = launch_serve.generate(params, prompts, cfg,
+                                                    gen, use_kernels=True)
     check(torch.equal(toks, routes["kernel_steady"]["tokens"]),
           f"{tag}: the kernel route is not repeatable")
     reset()
     with plain_kernels():
-        routes["twin"] = launch_serve.generate(
-            params, prompts, cfg, gen, use_flash=True, use_moe_kernel=True)
-    routes["plain"] = launch_serve.generate(
-        params, prompts, cfg, gen, use_flash=False, use_moe_kernel=False)
+        routes["twin"] = launch_serve.generate(params, prompts, cfg, gen,
+                                               use_kernels=True)
+    if family == "ssm":
+        # the witness: the plain scan in chunks of half the length, the
+        # same recurrence in another summation order, no kernel
+        half = dataclasses.replace(cfg, rwkv=dataclasses.replace(
+            cfg.rwkv, chunk=cfg.rwkv.chunk // 2))
+        routes["plain_half_chunk"] = launch_serve.generate(params, prompts,
+                                                           half, gen)
+    else:
+        routes["plain"] = launch_serve.generate(params, prompts, cfg, gen)
     check(not any(read().values()),
           f"{tag}: the twin or plain route launched kernels: {read()}")
 
@@ -682,12 +951,16 @@ def serve_phase(family: str, dev) -> dict:
           f"peak_mem_bytes={peak} launches={launches}")
     failed = []
     for other, (tol_max, tol_rel) in SERVE_TOL.items():
+        if other not in routes:
+            continue
         c = _compare(res, routes[other], v)
         checked = family == "dense"
         print_compare(f"{tag}/vs_{other}", c, batch, (
             f"(tolerance: max {tol_max}, rel_rms {tol_rel})" if checked
             else "(not checked: MoE routing, see the layer check and "
-            "phase 7)"))
+            "phase 7)" if family == "moe" else "(not checked: bfloat16 "
+            "over 32 layers, see the witness, the layer check and the "
+            "float32 run)"))
         if checked and not (c["decode_rows"] > 0 and all(
                 c[f"{n}_max"] <= tol_max and c[f"{n}_rel"] <= tol_rel
                 for n in ("prefill", "decode"))):
@@ -695,15 +968,104 @@ def serve_phase(family: str, dev) -> dict:
     check(not failed, f"{tag}: the kernel route differs from the "
           f"{failed} route(s) beyond tolerance")
     # no kernel on either side: how far the routes part without the kernels
-    print_compare(f"{tag}/twin_vs_plain", _compare(routes["twin"],
-                                                   routes["plain"], v), batch)
+    for other in ("plain", "plain_half_chunk"):
+        if other in routes:
+            print_compare(f"{tag}/twin_vs_{other}", _compare(
+                routes["twin"], routes[other], v), batch)
     del routes, res
     if family == "moe":
         layer_check(tag, params, prompts, cfg)
+    if family == "ssm":
+        ssm_layer_check(tag, params, prompts, cfg)
     profile_serve(tag, params, prompts, cfg)
     del params, prompts
     torch.cuda.empty_cache()
     return dict(launches=launches)
+
+
+def stepwise_generate(params, prompts, cfg, gen: int) -> dict:
+    """The reference's serving route for RWKV-6 (``repro/launch/serve.py``,
+    its ``ssm`` branch): ``decode_step`` over the prompt one token at a
+    time from ``init_decode_state`` (the one-step recurrence, no kernel),
+    then greedy decode. Returns ``generate``'s keys but the times, and
+    ``state``, a copy of the state after the prompt."""
+    from repro_torch.models import rwkv6 as R
+    from repro_torch.serve.step import greedy_sample
+
+    b, s = prompts.shape
+    state = R.init_decode_state(cfg, b, device=prompts.device)
+    for t in range(s):
+        logits, state = R.decode_step(params, prompts[:, t:t + 1], state, cfg)
+    after = {k: v.clone() for k, v in state.items()}
+    out = dict(prefill_logits=logits, decode_logits=None, state=after)
+    token, generated = greedy_sample(logits), []
+    for i in range(gen):
+        generated.append(token)
+        logits, state = R.decode_step(params, token, state, cfg)
+        if i == 0:
+            out["decode_logits"] = logits
+        token = greedy_sample(logits)
+    out["tokens"] = torch.cat(generated, dim=1)
+    return out
+
+
+def ssm_end_to_end(dev) -> None:
+    """Phase 9: rwkv6-3b at full width, depth cut (``SSM_E2E``), a ragged
+    prompt: the kernel route's ``generate`` (and the state its prefill
+    leaves) against the reference's token-by-token route, in float32 and
+    bfloat16 (``SSM_E2E_TOL``); float32 greedy tokens must be equal."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import rwkv6 as R
+
+    arch, batch, prompt_len, gen, n_layers = SSM_E2E
+    base = get_arch(arch)
+    chunk = base.rwkv.chunk
+    failed = []
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, n_layers=n_layers, dtype=dtype)
+        params = R.init_lm(cfg, seed=0, device=dev)
+        prompts = torch.randint(
+            0, cfg.vocab_size, (batch, prompt_len), device=dev,
+            generator=torch.Generator(device=dev).manual_seed(0))
+        before = wkv_ops.KERNEL_LAUNCHES["wkv6"]
+        res = launch_serve.generate(params, prompts, cfg, gen,
+                                    use_kernels=True)
+        launches = wkv_ops.KERNEL_LAUNCHES["wkv6"] - before
+        _, state = R.prefill(params, prompts, cfg, use_kernel=True)
+        ref = stepwise_generate(params, prompts, cfg, gen)
+        c = _compare(res, ref, cfg.vocab_size)
+        wkv_rel = rel_errs(state["wkv"], ref["state"]["wkv"])[1]
+        shift = max(float((state[k].float() - ref["state"][k].float())
+                          .abs().max()) for k in ("tm_shift", "cm_shift"))
+        tol = SSM_E2E_TOL[dtype]
+        tag = f"serve/ssm/e2e_{dtype}_L{n_layers}"
+        print_compare(f"{tag}/kernel_vs_stepwise", c, batch,
+                      f"(tolerance: max {tol['logits'][0]}, rel_rms "
+                      f"{tol['logits'][1]}" + (", tokens equal)"
+                                               if dtype == "float32" else ")"))
+        print(f"{tag}: prompt {prompt_len} = {prompt_len // chunk} x {chunk} "
+              f"+ {prompt_len % chunk}; logits prefill max_abs_diff="
+              f"{c['prefill_max']:.6g} rel_rms={c['prefill_rel']:.6g}, first "
+              f"decode {c['decode_max']:.6g} and {c['decode_rel']:.6g}; "
+              f"wkv6 launches={launches} "
+              f"state_after_prompt wkv rel_rms={wkv_rel:.6g} (limit "
+              f"{tol['wkv']}) shift max_abs_diff={shift:.6g} (limit "
+              f"{tol['shift']})")
+        ok = (launches == 2 * n_layers and wkv_rel <= tol["wkv"]
+              and shift <= tol["shift"] and all(
+                  c[f"{n}_max"] <= tol["logits"][0]
+                  and c[f"{n}_rel"] <= tol["logits"][1]
+                  for n in ("prefill", "decode")))
+        if dtype == "float32":
+            ok = ok and c["token_agreement"] == 1.0
+        if not ok:
+            failed.append(tag)
+        del params, prompts, res, state, ref
+        torch.cuda.empty_cache()
+    check(not failed, f"RWKV-6 against the token-by-token route beyond "
+          f"tolerance: {failed}")
 
 
 def strategy_rows(grid, m: dict) -> None:
@@ -876,6 +1238,19 @@ def profile_window(events_mod, state, n_steps: int = 16) -> None:
         n_steps, "full-size steps", ("freed_scan",))
 
 
+class Phases:
+    """Prints each phase's seconds, from the end of the previous one."""
+
+    def __init__(self):
+        self.t0 = self.start = time.perf_counter()
+
+    def done(self, name: str) -> None:
+        now = time.perf_counter()
+        print(f"phase/{name}: {now - self.t0:.3f} s (total "
+              f"{now - self.start:.3f} s)")
+        self.t0 = now
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"no port package under {SRC}: run from a checkout")
@@ -887,6 +1262,7 @@ def main() -> None:
     from repro_torch.xsim import grid as grid_mod
     from repro_torch.xsim.state import RUNNING
 
+    phases = Phases()
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -900,18 +1276,26 @@ def main() -> None:
     t0 = time.perf_counter()
     cuda_build.build(sources)
     print(f"build: {sorted(sources)} in {time.perf_counter() - t0:.3f} s")
-    for name in sources:
-        for line in cuda_build.BUILD_INFO[name]["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"build/{name}: {line.strip()}")
+    for name in sources:   # ptxas -v: registers and spills per kernel
+        log = cuda_build.BUILD_INFO[name]["log"]
+        regs = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
+        spill = max(map(int, re.findall(r"(\d+) bytes spill", log)),
+                    default=0)
+        print(f"build/{name}: {len(regs)} kernels, registers "
+              f"{min(regs, default=0)}-{max(regs, default=0)}, largest "
+              f"spill {spill} bytes")
+    phases.done("1_build")
 
     # phase 2: kernels against their plain versions
     checks = kernel_vs_plain(backfill, dev)
     flash_rows = flash_vs_plain(dev)
     gmm_rows = gmm_vs_plain(dev)
+    wkv_rows = wkv_vs_plain(dev)
+    phases.done("2_kernels")
 
     # phase 3: the repository's Table-1 setting, kernel vs plain path
     table1_setting(grid_mod, policies, backfill, dev)
+    phases.done("3_table1")
 
     # phase 4: the main path at full size (counts reset just before it)
     full = full_size(grid_mod, policies, backfill, dev, RUNNING)
@@ -939,26 +1323,42 @@ def main() -> None:
                  ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                  library_ms=None, max_abs_diff_vs_plain=err, kernel_ms=ms,
                  shapes={f"{bb}x{nn}": v for (bb, nn), v in checks.items()})
+    phases.done("4_full_size")
 
-    # phases 5 and 6: model serving (counts reset inside, per path)
-    served = {fam: serve_phase(fam, dev) for fam in SERVE}
+    # phases 5, 6 and 8: model serving (counts reset inside, per path);
+    # phase 7 (moonshot end to end, held in float32 at a cut depth) after
+    # phase 6, phase 9 (RWKV-6 against the reference's route) after 8
+    served = {}
+    for fam, number in (("dense", 5), ("moe", 6), ("ssm", 8)):
+        served[fam] = serve_phase(fam, dev)
+        if fam == "ssm":
+            ssm_float32_full_depth(dev)
+        phases.done(f"{number}_serve_{fam}")
+        if fam == "moe":
+            moe_end_to_end(dev)
+            phases.done("7_moe_end_to_end")
+    ssm_end_to_end(dev)
+    phases.done("9_ssm_end_to_end")
     by_path = {name: {f"serve/{fam}": r["launches"][name]
                       for fam, r in served.items()}
-               for name in ("flash_attention", "grouped_matmul")}
+               for name in ("flash_attention", "grouped_matmul", "wkv6")}
     check(by_path["flash_attention"]["serve/dense"] > 0
           and by_path["flash_attention"]["serve/moe"] > 0,
           f"serving never launched flash_attention: {by_path}")
     check(by_path["grouped_matmul"]["serve/moe"] > 0,
           f"MoE serving never launched grouped_matmul: {by_path}")
-
-    # phase 7: moonshot end to end, held in float32 at a cut depth
-    moe_end_to_end(dev)
+    from repro_torch.configs import get_arch
+    ssm_layers = get_arch(SERVE["ssm"][0]).n_layers
+    check(by_path["wkv6"]["serve/ssm"] == ssm_layers,
+          f"RWKV-6 serving did not launch wkv6 once per layer of its "
+          f"prefill ({ssm_layers}): {by_path}")
 
     entries = [entry]
     # each kernel's numbers at its first serve path's own shape
     for name, rows, key in (("flash_attention", flash_rows, "8x2048x14x64"),
                             ("grouped_matmul", gmm_rows,
-                             "64x480x2048x1408")):
+                             "64x480x2048x1408"),
+                            ("wkv6", wkv_rows, "8x2048x40x64c128")):
         r = rows[key]
         entries.append(dict(
             name=name, **KERNELS[name],

@@ -17,7 +17,7 @@ import torch
 
 from repro_torch.core.asa import ASAState
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import lm, lm_module
 from repro_torch.xsim.state import ScenarioState
 
 _DTYPES = {np.dtype(np.float32): torch.float32,
@@ -76,22 +76,24 @@ def to_numpy(state) -> dict[str, np.ndarray]:
 
 def lm_params(tree, cfg, device: str | torch.device = "cpu",
               dtype: torch.dtype | None = None) -> dict:
-    """The port's transformer parameters from the reference's
+    """The port's language-model parameters from the reference's
     ``init_params(key, cfg)`` tree (nested dicts, numpy or jax leaves,
-    per-layer leaves stacked on a leading L axis).
+    per-layer leaves stacked on a leading L axis), for the ``dense`` and
+    ``moe`` transformers and the ``ssm`` family (RWKV-6).
 
-    The port keeps the reference's layout (``transformer.param_specs``), so
-    each leaf goes to the same path. Matrices, embeddings and the attention
-    and MLP biases are stored in ``dtype`` (default: ``cfg.dtype``), the
-    type the reference casts them to at use, which is exact and halves the
-    memory of a bfloat16 model; norm scales and biases stay float32, the
-    type the reference applies them in. Raises on a leaf of ``tree`` the
-    port has no place for, on a port leaf missing from ``tree``, and on a
-    shape that differs."""
+    The port keeps the reference's layout (``param_specs`` of the family's
+    module, ``models.lm_module``), so each leaf goes to the same path.
+    Matrices, embeddings and the attention and MLP biases are stored in
+    ``dtype`` (default: ``cfg.dtype``), the type the reference casts them
+    to at use, which is exact and halves the memory of a bfloat16 model;
+    the leaves the reference uses in float32 stay float32: norm scales and
+    biases, and RWKV-6's mix factors, decay base and LoRA, bonus and group-
+    norm scale. Raises on a leaf of ``tree`` the port has no place for, on
+    a port leaf missing from ``tree``, and on a shape that differs."""
     dev = resolve_device(device)
-    dtype = dtype or transformer.act_dtype(cfg)
-    flat = transformer.flatten(tree)
-    specs = transformer.flat_specs(cfg)
+    dtype = dtype or lm.act_dtype(cfg)
+    flat = lm.flatten(tree)
+    specs = lm_module(cfg).flat_specs(cfg)
     extra = sorted(flat.keys() - specs.keys())
     missing = sorted(specs.keys() - flat.keys())
     if extra or missing:
@@ -105,4 +107,4 @@ def lm_params(tree, cfg, device: str | torch.device = "cpu",
                              f"port wants {leaf.shape}")
         out[path] = torch.from_numpy(a.copy()).to(
             device=dev, dtype=torch.float32 if leaf.f32 else dtype)
-    return transformer.unflatten(out)
+    return lm.unflatten(out)

@@ -1,18 +1,34 @@
 """Batched serving entry point: prefill a batch of prompts, decode greedily
-(port of ``repro.launch.serve``, the ``dense`` and ``moe`` families).
+(port of ``repro.launch.serve``, the ``dense``, ``moe`` and ``ssm``
+families).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
       --device cuda --batch 8 --prompt-len 2048 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \\
+      --device cuda --batch 8 --prompt-len 2048 --gen 32
 
-On the card ``serve`` runs prefill with ``use_flash=True,
-use_moe_kernel=True`` and decode with ``use_moe_kernel=True``, so prefill
-attention and every MoE expert FFN go through the hand-written CUDA
-kernels (``csrc/flash_attention.cu``, ``csrc/moe_gmm.cu``). This differs
-from ``repro.launch.serve``, whose default route is XLA's (``sdpa`` and
-einsum expert FFNs): the reference reaches its Pallas kernels only behind
-those flags and only on a TPU, and this port exists to run the kernels.
-On CPU tensors (``--device cpu``) the same flags run the kernels' plain
-versions.
+On the card ``serve`` runs every hand-written CUDA kernel on its path
+(``use_kernels=True``): for a transformer, prefill attention and every
+MoE expert FFN of prefill and decode go through
+``csrc/flash_attention.cu`` and ``csrc/moe_gmm.cu``; for RWKV-6, every
+layer's WKV scan of prefill goes through ``csrc/wkv6.cu``. This differs
+from ``repro.launch.serve``, whose default route is XLA's (``sdpa``,
+einsum expert FFNs, the jnp chunked scan): the reference reaches its
+Pallas kernels only behind per-kernel flags and only on a TPU, and this
+port exists to run the kernels. On CPU tensors (``--device cpu``) the
+same switch runs the kernels' plain versions.
+
+RWKV-6's prompt takes another route than the reference's. The reference
+fills the state by stepping ``decode_step`` one prompt token at a time
+(``repro/launch/serve.py``'s ``ssm`` branch), which never reaches the
+kernel and on the card would cost one eager step per prompt token. Here
+``rwkv6.prefill`` runs the prompt in two blocks with the same
+``decode_step`` semantics: the longest prefix that is a multiple of
+``cfg.rwkv.chunk``, chunk by chunk, then the rest from the carried shift
+and WKV state. The recurrence is the same, so the state after the prompt,
+the logits and the greedy tokens are the reference's up to summation
+order (``tests/test_torch_rwkv6.py`` holds them to it); decode then steps
+one token at a time, as the reference does.
 """
 
 from __future__ import annotations
@@ -24,7 +40,8 @@ import torch
 
 from repro_torch.configs import ARCHS, get_arch
 from repro_torch.device import resolve_device
-from repro_torch.models.transformer import init_kv_caches, init_lm
+from repro_torch.models import lm_module
+from repro_torch.models.transformer import init_kv_caches
 from repro_torch.serve.step import (greedy_sample, make_decode_step,
                                     make_prefill_step)
 
@@ -35,10 +52,13 @@ def _sync(device: torch.device) -> None:
 
 
 def generate(params: dict, prompts: torch.Tensor, cfg, gen: int, *,
-             use_flash: bool = False, use_moe_kernel: bool = False) -> dict:
-    """Prefill ``prompts`` (B, S), fill a (S + gen)-long KV cache with the
-    prefill's keys and values, then decode greedily: ``gen`` decode steps,
-    as the reference's loop does (the last step's token is not kept).
+             use_kernels: bool = False) -> dict:
+    """Prefill ``prompts`` (B, S), then decode greedily: ``gen`` decode
+    steps, as the reference's loop does (the last step's token is not
+    kept). A transformer's prefill keys and values fill a (S + gen)-long
+    KV cache; RWKV-6's decode carries the state its prefill leaves.
+    ``use_kernels`` runs every hand-written kernel on the path
+    (``serve.step``).
 
     Returns ``tokens`` (B, gen), ``prefill_logits`` (B, 1, V_padded), the
     first decode step's ``decode_logits`` (None if gen is 0), and the host
@@ -46,15 +66,18 @@ def generate(params: dict, prompts: torch.Tensor, cfg, gen: int, *,
     ending in a device synchronise."""
     B, S = prompts.shape
     dev = prompts.device
-    prefill = make_prefill_step(cfg, use_flash=use_flash,
-                                use_moe_kernel=use_moe_kernel)
-    decode = make_decode_step(cfg, use_moe_kernel=use_moe_kernel)
+    ssm = cfg.family == "ssm"
+    prefill = make_prefill_step(cfg, use_kernels=use_kernels)
+    decode = make_decode_step(cfg, use_kernels=use_kernels)
     _sync(dev)
     t0 = time.perf_counter()
     logits, pf = prefill(params, prompts)
-    caches = init_kv_caches(cfg, B, S + gen, device=dev)
-    caches["k"][:, :, :S] = pf["k"]
-    caches["v"][:, :, :S] = pf["v"]
+    if ssm:
+        state = pf
+    else:
+        caches = init_kv_caches(cfg, B, S + gen, device=dev)
+        caches["k"][:, :, :S] = pf["k"]
+        caches["v"][:, :, :S] = pf["v"]
     del pf
     _sync(dev)
     t1 = time.perf_counter()
@@ -63,7 +86,10 @@ def generate(params: dict, prompts: torch.Tensor, cfg, gen: int, *,
     generated = []
     for i in range(gen):
         generated.append(token)
-        logits, caches = decode(params, token, caches, S + i)
+        if ssm:
+            logits, state = decode(params, token, state)
+        else:
+            logits, caches = decode(params, token, caches, S + i)
         if i == 0:
             first = logits
         token = greedy_sample(logits)
@@ -88,12 +114,11 @@ def serve(arch: str, *, reduced: bool = True, batch: int = 4,
     if reduced:
         cfg = cfg.reduced()
     make_prefill_step(cfg)   # raises for a family that is not ported
-    params = init_lm(cfg, seed=seed, device=dev)
+    params = lm_module(cfg).init_lm(cfg, seed=seed, device=dev)
     prompts = torch.randint(
         0, cfg.vocab_size, (batch, prompt_len), device=dev,
         generator=torch.Generator(device=dev).manual_seed(seed))
-    res = generate(params, prompts, cfg, gen, use_flash=True,
-                   use_moe_kernel=True)
+    res = generate(params, prompts, cfg, gen, use_kernels=True)
     dt = res["prefill_s"] + res["decode_s"]
     res.update(elapsed_s=dt, tok_per_s=(batch * gen) / dt if gen else 0.0,
                cfg=cfg, params=params, prompts=prompts)

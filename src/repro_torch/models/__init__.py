@@ -1,2 +1,19 @@
 """The port's model zoo: the decoder-only transformer of the ``dense`` and
-``moe`` families (``transformer``), its layers and its MoE layer."""
+``moe`` families (``transformer``), its layers and its MoE layer, and
+RWKV-6 of the ``ssm`` family (``rwkv6``)."""
+
+
+def lm_module(cfg):
+    """The model module of ``cfg``'s family, with its ``param_specs``,
+    ``flat_specs`` and ``init_lm`` (the family dispatch of the reference's
+    ``train/step.py:init_params``). Raises ``NotImplementedError`` for a
+    family that is not ported."""
+    if cfg.family in ("dense", "moe"):
+        from repro_torch.models import transformer
+        return transformer
+    if cfg.family == "ssm":
+        from repro_torch.models import rwkv6
+        return rwkv6
+    raise NotImplementedError(
+        f"repro_torch.models: the {cfg.family!r} family ({cfg.name}) is not "
+        f"ported yet (ROADMAP Queue 1, item 9(c))")

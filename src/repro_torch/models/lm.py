@@ -1,0 +1,108 @@
+"""What every language-model family of the port shares: the activation
+type, the padded vocabulary, the parameter tree's layout helpers
+(stacking per-layer specs, flattening to ``{"a/b/c": leaf}`` paths and
+back, filling specs from a seed, taking layer ``i``), and the final norm
+with the unembedding.
+
+Parameters are nested dicts laid out as the reference's: per-layer
+leaves are STACKED on a leading L axis under ``"layers"``, and a Python
+loop over layers takes the place of ``maybe_scan`` (``layer(stacked,
+i)`` is a dict of views).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
+
+VOCAB_PAD_MULTIPLE = 256
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def padded_vocab(cfg: ModelConfig) -> int:
+    v = cfg.vocab_size
+    return -(-v // VOCAB_PAD_MULTIPLE) * VOCAB_PAD_MULTIPLE
+
+
+def act_dtype(cfg: ModelConfig) -> torch.dtype:
+    """The activation type of ``cfg`` (``cfg.dtype`` as a torch dtype)."""
+    return DTYPES[cfg.dtype]
+
+
+def stacked(tree: dict, n: int) -> dict:
+    """Per-layer ``Leaf`` specs with a leading axis of ``n`` layers."""
+    return {k: stacked(v, n) if isinstance(v, dict)
+            else v._replace(shape=(n, *v.shape)) for k, v in tree.items()}
+
+
+def flatten(tree: dict, prefix: str = "") -> dict:
+    """Nested dicts to ``{"a/b/c": leaf}``."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flatten(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def unflatten(flat: dict) -> dict:
+    """``{"a/b/c": x}`` back to nested dicts."""
+    tree: dict = {}
+    for path, v in flat.items():
+        *parents, leaf = path.split("/")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree
+
+
+def fill_specs(specs: dict, cfg: ModelConfig, *, seed: int,
+               device: str | torch.device) -> dict:
+    """Nested parameters from flat ``{"a/b/c": Leaf}`` specs, from a
+    ``torch.Generator`` seeded with ``seed``, on ``device``: a drawn leaf
+    (``scale``) is normal × its scale, a filled one (``fill``) a constant;
+    a leaf is kept in float32 if its spec says so, else in the activation
+    type. Leaves under ``layers/`` are drawn one layer at a time, so no
+    float32 copy of the whole model is made."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dtype = act_dtype(cfg)
+    flat = {}
+    for path, leaf in specs.items():
+        t = torch.empty(leaf.shape, device=dev,
+                        dtype=torch.float32 if leaf.f32 else dtype)
+        if leaf.scale:
+            per_layer = path.startswith("layers/")
+            for part in (t.unbind(0) if per_layer else (t,)):
+                part.copy_(torch.randn(part.shape, generator=gen,
+                                       device=dev).mul_(leaf.scale))
+        else:
+            t.fill_(leaf.fill)
+        flat[path] = t
+    return unflatten(flat)
+
+
+def layer(layers: dict, i: int) -> dict:
+    """Layer ``i`` of the stacked per-layer parameters, as views."""
+    return {k: layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in layers.items()}
+
+
+def unembed(params: dict, x: torch.Tensor, cfg: ModelConfig
+            ) -> torch.Tensor:
+    """The final norm (``cfg.norm``) and the unembedding (the tied table
+    or ``lm_head``) -> logits (..., V_padded), the padding masked."""
+    x = L.apply_norm(params["final_norm"], x, cfg.norm_eps, cfg.norm)
+    if cfg.tie_embeddings:
+        logits = x @ params["embed"]["table"].T
+    else:
+        logits = x @ params["lm_head"]
+    # mask vocab padding so the softmax ignores it
+    if logits.shape[-1] != cfg.vocab_size:
+        logits[..., cfg.vocab_size:] = -1e30
+    return logits

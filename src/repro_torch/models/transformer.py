@@ -4,9 +4,10 @@
 Parameters are a nested dict of tensors laid out as the reference's: the
 per-layer leaves are STACKED on a leading L axis under ``"layers"``, and a
 Python loop over layers takes the place of ``maybe_scan`` (layer ``i`` is a
-dict of views). ``param_specs`` is that layout, leaf by leaf;
-``init_lm`` fills it from a ``torch.Generator`` on the device and
-``convert.lm_params`` from a reference tree.
+dict of views; the helpers every family shares are in ``models.lm``).
+``param_specs`` is that layout, leaf by leaf; ``init_lm`` fills it from a
+``torch.Generator`` on the device and ``convert.lm_params`` from a
+reference tree.
 
 ``prefill`` and ``decode_step`` take ``use_flash``/``use_moe_kernel``
 (named as in the reference's ``_layer_apply``) and pass them to
@@ -23,19 +24,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
-
-VOCAB_PAD_MULTIPLE = 256
-DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-
-
-def padded_vocab(cfg: ModelConfig) -> int:
-    v = cfg.vocab_size
-    return -(-v // VOCAB_PAD_MULTIPLE) * VOCAB_PAD_MULTIPLE
-
-
-def act_dtype(cfg: ModelConfig) -> torch.dtype:
-    """The activation type of ``cfg`` (``cfg.dtype`` as a torch dtype)."""
-    return DTYPES[cfg.dtype]
+from repro_torch.models.lm import (act_dtype, fill_specs, flatten, layer,
+                                   padded_vocab, stacked, unembed)
 
 
 def _layer_specs(cfg: ModelConfig) -> dict:
@@ -51,18 +41,13 @@ def _layer_specs(cfg: ModelConfig) -> dict:
     return p
 
 
-def _stacked(tree: dict, n: int) -> dict:
-    return {k: _stacked(v, n) if isinstance(v, dict)
-            else v._replace(shape=(n, *v.shape)) for k, v in tree.items()}
-
-
 def param_specs(cfg: ModelConfig) -> dict:
     """The parameter layout: a nested dict of ``layers.Leaf`` (per-layer
     leaves stacked on a leading L axis), as the reference's ``init_lm``
     builds it."""
     specs = {
         "embed": L.init_embedding(cfg, padded_vocab(cfg)),
-        "layers": _stacked(_layer_specs(cfg), cfg.n_layers),
+        "layers": stacked(_layer_specs(cfg), cfg.n_layers),
         "final_norm": L.init_norm(cfg),
     }
     if not cfg.tie_embeddings:
@@ -71,32 +56,9 @@ def param_specs(cfg: ModelConfig) -> dict:
     return specs
 
 
-def flatten(tree: dict, prefix: str = "") -> dict:
-    """Nested dicts to ``{"a/b/c": leaf}``."""
-    out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            out.update(flatten(v, f"{prefix}{k}/"))
-        else:
-            out[prefix + k] = v
-    return out
-
-
 def flat_specs(cfg: ModelConfig) -> dict[str, L.Leaf]:
     """``param_specs`` flattened to ``{"a/b/c": Leaf}``."""
     return flatten(param_specs(cfg))
-
-
-def unflatten(flat: dict) -> dict:
-    """``{"a/b/c": x}`` back to nested dicts."""
-    tree: dict = {}
-    for path, v in flat.items():
-        *parents, leaf = path.split("/")
-        node = tree
-        for p in parents:
-            node = node.setdefault(p, {})
-        node[leaf] = v
-    return tree
 
 
 def init_lm(cfg: ModelConfig, *, seed: int = 0,
@@ -107,27 +69,7 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0,
     model is made), norm scales 1 and biases 0. The values differ from the
     reference's ``init_lm`` (another generator); tests carry the
     reference's across with ``convert.lm_params``."""
-    dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    dtype = act_dtype(cfg)
-    flat = {}
-    for path, leaf in flat_specs(cfg).items():
-        t = torch.empty(leaf.shape, device=dev,
-                        dtype=torch.float32 if leaf.f32 else dtype)
-        if leaf.scale:
-            stacked = path.startswith("layers/")
-            for part in (t.unbind(0) if stacked else (t,)):
-                part.copy_(torch.randn(part.shape, generator=gen,
-                                       device=dev).mul_(leaf.scale))
-        else:
-            t.fill_(leaf.fill)
-        flat[path] = t
-    return unflatten(flat)
-
-
-def _layer(layers: dict, i: int) -> dict:
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
-            for k, v in layers.items()}
+    return fill_specs(flat_specs(cfg), cfg, seed=seed, device=device)
 
 
 def _block(lp: dict, x: torch.Tensor, cfg: ModelConfig, *, positions,
@@ -146,19 +88,6 @@ def _block(lp: dict, x: torch.Tensor, cfg: ModelConfig, *, positions,
     return x, kv
 
 
-def _unembed(params: dict, x: torch.Tensor, cfg: ModelConfig
-             ) -> torch.Tensor:
-    x = L.apply_norm(params["final_norm"], x, cfg.norm_eps, cfg.norm)
-    if cfg.tie_embeddings:
-        logits = x @ params["embed"]["table"].T
-    else:
-        logits = x @ params["lm_head"]
-    # mask vocab padding so the softmax ignores it
-    if logits.shape[-1] != cfg.vocab_size:
-        logits[..., cfg.vocab_size:] = -1e30
-    return logits
-
-
 def _embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
            start: int = 0) -> torch.Tensor:
     dtype = act_dtype(cfg)
@@ -175,10 +104,10 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig
     x = _embed(params, tokens, cfg)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     for i in range(cfg.n_layers):
-        x, _ = _block(_layer(params["layers"], i), x, cfg,
+        x, _ = _block(layer(params["layers"], i), x, cfg,
                       positions=positions, use_flash=False,
                       use_moe_kernel=False)
-    return _unembed(params, x, cfg)
+    return unembed(params, x, cfg)
 
 
 def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
@@ -190,12 +119,12 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     ks, vs = [], []
     for i in range(cfg.n_layers):
-        x, kv = _block(_layer(params["layers"], i), x, cfg,
+        x, kv = _block(layer(params["layers"], i), x, cfg,
                        positions=positions, use_flash=use_flash,
                        use_moe_kernel=use_moe_kernel)
         ks.append(kv["k"])
         vs.append(kv["v"])
-    logits = _unembed(params, x[:, -1:, :], cfg)
+    logits = unembed(params, x[:, -1:, :], cfg)
     return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
@@ -209,11 +138,11 @@ def decode_step(params: dict, token: torch.Tensor, caches: dict,
     positions = torch.full((1, 1), index, device=x.device)
     for i in range(cfg.n_layers):
         cache = {"k": caches["k"][i], "v": caches["v"][i]}
-        x, _ = _block(_layer(params["layers"], i), x, cfg,
+        x, _ = _block(layer(params["layers"], i), x, cfg,
                       positions=positions, use_flash=False,
                       use_moe_kernel=use_moe_kernel, kv_cache=cache,
                       cache_index=index)
-    return _unembed(params, x, cfg), caches
+    return unembed(params, x, cfg), caches
 
 
 def init_kv_caches(cfg: ModelConfig, batch: int, max_seq: int, *,

@@ -1,8 +1,15 @@
 """Family-dispatched serving steps: prefill and single-token decode (port
 of ``repro.serve.step``).
 
-Ported: the ``dense`` and ``moe`` families (``models.transformer``). The
-other families raise ``NotImplementedError`` naming their ROADMAP item.
+Ported: the ``dense`` and ``moe`` families (``models.transformer``) and
+the ``ssm`` family (``models.rwkv6``). The other families raise
+``NotImplementedError`` naming their ROADMAP item.
+
+The prefill of every family returns (last-position logits, decode state):
+the KV caches of the prompt for a transformer, the shift and WKV state
+after the prompt for RWKV-6. A transformer's decode takes
+``(params, token, caches, index)``, RWKV-6's ``(params, token, state)``,
+as in the reference.
 """
 
 from __future__ import annotations
@@ -11,37 +18,53 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 
-PORTED = ("dense", "moe")
+PORTED = ("dense", "moe", "ssm")
 
 
 def not_ported(cfg: ModelConfig) -> NotImplementedError:
-    item = ("item 9(b), RWKV-6" if cfg.family == "ssm"
-            else "item 9(c), the other families")
     return NotImplementedError(
         f"repro_torch.serve: the {cfg.family!r} family ({cfg.name}) is not "
-        f"ported yet (ROADMAP Queue 1, {item})")
+        f"ported yet (ROADMAP Queue 1, item 9(c), the other families)")
 
 
-def make_prefill_step(cfg: ModelConfig, *, use_flash: bool = False,
-                      use_moe_kernel: bool = False):
+def make_prefill_step(cfg: ModelConfig, *, use_kernels: bool = False):
+    """``prefill(params, tokens)``. ``use_kernels`` runs every hand-written
+    kernel on the family's prefill: flash attention and the grouped expert
+    matmul for a transformer, the WKV6 scan for RWKV-6 (on CPU tensors
+    their plain versions)."""
     if cfg.family not in PORTED:
         raise not_ported(cfg)
+    if cfg.family == "ssm":
+        from repro_torch.models import rwkv6 as R
+
+        def prefill(params, tokens):
+            return R.prefill(params, tokens, cfg, use_kernel=use_kernels)
+        return prefill
     from repro_torch.models import transformer as T
 
     def prefill(params, tokens):
-        return T.prefill(params, tokens, cfg, use_flash=use_flash,
-                         use_moe_kernel=use_moe_kernel)
+        return T.prefill(params, tokens, cfg, use_flash=use_kernels,
+                         use_moe_kernel=use_kernels)
     return prefill
 
 
-def make_decode_step(cfg: ModelConfig, *, use_moe_kernel: bool = False):
+def make_decode_step(cfg: ModelConfig, *, use_kernels: bool = False):
+    """One-token decode. ``use_kernels`` runs a transformer's MoE expert
+    FFNs through the grouped matmul kernel; RWKV-6's decode takes the
+    one-step recurrence, which has no kernel."""
     if cfg.family not in PORTED:
         raise not_ported(cfg)
+    if cfg.family == "ssm":
+        from repro_torch.models import rwkv6 as R
+
+        def decode(params, token, state):
+            return R.decode_step(params, token, state, cfg)
+        return decode
     from repro_torch.models import transformer as T
 
     def decode(params, token, caches, index):
         return T.decode_step(params, token, caches, index, cfg,
-                             use_moe_kernel=use_moe_kernel)
+                             use_moe_kernel=use_kernels)
     return decode
 
 

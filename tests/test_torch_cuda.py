@@ -13,6 +13,8 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.kernels.moe_gmm import ops as gmm_ops
 from repro_torch.kernels.moe_gmm import ref as gmm_ref
+from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
+from repro_torch.kernels.rwkv6_scan import ref as wkv_ref
 from repro_torch.xsim import backfill
 
 # the tolerances of the reference's own kernel tests (tests/test_kernels.py)
@@ -29,6 +31,13 @@ GMM_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-4),
 # row limits: about one rounding step).
 FLASH_REL = {torch.float32: (1e-5, 3e-6), torch.bfloat16: (8e-3, 4e-4)}
 GMM_REL = {torch.float32: (1e-5, 2e-6), torch.bfloat16: (5e-3, 1e-3)}
+# wkv6 against its plain chunked version, as chip_smoke.py holds its
+# outputs: by the type of r (the state and float32 outputs differ in
+# summation order only; in bfloat16 by at most one rounding step); the
+# reference's kernel-test tolerances (out 2e-4, state 2e-5) where the
+# inputs are drawn as there (unit scale, w in (0.45, 0.95))
+WKV_REL = {torch.float32: (1e-5, 2e-6), torch.bfloat16: (8e-3, 3e-4)}
+WKV_ATOL = (2e-4, 2e-5)
 
 
 def _assert_rel_close(got, want, limits):
@@ -177,3 +186,84 @@ def test_grouped_matmul_kernel_refuses_bad_inputs(cuda_device):
         gmm_ops.grouped_matmul(x, w[:, :8].contiguous())
     with pytest.raises(ValueError, match="CUDA"):
         gmm_ops.grouped_matmul(x, w.cpu())
+
+
+def _wkv_inputs(b, s, h, k, dtype, w_range, state, seed, dev):
+    """r, k, v ~ N(0, 1) in ``dtype``; w = exp(-exp(z)), z uniform so
+    that w spans ``w_range``; u ~ N(0, 0.5); state0 ~ N(0, 0.3) or None;
+    all but r, k, v float32."""
+    gen = torch.Generator().manual_seed(seed)
+    r, kk, v = (torch.randn((b, s, h, k), generator=gen).to(dev, dtype)
+                for _ in range(3))
+    lo, hi = (torch.log(-torch.log(torch.tensor(x))) for x in w_range[::-1])
+    z = lo + (hi - lo) * torch.rand((b, s, h, k), generator=gen)
+    w = torch.exp(-torch.exp(z)).to(dev)
+    u = (torch.randn((h, k), generator=gen) * 0.5).to(dev)
+    s0 = ((torch.randn((b, h, k, k), generator=gen) * 0.3).to(dev)
+          if state else None)
+    return r, kk, v, w, u, s0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,k,chunk,dtype,w_range,state", [
+    (2, 128, 3, 16, 32, torch.float32, (0.45, 0.95), False),
+    (1, 256, 2, 64, 64, torch.float32, (0.45, 0.95), False),
+    (2, 64, 4, 8, 16, torch.float32, (0.45, 0.95), True),
+    (2, 200, 3, 24, 40, torch.float32, (0.45, 0.95), True),
+    (2, 3, 2, 16, 1, torch.float32, (0.45, 0.95), True),
+    (1, 116, 5, 64, 116, torch.float32, (1e-4, 0.999), True),
+    (2, 512, 4, 64, 128, torch.float32, (1e-6, 0.999), True),
+    (8, 2048, 40, 64, 128, torch.bfloat16, (1e-4, 0.999), False),
+    (8, 116, 40, 64, 116, torch.bfloat16, (1e-4, 0.999), True),
+    (2, 96, 3, 40, 96, torch.bfloat16, (1e-6, 0.999), True),
+])
+def test_wkv6_kernel_against_plain(cuda_device, b, s, h, k, chunk, dtype,
+                                   w_range, state):
+    r, kk, v, w, u, s0 = _wkv_inputs(b, s, h, k, dtype, w_range, state,
+                                     b + s + k, cuda_device)
+    before = wkv_ops.KERNEL_LAUNCHES["wkv6"]
+    got_o, got_s = wkv_ops.wkv6(r, kk, v, w, u, chunk=chunk, state0=s0)
+    torch.cuda.synchronize()
+    assert wkv_ops.KERNEL_LAUNCHES["wkv6"] == before + 1
+    want_o, want_s = wkv_ref.wkv_chunked_ref(r, kk, v, w, u, chunk=chunk,
+                                             state0=s0)
+    assert got_o.dtype == dtype and got_o.shape == r.shape
+    assert got_s.dtype == torch.float32 and got_s.shape == (b, h, k, k)
+    assert bool(torch.isfinite(got_o.float()).all()
+                and torch.isfinite(got_s).all())
+    if dtype == torch.float32 and w_range == (0.45, 0.95):
+        torch.testing.assert_close(got_o, want_o, atol=WKV_ATOL[0], rtol=0)
+        torch.testing.assert_close(got_s, want_s, atol=WKV_ATOL[1], rtol=0)
+    _assert_rel_close(got_o, want_o, WKV_REL)
+    _assert_rel_close(got_s, want_s, WKV_REL)
+
+
+@pytest.mark.cuda
+def test_wkv6_kernel_refuses_bad_inputs(cuda_device):
+    r, kk, v, w, u, s0 = _wkv_inputs(1, 32, 2, 16, torch.float32,
+                                     (0.45, 0.95), True, 0, cuda_device)
+    with pytest.raises(TypeError):
+        wkv_ops.wkv6(r.double(), kk.double(), v.double(), w, u, chunk=16)
+    with pytest.raises(TypeError):
+        wkv_ops.wkv6(r, kk.bfloat16(), v, w, u, chunk=16)
+    with pytest.raises(TypeError):
+        wkv_ops.wkv6(r, kk, v, w.bfloat16(), u, chunk=16)
+    with pytest.raises(ValueError, match="contiguous"):
+        wkv_ops.wkv6(r.transpose(1, 2).contiguous().transpose(1, 2), kk, v,
+                     w, u, chunk=16)
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        wkv_ops.wkv6(r, kk, v, w, u, chunk=12)
+    with pytest.raises(ValueError, match="u \\(H, K\\)"):
+        wkv_ops.wkv6(r, kk, v, w, u[:1].contiguous(), chunk=16)
+    with pytest.raises(ValueError, match="u \\(H, K\\)"):
+        wkv_ops.wkv6(r, kk, v, w, u, chunk=16, state0=s0[:, :1].contiguous())
+    odd = torch.zeros((1, 32, 2, 12), device=cuda_device)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        wkv_ops.wkv6(odd, odd, odd, odd + 0.5,
+                     torch.zeros((2, 12), device=cuda_device), chunk=16)
+    long = torch.zeros((1, 256, 1, 8), device=cuda_device)
+    with pytest.raises(ValueError, match="at most 128"):
+        wkv_ops.wkv6(long, long, long, long + 0.5,
+                     torch.zeros((1, 8), device=cuda_device), chunk=256)
+    with pytest.raises(ValueError, match="CUDA"):
+        wkv_ops.wkv6(r, kk, v, w, u.cpu(), chunk=16)

@@ -111,7 +111,7 @@ def test_generate_matches_reference_serve_loop(arch, dtype):
     params = convert.lm_params(tree, tcfg, "cpu")
     before = (dict(tflash.KERNEL_LAUNCHES), dict(tgmm.KERNEL_LAUNCHES))
     res = tserve.generate(params, torch.from_numpy(prompts).long(), tcfg, G,
-                          use_flash=True, use_moe_kernel=True)
+                          use_kernels=True)
     assert (tflash.KERNEL_LAUNCHES, tgmm.KERNEL_LAUNCHES) == before
     v = cfg.vocab_size
     got_pf = res["prefill_logits"].float().numpy()
@@ -174,15 +174,20 @@ def test_port_decode_matches_port_forward(arch):
 
 
 def test_serve_on_cpu_and_unported_families():
-    res = tserve.serve("moonshot-v1-16b-a3b", batch=2, prompt_len=8, gen=4,
-                       device="cpu")
-    assert res["tokens"].shape == (2, 4)
-    assert res["tokens"].dtype == torch.int64
-    assert int(res["tokens"].max()) < res["cfg"].vocab_size
-    again = tserve.serve("moonshot-v1-16b-a3b", batch=2, prompt_len=8, gen=4,
-                         device="cpu")
-    assert torch.equal(res["tokens"], again["tokens"])   # from the seed
-    for arch in ("rwkv6-3b", "zamba2-1.2b", "whisper-tiny", "pixtral-12b"):
+    # rwkv6's 21-token prompt is a 16-token chunk and a 5-token tail
+    for arch, prompt_len in (("moonshot-v1-16b-a3b", 8), ("rwkv6-3b", 21)):
+        res = tserve.serve(arch, batch=2, prompt_len=prompt_len, gen=4,
+                           device="cpu")
+        assert res["tokens"].shape == (2, 4)
+        assert res["tokens"].dtype == torch.int64
+        assert int(res["tokens"].max()) < res["cfg"].vocab_size
+        assert res["prefill_logits"].shape == (
+            2, 1, TT.padded_vocab(res["cfg"]))
+        assert res["prefill_logits"].dtype == torch.bfloat16
+        again = tserve.serve(arch, batch=2, prompt_len=prompt_len, gen=4,
+                             device="cpu")
+        assert torch.equal(res["tokens"], again["tokens"])   # from the seed
+    for arch in ("zamba2-1.2b", "whisper-tiny", "pixtral-12b"):
         cfg = TARCHS[arch].reduced()
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tstep.make_prefill_step(cfg)
