@@ -16,6 +16,9 @@ checks the results. Phases:
    ``wkv6`` within the tolerances of the reference's own kernel tests
    and within limits relative to the output, row by row), with its
    time, the plain version's time, one library call's time and its bound;
+   the grouped matmul in the design its type and shape pick (``wgmma``,
+   the tensor cores, at every bfloat16 serve shape) and, at those shapes,
+   its CUDA-core design (``simt``) too, held and timed as a yardstick;
 3. the Table-1 path at the repository's own benchmark setting
    (``benchmarks/run.py``'s xsim leg: 1/64-size centers, policies 0-2,
    warmed fleet), once through the kernel and once through the plain
@@ -33,13 +36,16 @@ checks the results. Phases:
    peak memory and a profiled prefill and decode;
 6. the same for ``moonshot-v1-16b-a3b`` at full width and depth (48
    layers, d2048, 64 experts top-6; batch 4, prompt 1024, 16 new tokens),
-   whose MoE layers run the grouped-matmul kernel in prefill and decode.
+   whose MoE layers run the grouped-matmul kernel in prefill and decode,
+   every one of its 2448 launches (3 a layer in prefill and in each of
+   16 decode steps) on the tensor cores (``wgmma``).
    Its end-to-end logits are reported, not checked (see ``LAYER_TOL``):
    each layer is checked against the other routes on the same input;
 7. moonshot end to end where routing is not chaotic: full width, depth
    cut to 4 layers, float32, the kernel route's logits and greedy tokens
-   held against the twin and plain routes; bfloat16 at 4 layers and at
-   48 from another seed printed beside it;
+   held against the twin and plain routes, its grouped matmuls all on the
+   CUDA cores (``simt``: exact float32); bfloat16 at 4 layers and at 48
+   from another seed printed beside it;
 8. serving ``rwkv6-3b`` at full width and depth (32 layers, d2560, 40
    heads of 64; batch 8, prompt 2048, 32 new tokens) through
    ``launch.serve.serve``, whose prefill runs the ``wkv6`` kernel in
@@ -520,11 +526,29 @@ def wkv_vs_plain(dev) -> dict:
     return rows
 
 
+def gmm_check(tag: str, got, want, dtype) -> tuple[float, float, float]:
+    """Hold a grouped-matmul output against the plain version's within
+    ``GMM_TOL`` and ``GMM_REL``; returns (max err, worst row, rel_rms)."""
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    rtol, atol = GMM_TOL[dtype]
+    row, rms = rel_errs(got, want)
+    lim_row, lim_rms = GMM_REL[dtype]
+    check(bool((diff <= atol + rtol * want.float().abs()).all())
+          and row <= lim_row and rms <= lim_rms,
+          f"grouped_matmul {tag}: max err {err} (rtol {rtol} atol {atol}), "
+          f"worst row {row} ({lim_row}), rel_rms {rms} ({lim_rms})")
+    return err, row, rms
+
+
 def gmm_vs_plain(dev) -> dict:
-    """Phase 2: the grouped-matmul kernel against ``grouped_matmul_ref``
-    (and ``torch.bmm`` timed as a yardstick) at ``GMM_SHAPES``. bfloat16
-    inputs are scaled as activations and fan-in-scaled weights, so outputs
-    stay below 4, where one bfloat16 step is at most 0.0156."""
+    """Phase 2: the grouped-matmul kernel, in the design ``gmm_design``
+    picks, against ``grouped_matmul_ref`` at ``GMM_SHAPES``, with
+    ``torch.bmm`` timed as a yardstick; at the bfloat16 shapes, which the
+    tensor-core design serves, the CUDA-core design too, called by name
+    (``grouped_matmul_simt``) and held to the same limits. bfloat16 inputs
+    are scaled as activations and fan-in-scaled weights, so outputs stay
+    below 4, where one bfloat16 step is at most 0.0156."""
     from repro_torch.kernels.moe_gmm import ops, ref
 
     gen = torch.Generator(device=dev).manual_seed(13)
@@ -535,32 +559,34 @@ def gmm_vs_plain(dev) -> dict:
              * (0.5 if bf else 1.0)).to(dtype)
         w = (torch.randn((e, d, f), generator=gen, device=dev)
              * (d ** -0.5 if bf else 1.0)).to(dtype)
-        got = ops.grouped_matmul(x, w)
+        key = f"{e}x{c}x{d}x{f}" + ("" if bf else "-f32")
+        design = ops.gmm_design(dtype, d, f)
         want = ref.grouped_matmul_ref(x, w)
+        got = ops.grouped_matmul(x, w)
         torch.cuda.synchronize()
-        diff = (got.float() - want.float()).abs()
-        err = float(diff.max())
-        rtol, atol = GMM_TOL[dtype]
-        row, rms = rel_errs(got, want)
-        lim_row, lim_rms = GMM_REL[dtype]
-        check(bool((diff <= atol + rtol * want.float().abs()).all())
-              and row <= lim_row and rms <= lim_rms,
-              f"grouped_matmul {(e, c, d, f, dtype)}: max err {err}, worst "
-              f"row {row} ({lim_row}), rel_rms {rms} ({lim_rms})")
+        err, row, rms = gmm_check(f"{key} {design}", got, want, dtype)
         ms = cuda_ms(lambda: ops.grouped_matmul(x, w), reps=10)
         plain_ms = cuda_ms(lambda: ref.grouped_matmul_ref(x, w), reps=10)
         lib_ms = cuda_ms(lambda: torch.bmm(x, w), reps=10)
         bound, by = gmm_bound_ms(e, c, d, f, dtype)
-        key = f"{e}x{c}x{d}x{f}" + ("" if bf else "-f32")
-        rows[key] = dict(max_abs_err=err, rel_row_err=row, rel_rms=rms,
-                         ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=bound, bound_by=by)
-        print(f"kernel/grouped_matmul {key}: max_abs_err={err:.6g} "
-              f"(rtol {rtol} atol {atol}) worst_row_rel={row:.6g} "
-              f"rel_rms={rms:.6g} (limits {lim_row}, {lim_rms}) ms={ms:.6f} "
-              f"plain_ms={plain_ms:.6f} library_ms={lib_ms:.6f} "
-              f"bound_ms={bound:.6f} ({by})")
-        del x, w, got, want, diff
+        rows[key] = dict(design=design, max_abs_err=err, rel_row_err=row,
+                         rel_rms=rms, ms=ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=bound, bound_by=by)
+        simt = ""
+        if design != "simt":
+            got = ops.grouped_matmul_simt(x, w)
+            torch.cuda.synchronize()
+            s_err, s_row, s_rms = gmm_check(f"{key} simt", got, want, dtype)
+            s_ms = cuda_ms(lambda: ops.grouped_matmul_simt(x, w), reps=5)
+            rows[key].update(simt_ms=s_ms, simt_max_abs_err=s_err,
+                             simt_rel_row_err=s_row, simt_rel_rms=s_rms)
+            simt = (f" simt_ms={s_ms:.6f} (simt max_abs_err={s_err:.6g} "
+                    f"worst_row_rel={s_row:.6g} rel_rms={s_rms:.6g})")
+        print(f"kernel/grouped_matmul {key}: design={design} "
+              f"max_abs_err={err:.6g} worst_row_rel={row:.6g} "
+              f"rel_rms={rms:.6g} ms={ms:.6f} plain_ms={plain_ms:.6f} "
+              f"library_ms={lib_ms:.6f} bound_ms={bound:.6f} ({by}){simt}")
+        del x, w, got, want
     return rows
 
 
@@ -656,6 +682,7 @@ def moe_end_to_end(dev) -> None:
     seed (the twin against the plain route runs no kernel on either
     side)."""
     from repro_torch.configs import get_arch
+    from repro_torch.kernels.moe_gmm import ops as gmm_ops
     from repro_torch.launch import serve as launch_serve
     from repro_torch.models.transformer import init_lm
 
@@ -670,8 +697,18 @@ def moe_end_to_end(dev) -> None:
         prompts = torch.randint(
             0, cfg.vocab_size, (batch, prompt_len), device=dev,
             generator=torch.Generator(device=dev).manual_seed(seed))
+        for k in gmm_ops.DESIGN_LAUNCHES:
+            gmm_ops.DESIGN_LAUNCHES[k] = 0
         routes = {"kernel": launch_serve.generate(params, prompts, cfg, gen,
                                                   use_kernels=True)}
+        # float32 stays on the CUDA cores, bfloat16 goes to the tensor cores
+        designs = dict(gmm_ops.DESIGN_LAUNCHES)
+        want = "simt" if dtype == "float32" else "wgmma"
+        print(f"serve/moe/e2e_{dtype}_L{n_layers}_seed{seed}: "
+              f"grouped_matmul_designs={designs}")
+        check(designs[want] > 0 and sum(designs.values()) == designs[want],
+              f"moonshot {dtype} ran grouped_matmul designs {designs}, "
+              f"want all {want}")
         with plain_kernels():
             routes["twin"] = launch_serve.generate(params, prompts, cfg, gen,
                                                    use_kernels=True)
@@ -842,7 +879,8 @@ def profile_serve(tag: str, params, prompts, cfg, steps: int = 4) -> None:
     prefill = make_prefill_step(cfg, use_kernels=True)
     decode = make_decode_step(cfg, use_kernels=True)
     ssm = cfg.family == "ssm"
-    names = ("wkv6_kernel",) if ssm else ("flash_kernel", "gmm_kernel")
+    names = (("wkv6_kernel",) if ssm else
+             ("flash_kernel", "gmm_wgmma_kernel", "gmm_kernel"))
     device_profile(f"{tag}/profile_prefill",
                    lambda: prefill(params, prompts), 1, "prefill", names)
     b, s = prompts.shape
@@ -881,7 +919,7 @@ def serve_phase(family: str, dev) -> dict:
                 wkv_ops.KERNEL_LAUNCHES)
 
     def reset():
-        for cnt in counters:
+        for cnt in counters + (gmm_ops.DESIGN_LAUNCHES,):
             for k in cnt:
                 cnt[k] = 0
 
@@ -900,6 +938,7 @@ def serve_phase(family: str, dev) -> dict:
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = read()
+    designs = dict(gmm_ops.DESIGN_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     cfg, params, prompts = res["cfg"], res["params"], res["prompts"]
     leaves = flatten(params).values()
@@ -948,7 +987,16 @@ def serve_phase(family: str, dev) -> dict:
               f"decode_ms_per_step={r['decode_s'] * 1e3 / gen:.3f} "
               f"tok_per_s={batch * gen / total:.3f}")
     print(f"{tag}: serve_wall_s={wall_s:.3f} (init and prompts included) "
-          f"peak_mem_bytes={peak} launches={launches}")
+          f"peak_mem_bytes={peak} launches={launches} "
+          f"grouped_matmul_designs={designs}")
+    if family == "moe":
+        # every bfloat16 launch of the serve path on the tensor cores: 3 a
+        # layer (gate, up, down) in prefill and in each decode step
+        want = 3 * cfg.n_layers * (1 + gen)
+        check(designs == {"wgmma": want, "simt": 0}
+              and launches["grouped_matmul"] == want,
+              f"{tag}: grouped_matmul launches by design {designs}, want "
+              f"all {want} through wgmma")
     failed = []
     for other, (tol_max, tol_rel) in SERVE_TOL.items():
         if other not in routes:
@@ -980,7 +1028,7 @@ def serve_phase(family: str, dev) -> dict:
     profile_serve(tag, params, prompts, cfg)
     del params, prompts
     torch.cuda.empty_cache()
-    return dict(launches=launches)
+    return dict(launches=launches, designs=designs)
 
 
 def stepwise_generate(params, prompts, cfg, gen: int) -> dict:
@@ -1368,6 +1416,13 @@ def main() -> None:
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"], shape=key,
             shapes=rows))
+    # the grouped matmul: its design and launches by design on serve/moe,
+    # and its decode shape's row beside the prefill one
+    gmm_entry = next(x for x in entries if x["name"] == "grouped_matmul")
+    gmm_entry.update(design=gmm_rows["64x480x2048x1408"]["design"],
+                     launches_by_design=served["moe"]["designs"],
+                     decode_shape="64x8x2048x1408",
+                     decode=gmm_rows["64x8x2048x1408"])
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

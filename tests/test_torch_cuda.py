@@ -155,20 +155,68 @@ def test_flash_attention_kernel_refuses_bad_inputs(cuda_device):
     (64, 480, 2048, 1408, torch.bfloat16), (64, 480, 1408, 2048,
                                             torch.bfloat16),
     (64, 8, 2048, 1408, torch.bfloat16), (3, 17, 100, 130, torch.bfloat16),
+    # the tensor-core design at its edges: ragged C (1, 37), D not a
+    # multiple of 64, F not a multiple of the 128-wide tile, the decode
+    # down projection, one expert; and bf16 with D or F not a multiple of
+    # 8, which stays on the CUDA cores
+    (4, 1, 256, 384, torch.bfloat16), (3, 37, 512, 640, torch.bfloat16),
+    (2, 96, 136, 256, torch.bfloat16), (2, 160, 256, 200, torch.bfloat16),
+    (64, 8, 1408, 2048, torch.bfloat16), (1, 300, 512, 384, torch.bfloat16),
+    (2, 40, 132, 256, torch.bfloat16), (2, 40, 256, 132, torch.bfloat16),
 ])
 def test_grouped_matmul_kernel_against_plain(cuda_device, e, c, d, f, dtype):
     x = _randn((e, c, d), 0, cuda_device, dtype,
                1.0 if dtype == torch.float32 else 0.5)
     w = _randn((e, d, f), 1, cuda_device, dtype,
                1.0 if dtype == torch.float32 else d ** -0.5)
+    design = gmm_ops.gmm_design(dtype, d, f)
     before = gmm_ops.KERNEL_LAUNCHES["grouped_matmul"]
+    by_design = dict(gmm_ops.DESIGN_LAUNCHES)
     got = gmm_ops.grouped_matmul(x, w)
     torch.cuda.synchronize()
     assert gmm_ops.KERNEL_LAUNCHES["grouped_matmul"] == before + 1
+    by_design[design] += 1
+    assert gmm_ops.DESIGN_LAUNCHES == by_design
+    assert design == ("wgmma" if dtype == torch.bfloat16 and d % 8 == 0
+                      and f % 8 == 0 else "simt")
     assert got.dtype == dtype and got.shape == (e, c, f)
     want = gmm_ref.grouped_matmul_ref(x, w)
     torch.testing.assert_close(got.float(), want.float(), **GMM_TOL[dtype])
     _assert_rel_close(got, want, GMM_REL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,c,d,f", [(64, 480, 2048, 1408), (3, 37, 512, 640),
+                                     (64, 8, 1408, 2048)])
+def test_grouped_matmul_simt_yardstick_against_plain(cuda_device, e, c, d, f):
+    """The CUDA-core design, called by name at bfloat16 shapes that the
+    tensor-core design serves, as chip_smoke.py times it."""
+    x = _randn((e, c, d), 0, cuda_device, torch.bfloat16, 0.5)
+    w = _randn((e, d, f), 1, cuda_device, torch.bfloat16, d ** -0.5)
+    before = gmm_ops.DESIGN_LAUNCHES["simt"]
+    got = gmm_ops.grouped_matmul_simt(x, w)
+    torch.cuda.synchronize()
+    assert gmm_ops.DESIGN_LAUNCHES["simt"] == before + 1
+    want = gmm_ref.grouped_matmul_ref(x, w)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **GMM_TOL[torch.bfloat16])
+    _assert_rel_close(got, want, GMM_REL)
+
+
+@pytest.mark.cuda
+def test_grouped_matmul_design_matches_the_library(cuda_device):
+    """``gmm_design`` names the design the C launcher runs."""
+    import ctypes
+
+    from repro_torch import cuda_build
+
+    fn = cuda_build.load("moe_gmm").grouped_matmul_design
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (0, 1, 8, 100, 136, 1408, 2048):
+            for f in (1, 8, 130, 200, 1408, 2048):
+                want = gmm_ops.gmm_design(dtype, d, f) == "wgmma"
+                assert fn(int(dtype == torch.bfloat16), d, f) == want
 
 
 @pytest.mark.cuda
@@ -186,6 +234,10 @@ def test_grouped_matmul_kernel_refuses_bad_inputs(cuda_device):
         gmm_ops.grouped_matmul(x, w[:, :8].contiguous())
     with pytest.raises(ValueError, match="CUDA"):
         gmm_ops.grouped_matmul(x, w.cpu())
+    shifted = torch.zeros(2 * 8 * 16 + 1, dtype=torch.bfloat16,
+                          device=cuda_device)[1:].view(2, 8, 16)
+    with pytest.raises(ValueError, match="aligned"):
+        gmm_ops.grouped_matmul(shifted, w.bfloat16())
 
 
 def _wkv_inputs(b, s, h, k, dtype, w_range, state, seed, dev):
