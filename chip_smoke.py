@@ -16,9 +16,10 @@ checks the results. Phases:
    ``wkv6`` within the tolerances of the reference's own kernel tests
    and within limits relative to the output, row by row), with its
    time, the plain version's time, one library call's time and its bound;
-   the grouped matmul in the design its type and shape pick (``wgmma``,
-   the tensor cores, at every bfloat16 serve shape) and, at those shapes,
-   its CUDA-core design (``simt``) too, held and timed as a yardstick;
+   flash attention and the grouped matmul in the design their type and
+   shape pick (``wgmma``, the tensor cores, at every bfloat16 serve shape)
+   and, at those shapes, their CUDA-core design (``simt``) too, held and
+   timed as a yardstick;
 3. the Table-1 path at the repository's own benchmark setting
    (``benchmarks/run.py``'s xsim leg: 1/64-size centers, policies 0-2,
    warmed fleet), once through the kernel and once through the plain
@@ -29,7 +30,8 @@ checks the results. Phases:
    points; the kernel's launches in this run are counted;
 5. serving ``qwen2-0.5b`` at full size (24 layers, d896; batch 8, prompt
    2048, 32 new tokens) through ``repro_torch.launch.serve.serve``, whose
-   prefill runs the flash-attention kernel; then the same params and
+   prefill runs the flash-attention kernel, all 24 launches on the tensor
+   cores (``wgmma``); then the same params and
    prompts through the "twin" route (each kernel swapped for its plain
    version) and the plain route (``sdpa``): logits within stated
    bfloat16 tolerances, the share of greedy tokens that agree, times,
@@ -38,14 +40,15 @@ checks the results. Phases:
    layers, d2048, 64 experts top-6; batch 4, prompt 1024, 16 new tokens),
    whose MoE layers run the grouped-matmul kernel in prefill and decode,
    every one of its 2448 launches (3 a layer in prefill and in each of
-   16 decode steps) on the tensor cores (``wgmma``).
+   16 decode steps) on the tensor cores (``wgmma``), as are the 48 flash
+   launches of its prefill.
    Its end-to-end logits are reported, not checked (see ``LAYER_TOL``):
    each layer is checked against the other routes on the same input;
 7. moonshot end to end where routing is not chaotic: full width, depth
    cut to 4 layers, float32, the kernel route's logits and greedy tokens
-   held against the twin and plain routes, its grouped matmuls all on the
-   CUDA cores (``simt``: exact float32); bfloat16 at 4 layers and at 48
-   from another seed printed beside it;
+   held against the twin and plain routes, its grouped matmuls and flash
+   attention all on the CUDA cores (``simt``: exact float32); bfloat16 at
+   4 layers and at 48 from another seed printed beside it;
 8. serving ``rwkv6-3b`` at full width and depth (32 layers, d2560, 40
    heads of 64; batch 8, prompt 2048, 32 new tokens) through
    ``launch.serve.serve``, whose prefill runs the ``wkv6`` kernel in
@@ -118,11 +121,14 @@ GMM_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (0.0, 3e-2)}
 # std about sqrt(e/n): 0.05 at row 1024), limits relative to the output:
 # (largest ||Δ|| / ||want|| over output rows, rms(Δ) / rms(want)); see
 # ``rel_errs``. Kernel and plain version both sum in float32 and differ
-# in order only, so in bfloat16 the outputs differ by at most one rounding
-# step (2^-8 to 2^-7 of |x|) where they differ at all. Measured on an H100
-# at these shapes: flash bf16 worst row 0.0026, rel_rms 3.6e-5, f32 1.2e-6
-# and 3.4e-7; grouped matmul bf16 6.8e-4 and 1.0e-4, f32 bitwise. Each
-# limit is about ten times its reading (the bf16 row limit, one step).
+# in order only (flash's tensor-core design also keeps p to about 16 bits
+# for p·v, as p_hi + p_lo in bfloat16), so in bfloat16 the outputs differ
+# by at most one rounding step (2^-8 to 2^-7 of |x|) where they differ at
+# all. Measured on an H100 at these shapes: flash bf16 worst row 0.0026,
+# rel_rms 3.6e-5 (CUDA cores), 0.0033 and 9.1e-5 (tensor cores), f32
+# 1.2e-6 and 3.4e-7; grouped matmul bf16 6.8e-4 and 1.0e-4, f32 bitwise.
+# Each limit was set at about ten times its reading on the CUDA cores
+# (the bf16 row limit, one step).
 FLASH_REL = {torch.float32: (1e-5, 3e-6), torch.bfloat16: (8e-3, 4e-4)}
 GMM_REL = {torch.float32: (1e-5, 2e-6), torch.bfloat16: (5e-3, 1e-3)}
 
@@ -133,6 +139,9 @@ FLASH_SHAPES = ((8, 2048, 14, 64, 0, torch.bfloat16),
                 (2, 1000, 4, 64, 0, torch.bfloat16),
                 (2, 1000, 4, 128, 256, torch.float32),
                 (2, 1024, 16, 128, 0, torch.float32))
+# ... the two serve shapes, where the CUDA-core design is held and timed
+# beside the tensor-core one
+FLASH_SERVE_KEYS = ("8x2048x14x64", "4x1024x16x128")
 # phase 2 gmm shapes (E, C, D, F, dtype): moonshot's gate/up and down
 # projections at prefill (C = capacity of 4096 tokens) and decode (C = 8),
 # and a ragged f32 one
@@ -410,10 +419,26 @@ def kernel_vs_plain(backfill, dev) -> dict:
     return rows
 
 
+def flash_check(tag: str, got, want, dtype) -> tuple[float, float, float]:
+    """Hold a flash-attention output against ``attention_ref``'s within
+    ``FLASH_ATOL`` and ``FLASH_REL``; returns (max err, worst row,
+    rel_rms)."""
+    err = float((got.float() - want.float()).abs().max())
+    row, rms = rel_errs(got, want)
+    lim_row, lim_rms = FLASH_REL[dtype]
+    check(err <= FLASH_ATOL[dtype] and row <= lim_row and rms <= lim_rms,
+          f"flash_attention {tag}: max err {err} (atol {FLASH_ATOL[dtype]}), "
+          f"worst row {row} ({lim_row}), rel_rms {rms} ({lim_rms})")
+    return err, row, rms
+
+
 def flash_vs_plain(dev) -> dict:
-    """Phase 2: the flash-attention kernel against ``attention_ref`` (and,
-    for the serve shapes, ``F.scaled_dot_product_attention`` timed as a
-    yardstick) at ``FLASH_SHAPES``."""
+    """Phase 2: the flash-attention kernel, in the design ``flash_design``
+    picks, against ``attention_ref`` (and, for the serve shapes,
+    ``F.scaled_dot_product_attention`` timed as a yardstick) at
+    ``FLASH_SHAPES``; at the bfloat16 serve shapes, which the tensor-core
+    design serves, the CUDA-core design too, called by name
+    (``flash_attention_simt``) and held to the same limits."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops, ref
 
@@ -422,18 +447,14 @@ def flash_vs_plain(dev) -> dict:
     for b, s, h, hd, window, dtype in FLASH_SHAPES:
         q, k, v = (torch.randn((b, s, h, hd), generator=gen, device=dev)
                    .to(dtype) for _ in range(3))
+        design = ops.flash_design(dtype, hd)
         got = ops.flash_attention(q, k, v, causal=True, window=window)
         want = ref.attention_ref(q, k, v, causal=True, window=window)
         torch.cuda.synchronize()
-        err = float((got.float() - want.float()).abs().max())
-        row, rms = rel_errs(got, want)
         key = f"{b}x{s}x{h}x{hd}" + (f"w{window}" if window else "") + \
             ("-f32" if dtype == torch.float32 else "")
+        err, row, rms = flash_check(f"{key} {design}", got, want, dtype)
         lim_row, lim_rms = FLASH_REL[dtype]
-        check(err <= FLASH_ATOL[dtype] and row <= lim_row and rms <= lim_rms,
-              f"flash_attention {key}: max err {err} (atol "
-              f"{FLASH_ATOL[dtype]}), worst row {row} ({lim_row}), rel_rms "
-              f"{rms} ({lim_rms})")
         ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True,
                                                  window=window), reps=10)
         plain_ms = cuda_ms(lambda: ref.attention_ref(q, k, v, causal=True,
@@ -444,14 +465,28 @@ def flash_vs_plain(dev) -> dict:
             lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True), reps=10)
         bound, by = flash_bound_ms(b, s, h, hd, window, dtype)
-        rows[key] = dict(max_abs_err=err, rel_row_err=row, rel_rms=rms,
-                         ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=bound, bound_by=by)
-        print(f"kernel/flash_attention {key}: max_abs_err={err:.6g} "
+        rows[key] = dict(design=design, max_abs_err=err, rel_row_err=row,
+                         rel_rms=rms, ms=ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=bound, bound_by=by)
+        simt = ""
+        if key in FLASH_SERVE_KEYS:
+            got = ops.flash_attention_simt(q, k, v, causal=True)
+            torch.cuda.synchronize()
+            s_err, s_row, s_rms = flash_check(f"{key} simt", got, want,
+                                              dtype)
+            s_ms = cuda_ms(lambda: ops.flash_attention_simt(q, k, v,
+                                                            causal=True),
+                           reps=5)
+            rows[key].update(simt_ms=s_ms, simt_max_abs_err=s_err,
+                             simt_rel_row_err=s_row, simt_rel_rms=s_rms)
+            simt = (f" simt_ms={s_ms:.6f} (simt max_abs_err={s_err:.6g} "
+                    f"worst_row_rel={s_row:.6g} rel_rms={s_rms:.6g})")
+        print(f"kernel/flash_attention {key}: design={design} "
+              f"max_abs_err={err:.6g} "
               f"(atol {FLASH_ATOL[dtype]}) worst_row_rel={row:.6g} "
               f"rel_rms={rms:.6g} (limits {lim_row}, {lim_rms}) ms={ms:.6f} "
               f"plain_ms={plain_ms:.6f} library_ms={lib_ms} "
-              f"bound_ms={bound:.6f} ({by})")
+              f"bound_ms={bound:.6f} ({by}){simt}")
         del q, k, v, got, want
     return rows
 
@@ -682,6 +717,7 @@ def moe_end_to_end(dev) -> None:
     seed (the twin against the plain route runs no kernel on either
     side)."""
     from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.moe_gmm import ops as gmm_ops
     from repro_torch.launch import serve as launch_serve
     from repro_torch.models.transformer import init_lm
@@ -697,18 +733,23 @@ def moe_end_to_end(dev) -> None:
         prompts = torch.randint(
             0, cfg.vocab_size, (batch, prompt_len), device=dev,
             generator=torch.Generator(device=dev).manual_seed(seed))
-        for k in gmm_ops.DESIGN_LAUNCHES:
-            gmm_ops.DESIGN_LAUNCHES[k] = 0
+        for cnt in (gmm_ops.DESIGN_LAUNCHES, flash_ops.DESIGN_LAUNCHES):
+            for k in cnt:
+                cnt[k] = 0
         routes = {"kernel": launch_serve.generate(params, prompts, cfg, gen,
                                                   use_kernels=True)}
         # float32 stays on the CUDA cores, bfloat16 goes to the tensor cores
         designs = dict(gmm_ops.DESIGN_LAUNCHES)
+        flash_designs = dict(flash_ops.DESIGN_LAUNCHES)
         want = "simt" if dtype == "float32" else "wgmma"
         print(f"serve/moe/e2e_{dtype}_L{n_layers}_seed{seed}: "
-              f"grouped_matmul_designs={designs}")
-        check(designs[want] > 0 and sum(designs.values()) == designs[want],
-              f"moonshot {dtype} ran grouped_matmul designs {designs}, "
-              f"want all {want}")
+              f"grouped_matmul_designs={designs} "
+              f"flash_attention_designs={flash_designs}")
+        for name, got in (("grouped_matmul", designs),
+                          ("flash_attention", flash_designs)):
+            check(got[want] > 0 and sum(got.values()) == got[want],
+                  f"moonshot {dtype} ran {name} designs {got}, want all "
+                  f"{want}")
         with plain_kernels():
             routes["twin"] = launch_serve.generate(params, prompts, cfg, gen,
                                                    use_kernels=True)
@@ -880,7 +921,8 @@ def profile_serve(tag: str, params, prompts, cfg, steps: int = 4) -> None:
     decode = make_decode_step(cfg, use_kernels=True)
     ssm = cfg.family == "ssm"
     names = (("wkv6_kernel",) if ssm else
-             ("flash_kernel", "gmm_wgmma_kernel", "gmm_kernel"))
+             ("flash_wgmma_kernel", "flash_kernel", "gmm_wgmma_kernel",
+              "gmm_kernel"))
     device_profile(f"{tag}/profile_prefill",
                    lambda: prefill(params, prompts), 1, "prefill", names)
     b, s = prompts.shape
@@ -919,7 +961,8 @@ def serve_phase(family: str, dev) -> dict:
                 wkv_ops.KERNEL_LAUNCHES)
 
     def reset():
-        for cnt in counters + (gmm_ops.DESIGN_LAUNCHES,):
+        for cnt in counters + (gmm_ops.DESIGN_LAUNCHES,
+                               flash_ops.DESIGN_LAUNCHES):
             for k in cnt:
                 cnt[k] = 0
 
@@ -939,6 +982,7 @@ def serve_phase(family: str, dev) -> dict:
     wall_s = time.perf_counter() - t0
     launches = read()
     designs = dict(gmm_ops.DESIGN_LAUNCHES)
+    flash_designs = dict(flash_ops.DESIGN_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     cfg, params, prompts = res["cfg"], res["params"], res["prompts"]
     leaves = flatten(params).values()
@@ -988,7 +1032,16 @@ def serve_phase(family: str, dev) -> dict:
               f"tok_per_s={batch * gen / total:.3f}")
     print(f"{tag}: serve_wall_s={wall_s:.3f} (init and prompts included) "
           f"peak_mem_bytes={peak} launches={launches} "
-          f"grouped_matmul_designs={designs}")
+          f"grouped_matmul_designs={designs} "
+          f"flash_attention_designs={flash_designs}")
+    if family != "ssm":
+        # every bfloat16 flash launch of the serve path on the tensor
+        # cores: one a layer, in prefill
+        want = cfg.n_layers
+        check(flash_designs == {"wgmma": want, "simt": 0}
+              and launches["flash_attention"] == want,
+              f"{tag}: flash_attention launches by design {flash_designs}, "
+              f"want all {want} through wgmma")
     if family == "moe":
         # every bfloat16 launch of the serve path on the tensor cores: 3 a
         # layer (gate, up, down) in prefill and in each decode step
@@ -1028,7 +1081,8 @@ def serve_phase(family: str, dev) -> dict:
     profile_serve(tag, params, prompts, cfg)
     del params, prompts
     torch.cuda.empty_cache()
-    return dict(launches=launches, designs=designs)
+    return dict(launches=launches, designs=designs,
+                flash_designs=flash_designs)
 
 
 def stepwise_generate(params, prompts, cfg, gen: int) -> dict:
@@ -1332,6 +1386,9 @@ def main() -> None:
         print(f"build/{name}: {len(regs)} kernels, registers "
               f"{min(regs, default=0)}-{max(regs, default=0)}, largest "
               f"spill {spill} bytes")
+        for line in log.splitlines():   # e.g. wgmma serialised by ptxas
+            if "warning" in line.lower():
+                print(f"build/{name}/warning: {line.strip()[:200]}")
     phases.done("1_build")
 
     # phase 2: kernels against their plain versions
@@ -1423,6 +1480,15 @@ def main() -> None:
                      launches_by_design=served["moe"]["designs"],
                      decode_shape="64x8x2048x1408",
                      decode=gmm_rows["64x8x2048x1408"])
+    # flash attention: its design and launches by design over both serve
+    # paths, and moonshot's shape's row beside qwen2's
+    flash_entry = next(x for x in entries if x["name"] == "flash_attention")
+    flash_entry.update(
+        design=flash_rows["8x2048x14x64"]["design"],
+        launches_by_design={d: sum(served[f]["flash_designs"][d]
+                                   for f in ("dense", "moe"))
+                            for d in ("wgmma", "simt")},
+        moe_shape="4x1024x16x128", moe=flash_rows["4x1024x16x128"])
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,83 @@
+"""Compare source trees of the port on the prefill of the two transformer
+serve paths, where flash attention runs.
+
+Each tree (a directory holding ``repro_torch``) runs in its own process,
+in the order given, so that two commits are compared on one card in
+turns (parent, change, change, parent):
+
+    python scripts/flash_serve_ab.py _archive/parent/src src src \\
+        _archive/parent/src
+
+For each tree it prints one line: the steady prefill ms of
+``launch.serve.generate`` through the kernels (the median of three runs
+after a warm-up) for qwen2-0.5b at full size (batch 8, prompt 2048, as
+``chip_smoke.py`` phase 5 serves it) and moonshot-v1-16b-a3b at full
+width, ``--layers`` deep (batch 4, prompt 1024, as phase 6), and the
+flash launches of one prefill. Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import statistics
+import subprocess
+import sys
+
+# arch, batch, prompt length
+MODELS = (("qwen2-0.5b", 8, 2048), ("moonshot-v1-16b-a3b", 4, 1024))
+
+
+def one(tree: str, layers: int) -> None:
+    sys.path.insert(0, tree)
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models.transformer import init_lm
+
+    dev = torch.device("cuda")
+    cells = []
+    for arch, batch, prompt_len in MODELS:
+        cfg = get_arch(arch)
+        if arch.startswith("moonshot"):
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        params = init_lm(cfg, seed=0, device=dev)
+        prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                                device=dev, generator=torch.Generator(
+                                    device=dev).manual_seed(0))
+        launch_serve.generate(params, prompts, cfg, 1, use_kernels=True)
+        before = ops.KERNEL_LAUNCHES["flash_attention"]
+        times = [launch_serve.generate(params, prompts, cfg, 1,
+                                       use_kernels=True)["prefill_s"] * 1e3
+                 for _ in range(3)]
+        launches = (ops.KERNEL_LAUNCHES["flash_attention"] - before) // 3
+        cells.append(f"{arch}(L{cfg.n_layers}) prefill_ms="
+                     f"{statistics.median(times):.3f} "
+                     f"(runs {', '.join(f'{t:.3f}' for t in times)}) "
+                     f"flash_launches={launches}")
+        del params, prompts
+        torch.cuda.empty_cache()
+    print(f"tree={tree} " + "; ".join(cells), flush=True)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("trees", nargs="+")
+    ap.add_argument("--layers", type=int, default=48)
+    ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.one:
+        one(args.trees[0], args.layers)
+        return
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    for tree in args.trees:
+        subprocess.run([sys.executable, __file__, "--one", tree,
+                        "--layers", str(args.layers)], check=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -27,8 +27,10 @@ GMM_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-4),
 # sqrt(e/n)). (largest ||Δ|| / ||want|| over output rows, rms(Δ) /
 # rms(want)); in bfloat16 kernel and plain version differ by at most one
 # rounding step (2^-8 to 2^-7 of |x|) where they differ at all. Each limit
-# is about ten times the reading on an H100 at the serve shapes (the bf16
-# row limits: about one rounding step).
+# is about ten times the reading of the CUDA-core kernels on an H100 at
+# the serve shapes (the bf16 row limits: about one rounding step); flash
+# attention's tensor-core design, which keeps p to about 16 bits for p·v,
+# reads rel_rms 8e-5 to 9e-5 there.
 FLASH_REL = {torch.float32: (1e-5, 3e-6), torch.bfloat16: (8e-3, 4e-4)}
 GMM_REL = {torch.float32: (1e-5, 2e-6), torch.bfloat16: (5e-3, 1e-3)}
 # wkv6 against its plain chunked version, as chip_smoke.py holds its
@@ -112,16 +114,66 @@ def _randn(shape, seed, dev, dtype, scale=1.0):
     (8, 2048, 14, 64, True, 0, torch.bfloat16),
     (4, 1024, 16, 128, True, 0, torch.bfloat16),
     (1, 300, 2, 256, True, 100, torch.bfloat16),
+    # the tensor-core design (bf16, hd 64 and 128): one tile (S = 64, a
+    # single kv tile, non-causal at hd 128 so no mask at all), S = 1, a
+    # ragged S, S = 1000 with and without a window, non-causal, and B·H
+    # above the card's 132 SMs
+    (1, 64, 1, 64, True, 0, torch.bfloat16),
+    (1, 64, 1, 128, False, 0, torch.bfloat16),
+    (1, 64, 2, 128, True, 0, torch.bfloat16),
+    (2, 1, 3, 64, True, 0, torch.bfloat16),
+    (2, 1, 3, 128, True, 0, torch.bfloat16),
+    (2, 77, 2, 64, True, 0, torch.bfloat16),
+    (2, 77, 2, 128, True, 0, torch.bfloat16),
+    (2, 1000, 4, 64, True, 0, torch.bfloat16),
+    (1, 1000, 3, 128, True, 256, torch.bfloat16),
+    (1, 1000, 3, 64, True, 100, torch.bfloat16),
+    (2, 300, 2, 64, False, 0, torch.bfloat16),
+    (2, 300, 2, 128, False, 0, torch.bfloat16),
+    (12, 256, 12, 64, True, 0, torch.bfloat16),
+    (4, 512, 40, 128, True, 0, torch.bfloat16),
 ])
 def test_flash_attention_kernel_against_plain(cuda_device, b, s, h, hd,
                                               causal, window, dtype):
     q, k, v = (_randn((b, s, h, hd), i, cuda_device, dtype)
                for i in range(3))
+    design = flash_ops.flash_design(dtype, hd)
+    assert design == ("wgmma" if dtype == torch.bfloat16 and hd in (64, 128)
+                      else "simt")
     before = flash_ops.KERNEL_LAUNCHES["flash_attention"]
+    by_design = dict(flash_ops.DESIGN_LAUNCHES)
     got = flash_ops.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert flash_ops.KERNEL_LAUNCHES["flash_attention"] == before + 1
+    by_design[design] += 1
+    assert flash_ops.DESIGN_LAUNCHES == by_design
     want = flash_ref.attention_ref(q, k, v, causal=causal, window=window)
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=FLASH_ATOL[dtype], rtol=0)
+    _assert_rel_close(got, want, FLASH_REL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,sk,hd,causal,dtype", [
+    (300, 77, 64, False, torch.bfloat16), (77, 300, 128, False,
+                                            torch.bfloat16),
+    (200, 130, 64, True, torch.bfloat16), (130, 200, 128, True,
+                                           torch.bfloat16),
+    (200, 130, 72, True, torch.float32)])
+def test_flash_attention_kernel_takes_other_key_lengths(cuda_device, sq, sk,
+                                                        hd, causal, dtype):
+    """q and k, v of other lengths (causal: kpos <= qpos, positions from 0
+    on both), in both designs."""
+    q = _randn((2, sq, 3, hd), 0, cuda_device, dtype)
+    k, v = (_randn((2, sk, 3, hd), i, cuda_device, dtype) for i in (1, 2))
+    design = flash_ops.flash_design(dtype, hd)
+    by_design = dict(flash_ops.DESIGN_LAUNCHES)
+    got = flash_ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    by_design[design] += 1
+    assert flash_ops.DESIGN_LAUNCHES == by_design
+    want = flash_ref.attention_ref(q, k, v, causal=causal)
     assert got.dtype == dtype and got.shape == q.shape
     torch.testing.assert_close(got.float(), want.float(),
                                atol=FLASH_ATOL[dtype], rtol=0)
@@ -145,6 +197,44 @@ def test_flash_attention_kernel_refuses_bad_inputs(cuda_device):
         flash_ops.flash_attention(odd, odd, odd)
     with pytest.raises(ValueError, match="CUDA"):
         flash_ops.flash_attention(q, q.cpu(), q)
+    shifted = torch.zeros(16 * 2 * 64 + 1, dtype=torch.bfloat16,
+                          device=cuda_device)[1:].view(1, 16, 2, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_ops.flash_attention(shifted, q.bfloat16(), q.bfloat16())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,hd", [(8, 2048, 14, 64), (4, 1024, 16, 128),
+                                      (2, 77, 2, 64)])
+def test_flash_attention_simt_yardstick_against_plain(cuda_device, b, s, h,
+                                                      hd):
+    """The CUDA-core design, called by name at bfloat16 shapes that the
+    tensor-core design serves, as chip_smoke.py times it."""
+    q, k, v = (_randn((b, s, h, hd), i, cuda_device, torch.bfloat16)
+               for i in range(3))
+    before = flash_ops.DESIGN_LAUNCHES["simt"]
+    got = flash_ops.flash_attention_simt(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_ops.DESIGN_LAUNCHES["simt"] == before + 1
+    want = flash_ref.attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=FLASH_ATOL[torch.bfloat16], rtol=0)
+    _assert_rel_close(got, want, FLASH_REL)
+
+
+@pytest.mark.cuda
+def test_flash_attention_design_matches_the_library(cuda_device):
+    """``flash_design`` names the design the C launcher runs."""
+    import ctypes
+
+    from repro_torch import cuda_build
+
+    fn = cuda_build.load("flash_attention").flash_attention_design
+    fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_int
+    for dtype in (torch.float32, torch.bfloat16):
+        for hd in range(8, 257, 8):
+            want = flash_ops.flash_design(dtype, hd) == "wgmma"
+            assert fn(int(dtype == torch.bfloat16), hd) == want
 
 
 @pytest.mark.cuda
