@@ -16,10 +16,12 @@ checks the results. Phases:
    ``wkv6`` within the tolerances of the reference's own kernel tests
    and within limits relative to the output, row by row), with its
    time, the plain version's time, one library call's time and its bound;
-   flash attention and the grouped matmul in the design their type and
-   shape pick (``wgmma``, the tensor cores, at every bfloat16 serve shape)
-   and, at those shapes, their CUDA-core design (``simt``) too, held and
-   timed as a yardstick;
+   flash attention, the grouped matmul and ``wkv6`` in the design their
+   type and shape pick (``wgmma`` or, for ``wkv6``, ``mma``: the tensor
+   cores, at every bfloat16 serve shape) and, at those shapes, their
+   CUDA-core design (``simt``) too, held and timed as a yardstick; the
+   final ``wkv6`` state of every bfloat16 case bitwise equal to the
+   CUDA-core design's;
 3. the Table-1 path at the repository's own benchmark setting
    (``benchmarks/run.py``'s xsim leg: 1/64-size centers, policies 0-2,
    warmed fleet), once through the kernel and once through the plain
@@ -52,7 +54,8 @@ checks the results. Phases:
 8. serving ``rwkv6-3b`` at full width and depth (32 layers, d2560, 40
    heads of 64; batch 8, prompt 2048, 32 new tokens) through
    ``launch.serve.serve``, whose prefill runs the ``wkv6`` kernel in
-   every layer, against the twin route (the kernel swapped for its plain
+   every layer, all 32 launches on the tensor cores (``mma``), against
+   the twin route (the kernel swapped for its plain
    version, which is also the reference's default route): the bfloat16
    logits reported beside a witness that runs no kernel, each layer held
    on the kernel route's own inputs, and the logits held end to end in
@@ -64,7 +67,9 @@ checks the results. Phases:
    ``generate`` against the token-by-token prompt loop of the
    reference's serve (``decode_step`` one token at a time, no kernel):
    in float32 greedy tokens equal and logits and the state after the
-   prompt within limits, in bfloat16 logits within limits.
+   prompt within limits, in bfloat16 logits within limits; every float32
+   ``wkv6`` launch on the CUDA cores (``simt``), every bfloat16 one on
+   the tensor cores (``mma``).
 
 Matrix products of the plain versions run in full float32 where their
 inputs are float32: TF32 is switched off for matmuls and cuDNN.
@@ -154,14 +159,18 @@ GMM_SHAPES = ((64, 480, 2048, 1408, torch.bfloat16),
 # phase 2 wkv6 cases (B, S, H, K, chunk, dtype, w range, state0, held
 # against the sequential wkv6_ref too): rwkv6-3b's prefill at the serve
 # shape, a ragged prompt's tail block from a carried state, strong decay
-# (w down to 1e-6: a 128-step chunk reaches cum ≈ -1770, where only the
-# pairwise decay form stays finite), and a small case drawn as the
-# reference's kernel tests draw theirs. w = exp(-exp(z)), z uniform so
-# that w spans the range; r, k, v ~ N(0, 1); u ~ N(0, 0.5); state0 ~
-# N(0, 0.3).
+# in bfloat16 and float32 (w down to 1e-6: a 128-step chunk's cum falls
+# hundreds below -88, to -1770 were every w 1e-6, where exp(-cum)
+# overflows and only the pairwise or boundary-factored decays stay
+# finite), and a small case drawn as the reference's kernel tests draw
+# theirs. w = exp(-exp(z)), z uniform so that w spans the range; r, k, v
+# ~ N(0, 1); u ~ N(0, 0.5); state0 ~ N(0, 0.3). The bfloat16 cases at
+# K = 64 run the tensor-core design (``mma``).
 WKV_SHAPES = ((8, 2048, 40, 64, 128, torch.bfloat16, (1e-4, 0.999), False,
                False),
               (8, 116, 40, 64, 116, torch.bfloat16, (1e-4, 0.999), True,
+               False),
+              (4, 512, 40, 64, 128, torch.bfloat16, (1e-6, 0.999), True,
                False),
               (4, 512, 40, 64, 128, torch.float32, (1e-6, 0.999), True,
                False),
@@ -177,7 +186,10 @@ WKV_SHAPES = ((8, 2048, 40, 64, 128, torch.bfloat16, (1e-4, 0.999), False,
 # out 9.8e-7 and 1.5e-7; the state bitwise equal to the plain version's;
 # against the sequential oracle 2.6e-6 and 6.2e-7. Each limit is about
 # ten times its reading (the bf16 row limit: one bfloat16 step; the
-# state's: a few float32 roundings).
+# state's: a few float32 roundings). The tensor-core design keeps the
+# state's arithmetic (bitwise) and splits each float32 operand of its
+# products into two TF32 values, within the same limits.
+WKV_SERVE_KEY = "8x2048x40x64c128"
 WKV_REL = {torch.float32: (1e-5, 2e-6), torch.bfloat16: (8e-3, 3e-4)}
 WKV_STATE_REL = (1e-6, 1e-7)
 WKV_SEQ_REL = (3e-5, 6e-6)
@@ -492,10 +504,14 @@ def flash_vs_plain(dev) -> dict:
 
 
 def wkv_vs_plain(dev) -> dict:
-    """Phase 2: the wkv6 kernel against its plain chunked version at
-    ``WKV_SHAPES`` (out and final state), the small case against the
-    sequential ``wkv6_ref`` too. Every case is read before any is
-    checked."""
+    """Phase 2: the wkv6 kernel, in the design ``wkv6_design`` picks,
+    against its plain chunked version at ``WKV_SHAPES`` (out and final
+    state), the small case against the sequential ``wkv6_ref`` too; at
+    every bfloat16 case the CUDA-core design too, called by name
+    (``wkv6_simt``): its output within the same limits, and the final
+    state of the design that ran bitwise equal to its. At the serve shape
+    the CUDA-core design is timed as a yardstick. Every case is read
+    before any is checked."""
     from repro_torch.kernels.rwkv6_scan import ops, ref
 
     gen = torch.Generator(device=dev).manual_seed(14)
@@ -511,6 +527,7 @@ def wkv_vs_plain(dev) -> dict:
         u = torch.randn((h, k), generator=gen, device=dev) * 0.5
         s0 = (torch.randn((b, h, k, k), generator=gen, device=dev) * 0.3
               if with_state else None)
+        design = ops.wkv6_design(dtype, k, chunk)
         got_o, got_s = ops.wkv6(r, kk, v, w, u, chunk=chunk, state0=s0)
         want_o, want_s = ref.wkv_chunked_ref(r, kk, v, w, u, chunk=chunk,
                                              state0=s0)
@@ -539,18 +556,38 @@ def wkv_vs_plain(dev) -> dict:
                      f"rel_rms={q_rms:.6g} state worst_row_rel={qs_row:.6g}"
                      f" rel_rms={qs_rms:.6g} (limits {WKV_SEQ_REL}); "
                      f"atol {WKV_ATOL}")
+        simt = {}
+        if dtype == torch.bfloat16:
+            simt_o, simt_s = ops.wkv6_simt(r, kk, v, w, u, chunk=chunk,
+                                           state0=s0)
+            torch.cuda.synchronize()
+            s_row, s_rms = rel_errs(simt_o, want_o)
+            simt = dict(state_bitwise_simt=bool(torch.equal(got_s, simt_s)),
+                        simt_rel_row_err=s_row, simt_rel_rms=s_rms)
+            ok = ok and simt["state_bitwise_simt"] and s_row <= lim[0] \
+                and s_rms <= lim[1]
+            extra += (f" simt: out worst_row_rel={s_row:.6g} rel_rms="
+                      f"{s_rms:.6g}, state bitwise equal to simt="
+                      f"{simt['state_bitwise_simt']}")
+            del simt_o, simt_s
         if not ok:
             failed.append(key)
         ms = cuda_ms(lambda: ops.wkv6(r, kk, v, w, u, chunk=chunk,
                                       state0=s0), reps=10)
+        if key == WKV_SERVE_KEY:
+            simt["simt_ms"] = cuda_ms(lambda: ops.wkv6_simt(
+                r, kk, v, w, u, chunk=chunk, state0=s0), reps=5)
+            extra += f" simt_ms={simt['simt_ms']:.6f}"
         plain_ms = cuda_ms(lambda: ref.wkv_chunked_ref(
             r, kk, v, w, u, chunk=chunk, state0=s0), reps=3, warmup=1)
         bound, by = wkv_bound_ms(b, s, h, k, chunk, dtype, with_state)
-        rows[key] = dict(max_abs_err=err, state_max_abs_err=serr,
-                         rel_row_err=row, rel_rms=rms, state_rel_row_err=srow,
+        rows[key] = dict(design=design, max_abs_err=err,
+                         state_max_abs_err=serr, rel_row_err=row,
+                         rel_rms=rms, state_rel_row_err=srow,
                          state_rel_rms=srms, ms=ms, plain_ms=plain_ms,
-                         library_ms=None, bound_ms=bound, bound_by=by)
-        print(f"kernel/wkv6 {key}: finite={finite} out max_abs_err={err:.6g}"
+                         library_ms=None, bound_ms=bound, bound_by=by, **simt)
+        print(f"kernel/wkv6 {key}: design={design} finite={finite} "
+              f"out max_abs_err={err:.6g}"
               f" worst_row_rel={row:.6g} rel_rms={rms:.6g} (limits {lim}) "
               f"state max_abs_err={serr:.6g} worst_row_rel={srow:.6g} "
               f"rel_rms={srms:.6g} (limits {slim}){extra} ms={ms:.6f} "
@@ -875,6 +912,7 @@ def ssm_float32_full_depth(dev) -> None:
     model's weights, unrounded): the kernel route against the twin route
     (``SSM_F32_TOL``)."""
     from repro_torch.configs import get_arch
+    from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
     from repro_torch.launch import serve as launch_serve
     from repro_torch.models import rwkv6 as R
 
@@ -884,8 +922,14 @@ def ssm_float32_full_depth(dev) -> None:
     prompts = torch.randint(
         0, cfg.vocab_size, (batch, prompt_len), device=dev,
         generator=torch.Generator(device=dev).manual_seed(0))
+    before = dict(wkv_ops.DESIGN_LAUNCHES)
     kern = launch_serve.generate(params, prompts, cfg, SSM_F32_GEN,
                                  use_kernels=True)
+    designs = {d: wkv_ops.DESIGN_LAUNCHES[d] - before[d] for d in before}
+    # float32 stays on the CUDA cores
+    check(designs == {"mma": 0, "simt": cfg.n_layers},
+          f"rwkv6-3b float32 ran wkv6 designs {designs}, want all "
+          f"{cfg.n_layers} through simt")
     with plain_kernels():
         twin = launch_serve.generate(params, prompts, cfg, SSM_F32_GEN,
                                      use_kernels=True)
@@ -899,7 +943,7 @@ def ssm_float32_full_depth(dev) -> None:
           f"rel_rms={c['prefill_rel']:.6g}, first decode "
           f"{c['decode_max']:.6g} and {c['decode_rel']:.6g}; prefill_ms "
           f"kernel={kern['prefill_s'] * 1e3:.3f} twin="
-          f"{twin['prefill_s'] * 1e3:.3f}")
+          f"{twin['prefill_s'] * 1e3:.3f}; wkv6_designs={designs}")
     del params, prompts, kern, twin
     torch.cuda.empty_cache()
     check(c["token_agreement"] >= tol_agree and all(
@@ -920,7 +964,8 @@ def profile_serve(tag: str, params, prompts, cfg, steps: int = 4) -> None:
     prefill = make_prefill_step(cfg, use_kernels=True)
     decode = make_decode_step(cfg, use_kernels=True)
     ssm = cfg.family == "ssm"
-    names = (("wkv6_kernel",) if ssm else
+    names = (("wkv6_kernel", "wkv6_state_kernel", "wkv6_out_kernel") if ssm
+             else
              ("flash_wgmma_kernel", "flash_kernel", "gmm_wgmma_kernel",
               "gmm_kernel"))
     device_profile(f"{tag}/profile_prefill",
@@ -962,7 +1007,8 @@ def serve_phase(family: str, dev) -> dict:
 
     def reset():
         for cnt in counters + (gmm_ops.DESIGN_LAUNCHES,
-                               flash_ops.DESIGN_LAUNCHES):
+                               flash_ops.DESIGN_LAUNCHES,
+                               wkv_ops.DESIGN_LAUNCHES):
             for k in cnt:
                 cnt[k] = 0
 
@@ -983,6 +1029,7 @@ def serve_phase(family: str, dev) -> dict:
     launches = read()
     designs = dict(gmm_ops.DESIGN_LAUNCHES)
     flash_designs = dict(flash_ops.DESIGN_LAUNCHES)
+    wkv_designs = dict(wkv_ops.DESIGN_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     cfg, params, prompts = res["cfg"], res["params"], res["prompts"]
     leaves = flatten(params).values()
@@ -1033,7 +1080,16 @@ def serve_phase(family: str, dev) -> dict:
     print(f"{tag}: serve_wall_s={wall_s:.3f} (init and prompts included) "
           f"peak_mem_bytes={peak} launches={launches} "
           f"grouped_matmul_designs={designs} "
-          f"flash_attention_designs={flash_designs}")
+          f"flash_attention_designs={flash_designs} "
+          f"wkv6_designs={wkv_designs}")
+    if family == "ssm":
+        # every bfloat16 wkv6 launch of the serve path on the tensor
+        # cores: one a layer, in prefill
+        want = cfg.n_layers
+        check(wkv_designs == {"mma": want, "simt": 0}
+              and launches["wkv6"] == want,
+              f"{tag}: wkv6 launches by design {wkv_designs}, want all "
+              f"{want} through mma")
     if family != "ssm":
         # every bfloat16 flash launch of the serve path on the tensor
         # cores: one a layer, in prefill
@@ -1082,7 +1138,7 @@ def serve_phase(family: str, dev) -> dict:
     del params, prompts
     torch.cuda.empty_cache()
     return dict(launches=launches, designs=designs,
-                flash_designs=flash_designs)
+                flash_designs=flash_designs, wkv_designs=wkv_designs)
 
 
 def stepwise_generate(params, prompts, cfg, gen: int) -> dict:
@@ -1132,9 +1188,15 @@ def ssm_end_to_end(dev) -> None:
             0, cfg.vocab_size, (batch, prompt_len), device=dev,
             generator=torch.Generator(device=dev).manual_seed(0))
         before = wkv_ops.KERNEL_LAUNCHES["wkv6"]
+        before_d = dict(wkv_ops.DESIGN_LAUNCHES)
         res = launch_serve.generate(params, prompts, cfg, gen,
                                     use_kernels=True)
         launches = wkv_ops.KERNEL_LAUNCHES["wkv6"] - before
+        designs = {d: wkv_ops.DESIGN_LAUNCHES[d] - before_d[d]
+                   for d in before_d}
+        # float32 on the CUDA cores, bfloat16 (the 116-step tail block
+        # too) on the tensor cores
+        want_design = "simt" if dtype == "float32" else "mma"
         _, state = R.prefill(params, prompts, cfg, use_kernel=True)
         ref = stepwise_generate(params, prompts, cfg, gen)
         c = _compare(res, ref, cfg.vocab_size)
@@ -1151,11 +1213,12 @@ def ssm_end_to_end(dev) -> None:
               f"+ {prompt_len % chunk}; logits prefill max_abs_diff="
               f"{c['prefill_max']:.6g} rel_rms={c['prefill_rel']:.6g}, first "
               f"decode {c['decode_max']:.6g} and {c['decode_rel']:.6g}; "
-              f"wkv6 launches={launches} "
+              f"wkv6 launches={launches} designs={designs} "
               f"state_after_prompt wkv rel_rms={wkv_rel:.6g} (limit "
               f"{tol['wkv']}) shift max_abs_diff={shift:.6g} (limit "
               f"{tol['shift']})")
-        ok = (launches == 2 * n_layers and wkv_rel <= tol["wkv"]
+        ok = (launches == 2 * n_layers and designs[want_design] == launches
+              and wkv_rel <= tol["wkv"]
               and shift <= tol["shift"] and all(
                   c[f"{n}_max"] <= tol["logits"][0]
                   and c[f"{n}_rel"] <= tol["logits"][1]
@@ -1463,7 +1526,7 @@ def main() -> None:
     for name, rows, key in (("flash_attention", flash_rows, "8x2048x14x64"),
                             ("grouped_matmul", gmm_rows,
                              "64x480x2048x1408"),
-                            ("wkv6", wkv_rows, "8x2048x40x64c128")):
+                            ("wkv6", wkv_rows, WKV_SERVE_KEY)):
         r = rows[key]
         entries.append(dict(
             name=name, **KERNELS[name],
@@ -1482,6 +1545,12 @@ def main() -> None:
                      decode=gmm_rows["64x8x2048x1408"])
     # flash attention: its design and launches by design over both serve
     # paths, and moonshot's shape's row beside qwen2's
+    # wkv6: its design and launches by design on serve/ssm, and the
+    # CUDA-core design's time at the serve shape
+    wkv_entry = next(x for x in entries if x["name"] == "wkv6")
+    wkv_entry.update(design=wkv_rows[WKV_SERVE_KEY]["design"],
+                     launches_by_design=served["ssm"]["wkv_designs"],
+                     simt_ms=wkv_rows[WKV_SERVE_KEY]["simt_ms"])
     flash_entry = next(x for x in entries if x["name"] == "flash_attention")
     flash_entry.update(
         design=flash_rows["8x2048x14x64"]["design"],

@@ -358,15 +358,30 @@ def _wkv_inputs(b, s, h, k, dtype, w_range, state, seed, dev):
     (8, 2048, 40, 64, 128, torch.bfloat16, (1e-4, 0.999), False),
     (8, 116, 40, 64, 116, torch.bfloat16, (1e-4, 0.999), True),
     (2, 96, 3, 40, 96, torch.bfloat16, (1e-6, 0.999), True),
+    # the tensor-core design: strong decay (a 128-step chunk reaches
+    # cum far below -88), two ragged 116-step chunks, chunks that are not a
+    # multiple of the 16-step sub-chunk, one sub-chunk, a chunk of 1
+    (2, 512, 4, 64, 128, torch.bfloat16, (1e-6, 0.999), True),
+    (2, 232, 3, 64, 116, torch.bfloat16, (1e-4, 0.999), True),
+    (2, 80, 3, 64, 40, torch.bfloat16, (0.45, 0.95), True),
+    (2, 48, 2, 64, 16, torch.bfloat16, (0.45, 0.95), False),
+    (1, 21, 2, 64, 7, torch.bfloat16, (0.45, 0.95), True),
+    (3, 3, 2, 64, 1, torch.bfloat16, (0.45, 0.95), True),
 ])
 def test_wkv6_kernel_against_plain(cuda_device, b, s, h, k, chunk, dtype,
                                    w_range, state):
     r, kk, v, w, u, s0 = _wkv_inputs(b, s, h, k, dtype, w_range, state,
                                      b + s + k, cuda_device)
+    design = wkv_ops.wkv6_design(dtype, k, min(chunk, s))
+    assert design == ("mma" if dtype == torch.bfloat16 and k == 64
+                      else "simt")
     before = wkv_ops.KERNEL_LAUNCHES["wkv6"]
+    by_design = dict(wkv_ops.DESIGN_LAUNCHES)
     got_o, got_s = wkv_ops.wkv6(r, kk, v, w, u, chunk=chunk, state0=s0)
     torch.cuda.synchronize()
     assert wkv_ops.KERNEL_LAUNCHES["wkv6"] == before + 1
+    by_design[design] += 1
+    assert wkv_ops.DESIGN_LAUNCHES == by_design
     want_o, want_s = wkv_ref.wkv_chunked_ref(r, kk, v, w, u, chunk=chunk,
                                              state0=s0)
     assert got_o.dtype == dtype and got_o.shape == r.shape
@@ -378,6 +393,45 @@ def test_wkv6_kernel_against_plain(cuda_device, b, s, h, k, chunk, dtype,
         torch.testing.assert_close(got_s, want_s, atol=WKV_ATOL[1], rtol=0)
     _assert_rel_close(got_o, want_o, WKV_REL)
     _assert_rel_close(got_s, want_s, WKV_REL)
+    if dtype == torch.bfloat16:
+        # the state is what decode carries on: bitwise the CUDA-core
+        # design's, whichever design ran
+        simt_o, simt_s = wkv_ops.wkv6_simt(r, kk, v, w, u, chunk=chunk,
+                                           state0=s0)
+        torch.cuda.synchronize()
+        assert torch.equal(got_s, simt_s)
+        _assert_rel_close(simt_o, want_o, WKV_REL)
+
+
+@pytest.mark.cuda
+def test_wkv6_simt_yardstick_against_plain(cuda_device):
+    """The CUDA-core design, called by name at the bfloat16 serve shape
+    that the tensor-core design serves, as chip_smoke.py times it."""
+    r, kk, v, w, u, _ = _wkv_inputs(8, 2048, 40, 64, torch.bfloat16,
+                                    (1e-4, 0.999), False, 7, cuda_device)
+    before = wkv_ops.DESIGN_LAUNCHES["simt"]
+    got_o, got_s = wkv_ops.wkv6_simt(r, kk, v, w, u, chunk=128)
+    torch.cuda.synchronize()
+    assert wkv_ops.DESIGN_LAUNCHES["simt"] == before + 1
+    want_o, want_s = wkv_ref.wkv_chunked_ref(r, kk, v, w, u, chunk=128)
+    _assert_rel_close(got_o, want_o, WKV_REL)
+    _assert_rel_close(got_s, want_s, WKV_REL)
+
+
+@pytest.mark.cuda
+def test_wkv6_design_matches_the_library(cuda_device):
+    """``wkv6_design`` names the design the C launcher runs."""
+    import ctypes
+
+    from repro_torch import cuda_build
+
+    fn = cuda_build.load("wkv6").wkv6_design
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+    for dtype in (torch.float32, torch.bfloat16):
+        for k in range(8, 65, 8):
+            for chunk in (1, 7, 16, 40, 96, 116, 127, 128):
+                want = wkv_ops.wkv6_design(dtype, k, chunk) == "mma"
+                assert fn(int(dtype == torch.bfloat16), k, chunk) == want
 
 
 @pytest.mark.cuda
@@ -409,3 +463,11 @@ def test_wkv6_kernel_refuses_bad_inputs(cuda_device):
                      torch.zeros((1, 8), device=cuda_device), chunk=256)
     with pytest.raises(ValueError, match="CUDA"):
         wkv_ops.wkv6(r, kk, v, w, u.cpu(), chunk=16)
+    # the tensor-core design reads r, k, v and w by TMA: 16-byte aligned
+    r64, k64, v64, w64, u64, _ = _wkv_inputs(1, 32, 2, 64, torch.bfloat16,
+                                             (0.45, 0.95), False, 0,
+                                             cuda_device)
+    shifted = torch.zeros(32 * 2 * 64 + 1, dtype=torch.bfloat16,
+                          device=cuda_device)[1:].view(1, 32, 2, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        wkv_ops.wkv6(shifted, k64, v64, w64, u64, chunk=16)
