@@ -21,15 +21,22 @@ checks the results. Phases:
    cores, at every bfloat16 serve shape) and, at those shapes, their
    CUDA-core design (``simt``) too, held and timed as a yardstick; the
    final ``wkv6`` state of every bfloat16 case bitwise equal to the
-   CUDA-core design's;
+   CUDA-core design's; ``freed_scan`` in its one-launch design
+   (``fused``, every shape the sweeps give it) and in its earlier design
+   (``presorted``, by name), each with its CUDA-event mean a call and its
+   device time a call by the profiler;
 3. the Table-1 path at the repository's own benchmark setting
    (``benchmarks/run.py``'s xsim leg: 1/64-size centers, policies 0-2,
    warmed fleet), once through the kernel and once through the plain
-   reservation scan: the final states must be bitwise identical;
+   reservation scan: the final states must be bitwise identical, and
+   every kernel launch ``fused``;
 4. the sweep at full size: both centers at their real core counts,
    their three paper scales, three workflows, policies 0-2, two seeds
    (108 scenarios of 2313 job slots), through the user-facing entry
-   points; the kernel's launches in this run are counted;
+   points; the kernel's launches in this run are counted, and all must
+   take the ``fused`` design; then a profiled window of 16 steps and
+   ``freed_scan`` at the sweep's own first input (its running slots a
+   row, both designs' times);
 5. serving ``qwen2-0.5b`` at full size (24 layers, d896; batch 8, prompt
    2048, 32 new tokens) through ``repro_torch.launch.serve.serve``, whose
    prefill runs the flash-attention kernel, all 24 launches on the tensor
@@ -106,7 +113,7 @@ H100_BF16_OPS_PER_S = 989e12    # bfloat16 tensor cores, dense
 KERNELS = {
     "freed_scan": dict(route="cuda",
                        source="src/repro_torch/csrc/freed_scan.cu",
-                       replaces="src/repro/xsim/backfill.py:124"),
+                       replaces="src/repro/xsim/backfill.py:125"),
     "flash_attention": dict(
         route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:82"),
@@ -398,36 +405,111 @@ def random_tables(b: int, n: int, gen: torch.Generator, dev):
     return ends.to(dev), cores.to(dev), running.to(dev)
 
 
+def profiled_us(fn, calls: int = 20, tries: int = 4
+                ) -> tuple[float | None, float | None]:
+    """(device us a call, launches a call) of ``fn()`` over ``calls`` calls
+    (torch.profiler; after one warm-up call). CUDA-event means of a call
+    this short measure how fast the host issues calls; this is the card's
+    own time. The trace can lose some launches of a window (on an H100 it
+    kept 0 to 20 of 20 short launches): a window that kept no whole number
+    of launches a call is taken again, up to ``tries`` times, and the last
+    is scaled (its mean a launch times the nearest whole number of
+    launches a call). None if no window held device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    us = count = 0.0
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        rows = [(ev.self_device_time_total, ev.count)
+                for ev in prof.key_averages()
+                if ev.device_type == DeviceType.CUDA
+                and ev.self_device_time_total > 0]
+        us, count = sum(r[0] for r in rows), sum(r[1] for r in rows)
+        if count and count % calls == 0:
+            return us / calls, count / calls
+    if not count:
+        return None, None
+    per_call = max(1, round(count / calls))
+    return us / count * per_call, float(per_call)
+
+
+def freed_readings(backfill, e, c, r) -> dict:
+    """``freed_matrix`` in the design its row length picks ("fused" at every
+    shape the sweeps give it) and the "presorted" design by name, each
+    held bitwise against the plain ``_freed_sorted`` and timed: CUDA-event
+    mean a call (host time included), profiled device us and launches a
+    call; the plain version's event mean; the bound."""
+    b, n = e.shape
+    want = backfill._freed_sorted(e, c, r)
+    got = backfill.freed_vector(e, c, r, mode="kernel")
+    presorted = backfill.freed_presorted(e, c, r)
+    torch.cuda.synchronize()
+    err = max(float((got - want).abs().max()),
+              float((presorted - want).abs().max()))
+    check(torch.equal(got, want),
+          f"freed_matrix ({backfill.freed_design(n)}) != _freed_sorted at "
+          f"{(b, n)} (max err {err})")
+    check(torch.equal(presorted, want),
+          f"freed_presorted != _freed_sorted at {(b, n)} (max err {err})")
+    fused = lambda: backfill.freed_vector(e, c, r, mode="kernel")  # noqa
+    pre = lambda: backfill.freed_presorted(e, c, r)  # noqa: E731
+    us, launches = profiled_us(fused)
+    pre_us, pre_launches = profiled_us(pre)
+    bound, by = freed_bound_ms(b, n)
+    runs = r.sum(dim=1).float()
+    return dict(max_abs_err=err, design=backfill.freed_design(n),
+                ms=cuda_ms(fused), device_us=us, launches_per_call=launches,
+                presorted_ms=cuda_ms(pre), presorted_device_us=pre_us,
+                presorted_launches_per_call=pre_launches,
+                plain_ms=cuda_ms(lambda: backfill._freed_sorted(e, c, r)),
+                bound_ms=bound, bound_by=by, r_mean=float(runs.mean()),
+                r_max=int(runs.max()))
+
+
+def print_freed(tag: str, v: dict) -> None:
+    def num(x, fmt: str) -> str:
+        return "not_measured" if x is None else format(x, fmt)
+
+    share = (None if v["device_us"] is None
+             else v["bound_ms"] / (v["device_us"] * 1e-3))
+    print(f"{tag}: bitwise=True design={v['design']} R_mean={v['r_mean']:.1f}"
+          f" R_max={v['r_max']} ms={v['ms']:.6f} device_us="
+          f"{num(v['device_us'], '.3f')} launches_per_call="
+          f"{num(v['launches_per_call'], 'g')} presorted_ms="
+          f"{v['presorted_ms']:.6f} presorted_device_us="
+          f"{num(v['presorted_device_us'], '.3f')} "
+          f"presorted_launches_per_call="
+          f"{num(v['presorted_launches_per_call'], 'g')} plain_ms="
+          f"{v['plain_ms']:.6f} bound_ms={v['bound_ms']:.6f} "
+          f"({v['bound_by']}) share_of_bound={num(share, '.6f')}")
+
+
 def kernel_vs_plain(backfill, dev) -> dict:
-    """Phase 2: freed_matrix (sort + freed_scan kernel) against the plain
-    ``_freed_sorted`` at every shape; returns the per-shape results."""
+    """Phase 2: freed_matrix ("fused") and the "presorted" design against
+    the plain ``_freed_sorted`` at every shape; returns the per-shape
+    results."""
     gen = torch.Generator().manual_seed(11)
     rows = {}
     for b, n in CHECK_SHAPES:
         e, c, r = random_tables(b, n, gen, dev)
-        got = backfill.freed_vector(e, c, r, mode="kernel")
-        want = backfill._freed_sorted(e, c, r)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        check(torch.equal(got, want),
-              f"freed_scan != _freed_sorted at {(b, n)} (max err {err})")
-        ms = cuda_ms(lambda: backfill.freed_vector(e, c, r, mode="kernel"))
-        plain_ms = cuda_ms(lambda: backfill._freed_sorted(e, c, r))
-        bound, by = freed_bound_ms(b, n)
-        # the kernel alone on pre-sorted rows: 20 B a slot (sorted ends and
-        # cores, the int64 order, freed)
+        v = freed_readings(backfill, e, c, r)
+        # the "presorted" kernel alone on pre-sorted rows: 20 B a slot
+        # (sorted ends and cores, the int64 order, freed)
         em, cm = backfill._masked(e, c, r)
         e_s, order = torch.sort(em, dim=1, stable=True)
         c_s = torch.gather(cm, 1, order)
-        scan_ms = cuda_ms(lambda: backfill.freed_scan(e_s, c_s, order))
-        scan_bound = b * n * 20 / H100_BYTES_PER_S * 1e3
-        rows[(b, n)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                            bound_ms=bound, bound_by=by, scan_ms=scan_ms,
-                            scan_bound_ms=scan_bound)
-        print(f"kernel/freed_scan B={b} N={n}: bitwise=True "
-              f"ms={ms:.6f} plain_ms={plain_ms:.6f} bound_ms={bound:.6f} "
-              f"({by}) scan_only_ms={scan_ms:.6f} "
-              f"scan_bound_ms={scan_bound:.6f}")
+        v["scan_ms"] = cuda_ms(lambda: backfill.freed_scan(e_s, c_s, order))
+        v["scan_bound_ms"] = b * n * 20 / H100_BYTES_PER_S * 1e3
+        rows[(b, n)] = v
+        print_freed(f"kernel/freed_scan B={b} N={n}", v)
+        print(f"kernel/freed_scan B={b} N={n}: presorted scan_only_ms="
+              f"{v['scan_ms']:.6f} scan_bound_ms={v['scan_bound_ms']:.6f}")
     return rows
 
 
@@ -1268,11 +1350,17 @@ def table1_setting(grid_mod, policies, backfill, dev) -> None:
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     backfill.KERNEL_LAUNCHES["freed_scan"] = 0
+    for d in backfill.DESIGN_LAUNCHES:
+        backfill.DESIGN_LAUNCHES[d] = 0
     t0 = time.perf_counter()
     fin_k, m_k = grid_mod.run_grid(grid, fleet, pred_seed=7, device=dev)
     torch.cuda.synchronize()
     kern_s = time.perf_counter() - t0
     kern_launches = backfill.KERNEL_LAUNCHES["freed_scan"]
+    designs = dict(backfill.DESIGN_LAUNCHES)
+    check(designs["fused"] == kern_launches,
+          f"Table-1 kernel path: not every launch took the fused design: "
+          f"{designs} of {kern_launches}")
     backfill.KERNEL_LAUNCHES["freed_scan"] = 0
     t0 = time.perf_counter()
     fin_r, _ = grid_mod.run_grid(grid, fleet, pred_seed=7, freed_mode="ref",
@@ -1291,7 +1379,7 @@ def table1_setting(grid_mod, policies, backfill, dev) -> None:
     print(f"table1: B={grid.n} N={cfg.max_jobs} n_steps={cfg.n_steps} "
           f"warm_fleet_s={warm_s:.3f} kernel_path_s={kern_s:.3f} "
           f"plain_path_s={ref_s:.3f} bitwise_equal=True "
-          f"freed_scan_launches={kern_launches}")
+          f"freed_scan_launches={kern_launches} by_design={designs}")
     strategy_rows(grid, m)
 
 
@@ -1311,13 +1399,15 @@ def full_size(grid_mod, policies, backfill, dev, RUNNING) -> dict:
     first_inputs = (s0.end, s0.cores, s0.status == RUNNING)
 
     torch.cuda.reset_peak_memory_stats()
-    for k in backfill.KERNEL_LAUNCHES:
-        backfill.KERNEL_LAUNCHES[k] = 0
+    for counts in (backfill.KERNEL_LAUNCHES, backfill.DESIGN_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
     t0 = time.perf_counter()
     final, m = grid_mod.run_grid(grid, fleet, device=dev)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = dict(backfill.KERNEL_LAUNCHES)
+    designs = dict(backfill.DESIGN_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
 
     t0 = time.perf_counter()
@@ -1343,13 +1433,17 @@ def full_size(grid_mod, policies, backfill, dev, RUNNING) -> dict:
           f"scenarios_per_s={grid.n / steady_s:.6f} "
           f"wf_done_frac={frac:.6f} "
           f"freed_scan_launches={launches['freed_scan']} "
-          f"peak_mem_bytes={peak}")
+          f"by_design={designs} peak_mem_bytes={peak}")
     for cut in FULL_CUTS:
         print(f"full/cut: {cut}")
     strategy_rows(grid, m)
     check(launches["freed_scan"] > 0,
           "the main path never launched freed_scan")
-    return dict(launches=launches, inputs=first_inputs, state=s0)
+    check(designs["fused"] == launches["freed_scan"],
+          f"the main path's launches did not all take the fused design: "
+          f"{designs} of {launches['freed_scan']}")
+    return dict(launches=launches, designs=designs, inputs=first_inputs,
+                state=s0)
 
 
 def device_profile(tag: str, run, n_steps: int, what: str,
@@ -1474,22 +1568,23 @@ def main() -> None:
 
     # the kernel at the main path's own inputs (its first pass)
     e, c, r = full["inputs"]
-    got = backfill.freed_vector(e, c, r, mode="kernel")
-    want = backfill._freed_sorted(e, c, r)
-    check(torch.equal(got, want), "freed_scan differs on the sweep's input")
     b, n = e.shape
-    ms = cuda_ms(lambda: backfill.freed_vector(e, c, r, mode="kernel"))
-    plain_ms = cuda_ms(lambda: backfill._freed_sorted(e, c, r))
-    bound, by = freed_bound_ms(b, n)
-    err = max([float((got - want).abs().max())]
+    main = freed_readings(backfill, e, c, r)
+    print_freed(f"kernel/freed_scan main-path input B={b} N={n} "
+                f"running={int(r.sum())}", main)
+    err = max([main["max_abs_err"]]
               + [v["max_abs_err"] for v in checks.values()])
-    print(f"kernel/freed_scan main-path input B={b} N={n} "
-          f"running={int(r.sum())}: ms={ms:.6f} plain_ms={plain_ms:.6f} "
-          f"bound_ms={bound:.6f} ({by})")
     entry = dict(name="freed_scan", **KERNELS["freed_scan"],
                  launches=full["launches"]["freed_scan"], max_abs_err=err,
-                 ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                 library_ms=None, max_abs_diff_vs_plain=err, kernel_ms=ms,
+                 ms=main["ms"], plain_ms=main["plain_ms"],
+                 bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                 library_ms=None, max_abs_diff_vs_plain=err,
+                 kernel_ms=main["ms"], design=main["design"],
+                 launches_by_design=full["designs"],
+                 device_us=main["device_us"],
+                 presorted_ms=main["presorted_ms"],
+                 presorted_device_us=main["presorted_device_us"],
+                 r_mean=main["r_mean"], r_max=main["r_max"],
                  shapes={f"{bb}x{nn}": v for (bb, nn), v in checks.items()})
     phases.done("4_full_size")
 

@@ -9,8 +9,14 @@ Every function takes the whole fleet: job-table tensors are ``(B, N)``.
    start (shadow time) and the spare cores then. The hot quantity is
    freed[i] = Σ cores of running jobs ending ≤ end_i, the EASY
    reservation scan. On a CUDA tensor it runs as the hand-written kernel
-   ``csrc/freed_scan.cu`` (``freed_matrix``); its plain versions are the
-   sorted ``_freed_sorted`` and the O(n²) ``_freed_math``.
+   ``csrc/freed_scan.cu`` (``freed_matrix``), in one of two designs
+   picked by the row length alone (``freed_design``): "fused", one
+   launch on the raw tables (mask, in-block sort of the running jobs,
+   scan, slot-order store), for rows of up to 16384 slots; "presorted",
+   the scan on rows sorted by ``torch.sort`` outside the kernel (the TPU
+   kernel's contract), for longer rows. Neither stands in for the other:
+   a failed build or launch raises. Its plain versions are the sorted
+   ``_freed_sorted`` and the O(n²) ``_freed_math``.
 3. Backfill loop: ``bf_passes`` passes, each starting the first queued
    job (FCFS order) that fits now and either drains before the shadow
    time or fits in the reservation's spare cores.
@@ -21,6 +27,8 @@ submit times are broken by row index, as in the reference.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -34,8 +42,13 @@ BF_PASSES = 16  # backfill starts per scheduling pass (QueueSim: unbounded)
 # plain version. "ref_n2": the O(n²) plain version.
 FREED_MODES = ("auto", "kernel", "ref", "ref_n2")
 
-# launches of each hand-written kernel, counted by its wrapper
+# launches of the hand-written kernel, counted by its wrappers: in all,
+# and by design
 KERNEL_LAUNCHES = {"freed_scan": 0}
+DESIGN_LAUNCHES = {"fused": 0, "presorted": 0}
+
+FUSED_MAX_N = 16384       # "fused" holds a row in shared memory
+PRESORTED_MAX_N = 29056   # "presorted" holds a row's ends and cumsum
 
 _INF = float("inf")
 
@@ -92,9 +105,90 @@ def _freed_sorted(ends: torch.Tensor, cores: torch.Tensor,
     return torch.gather(csum, 1, cnt - 1)
 
 
+def freed_design(n: int) -> str:
+    """The design ``freed_matrix`` runs on CUDA rows of ``n`` slots:
+    "fused" for 1 <= n <= ``FUSED_MAX_N``, else "presorted"
+    (``freed_design`` in ``csrc/freed_scan.cu``)."""
+    return "fused" if 1 <= n <= FUSED_MAX_N else "presorted"
+
+
+@functools.cache
+def _launcher(symbol: str):
+    """The typed C launcher ``symbol`` of the kernel library, resolved
+    once: four device pointers, rows, n, the stream."""
+    return cuda_build.function("freed_scan", symbol, 4, 2)
+
+
+def _launch(symbol: str, ptrs: tuple[int, ...], rows: int, n: int,
+            device: torch.device) -> None:
+    """Launch on PyTorch's current stream of ``device`` (its raw handle,
+    which ``torch.cuda.current_stream().cuda_stream`` also gives, without
+    building a Stream object), without a synchronise; raises if the launch
+    fails."""
+    index = device.index
+    if index == torch.cuda.current_device():
+        rc = _launcher(symbol)(*ptrs, rows, n,
+                               torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(device):
+            rc = _launcher(symbol)(*ptrs, rows, n,
+                                   torch._C._cuda_getCurrentRawStream(index))
+    if rc != 0:
+        raise RuntimeError(f"freed_scan launch failed: cudaError {rc}")
+
+
+def _check_cuda(ts: tuple[torch.Tensor, ...], what: str) -> None:
+    if not all(t.is_cuda for t in ts):
+        raise ValueError(f"{what} runs on CUDA tensors only")
+    if len({t.device for t in ts}) != 1:
+        raise ValueError(f"{what} inputs lie on different devices")
+    if ts[0].dim() != 2 or any(t.shape != ts[0].shape for t in ts):
+        raise ValueError(f"{what} wants three equal (B, N) shapes, got "
+                         f"{[tuple(t.shape) for t in ts]}")
+
+
+def freed_fused(ends: torch.Tensor, cores: torch.Tensor,
+                running: torch.Tensor) -> torch.Tensor:
+    """Launch the "fused" design: the whole reservation scan in one launch
+    on the raw tables.
+
+    ``ends``/``cores`` are contiguous float32 ``(B, N)`` and ``running`` a
+    contiguous bool ``(B, N)``, all on one CUDA device, N at most
+    ``FUSED_MAX_N``. Returns freed float32 ``(B, N)`` in slot order.
+    Allocates only the output and never synchronises, so it may be
+    captured in a CUDA graph (a replay counts no launch). Raises on
+    anything else, and if the launch fails. Valid inputs pass the checks
+    with one comparison each; ``_check_cuda`` names what is wrong."""
+    device = ends.device
+    shape = ends.shape
+    if not (ends.is_cuda and cores.device == device
+            and running.device == device and len(shape) == 2
+            and cores.shape == shape and running.shape == shape):
+        _check_cuda((ends, cores, running), "freed_fused")   # raises
+    if (ends.dtype != torch.float32 or cores.dtype != torch.float32
+            or running.dtype != torch.bool):
+        raise TypeError("freed_fused wants float32 ends/cores, bool running")
+    if not (ends.is_contiguous() and cores.is_contiguous()
+            and running.is_contiguous()):
+        raise ValueError("freed_fused wants contiguous tensors")
+    rows, n = shape
+    if n > FUSED_MAX_N:
+        raise ValueError(f"freed_fused holds at most {FUSED_MAX_N} slots a "
+                         f"row, got {n}")
+    out = torch.empty_like(ends)
+    if out.numel():
+        _launch("freed_fused_launch", (ends.data_ptr(), cores.data_ptr(),
+                                       running.data_ptr(), out.data_ptr()),
+                rows, n, device)
+        KERNEL_LAUNCHES["freed_scan"] += 1
+        DESIGN_LAUNCHES["fused"] += 1
+    return out
+
+
 def freed_scan(ends_sorted: torch.Tensor, cores_sorted: torch.Tensor,
                order: torch.Tensor) -> torch.Tensor:
-    """Launch the ``freed_scan`` CUDA kernel on end-sorted rows.
+    """Launch the "presorted" design on end-sorted rows (the TPU kernel's
+    contract).
 
     ``ends_sorted``/``cores_sorted`` are contiguous float32 ``(B, N)`` on
     one CUDA device, masked (non-running slots: end=+inf, cores=0) and
@@ -102,14 +196,7 @@ def freed_scan(ends_sorted: torch.Tensor, cores_sorted: torch.Tensor,
     scattered back to the original slot order. Raises on anything else,
     and if the launch fails."""
     ts = (ends_sorted, cores_sorted, order)
-    if not all(t.is_cuda for t in ts):
-        raise ValueError("freed_scan runs on CUDA tensors only")
-    if len({t.device for t in ts}) != 1:
-        raise ValueError("freed_scan inputs lie on different devices")
-    if ends_sorted.dim() != 2 or any(t.shape != ends_sorted.shape
-                                     for t in ts):
-        raise ValueError(f"freed_scan wants three equal (B, N) shapes, got "
-                         f"{[tuple(t.shape) for t in ts]}")
+    _check_cuda(ts, "freed_scan")
     if (ends_sorted.dtype != torch.float32
             or cores_sorted.dtype != torch.float32
             or order.dtype != torch.int64):
@@ -117,30 +204,39 @@ def freed_scan(ends_sorted: torch.Tensor, cores_sorted: torch.Tensor,
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("freed_scan wants contiguous tensors")
     rows, n = ends_sorted.shape
-    if n > 29_056:
-        raise ValueError(f"freed_scan holds at most 29056 slots, got {n}")
-    launch = cuda_build.function("freed_scan", "freed_scan_launch", 4, 2)
+    if n > PRESORTED_MAX_N:
+        raise ValueError(f"freed_scan holds at most {PRESORTED_MAX_N} slots, "
+                         f"got {n}")
     out = torch.empty_like(ends_sorted)
-    with torch.cuda.device(ends_sorted.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = launch(ends_sorted.data_ptr(),
-                                   cores_sorted.data_ptr(), order.data_ptr(),
-                                   out.data_ptr(), rows, n, stream)
-    if rc != 0:
-        raise RuntimeError(f"freed_scan launch failed: cudaError {rc}")
-    KERNEL_LAUNCHES["freed_scan"] += 1
+    if out.numel():
+        _launch("freed_scan_launch", (ends_sorted.data_ptr(),
+                                      cores_sorted.data_ptr(),
+                                      order.data_ptr(), out.data_ptr()),
+                rows, n, ends_sorted.device)
+        KERNEL_LAUNCHES["freed_scan"] += 1
+        DESIGN_LAUNCHES["presorted"] += 1
     return out
+
+
+def freed_presorted(ends: torch.Tensor, cores: torch.Tensor,
+                    running: torch.Tensor) -> torch.Tensor:
+    """The "presorted" design at any N it holds: mask, stable row sort
+    (outside the kernel, as the reference leaves its sort to XLA), then
+    ``freed_scan``, which stores through the permutation."""
+    e, c = _masked(ends, cores, running)
+    e_s, order = torch.sort(e, dim=1, stable=True)
+    c_s = torch.gather(c, 1, order)
+    return freed_scan(e_s.contiguous(), c_s.contiguous(), order.contiguous())
 
 
 def freed_matrix(ends: torch.Tensor, cores: torch.Tensor,
                  running: torch.Tensor) -> torch.Tensor:
     """The reservation scan over (B, N) tables → (B, N) float32.
 
-    On CUDA tensors: mask, stable row sort (outside the kernel, as the
-    reference leaves its sort to XLA), then the ``freed_scan`` kernel,
-    which stores through the permutation. On CPU tensors: the plain
-    ``_freed_sorted``. Bitwise equal to both plain versions on integer
-    core counts."""
+    On CUDA tensors: the design ``freed_design(N)`` names, "fused" (one
+    launch on the raw tables) or, for longer rows, "presorted". On CPU
+    tensors: the plain ``_freed_sorted``. Bitwise equal to both plain
+    versions on integer core counts."""
     if ends.dim() != 2 or cores.shape != ends.shape \
             or running.shape != ends.shape:
         raise ValueError("freed_matrix wants three equal (B, N) shapes")
@@ -148,10 +244,16 @@ def freed_matrix(ends: torch.Tensor, cores: torch.Tensor,
         raise TypeError("freed_matrix wants a bool running mask")
     if not ends.is_cuda:
         return _freed_sorted(ends, cores, running)
-    e, c = _masked(ends, cores, running)
-    e_s, order = torch.sort(e, dim=1, stable=True)
-    c_s = torch.gather(c, 1, order)
-    return freed_scan(e_s.contiguous(), c_s.contiguous(), order.contiguous())
+    if freed_design(ends.shape[1]) == "fused":
+        return freed_fused(_f32(ends), _f32(cores), running.contiguous())
+    return freed_presorted(ends, cores, running)
+
+
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as a contiguous float32 tensor (itself when it is one)."""
+    if x.dtype == torch.float32 and x.is_contiguous():
+        return x
+    return x.float().contiguous()
 
 
 def freed_vector(ends: torch.Tensor, cores: torch.Tensor,

@@ -78,12 +78,136 @@ def _tables(b: int, n: int, seed: int, dev):
                                  (108, 2313), (4, 1), (3, 31), (3, 4096),
                                  (2, 5000), (2, 20000)])
 def test_freed_scan_bitwise_against_plain(cuda_device, b, n):
+    """``freed_matrix`` in the design its row length picks, and the
+    "presorted" design by name at every shape, against the plain
+    version."""
     t = _tables(b, n, n, cuda_device)
-    before = backfill.KERNEL_LAUNCHES["freed_scan"]
+    design = backfill.freed_design(n)
+    before = (backfill.KERNEL_LAUNCHES["freed_scan"],
+              dict(backfill.DESIGN_LAUNCHES))
     got = backfill.freed_vector(*t, mode="kernel")
     torch.cuda.synchronize()
-    assert backfill.KERNEL_LAUNCHES["freed_scan"] == before + 1
+    assert backfill.KERNEL_LAUNCHES["freed_scan"] == before[0] + 1
+    assert backfill.DESIGN_LAUNCHES[design] == before[1][design] + 1
+    want = backfill._freed_sorted(*t)
+    assert torch.equal(got, want)
+    presorted = backfill.freed_presorted(*t)
+    torch.cuda.synchronize()
+    assert backfill.DESIGN_LAUNCHES["presorted"] == (
+        before[1]["presorted"] + 1 + (design == "presorted"))
+    assert torch.equal(presorted, want)
+
+
+def _freed_edge(name: str, dev):
+    """The edge cases of ``tests/test_torch_freed_design.py``'s mirror, as
+    (ends, cores, running) on ``dev``."""
+    gen = torch.Generator().manual_seed(len(name))
+    if name == "n1":
+        t = (torch.tensor([[3.0], [float("inf")], [7.0]]),
+             torch.tensor([[4.0], [9.0], [2.0]]),
+             torch.tensor([[True], [True], [False]]))
+        return tuple(x.to(dev) for x in t)
+    if name == "n_not_multiple_of_32":
+        return _tables(3, 45, 1, dev)
+    if name in ("r_power_of_two", "r_power_of_two_plus_one"):
+        want = 128 + (name == "r_power_of_two_plus_one")
+        e, c, _ = _tables(2, 300, 2, dev)
+        r = torch.zeros(2, 300, dtype=torch.bool)
+        for row in r:
+            row[torch.randperm(300, generator=gen)[:want]] = True
+        return e, c, r.to(dev)
+    if name == "all_idle":
+        e, c, r = _tables(2, 70, 3, dev)
+        return e, c, torch.zeros_like(r)
+    if name == "all_running":
+        e, c, r = _tables(2, 300, 4, dev)
+        return e, c, torch.ones_like(r)
+    if name == "every_end_tied":
+        e, c, r = _tables(3, 100, 5, dev)
+        return torch.full_like(e, 42.0), c, r
+    if name == "inf_ends_running":
+        e, c, r = _tables(2, 257, 6, dev)
+        e[:, ::3] = float("inf")
+        return e, c, torch.ones_like(r)
+    if name == "signed_zeros":
+        e, c, r = _tables(2, 64, 7, dev)
+        e[:, ::3] = 0.0
+        e[:, 1::3] = -0.0
+        return e, c, r
+    if name == "fused_limit":
+        return _tables(2, backfill.FUSED_MAX_N, 8, dev)
+    raise KeyError(name)
+
+
+FREED_EDGES = ["n1", "n_not_multiple_of_32", "r_power_of_two",
+               "r_power_of_two_plus_one", "all_idle", "all_running",
+               "every_end_tied", "inf_ends_running", "signed_zeros",
+               "fused_limit"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", FREED_EDGES)
+def test_freed_fused_bitwise_on_edge_cases(cuda_device, name):
+    t = _freed_edge(name, cuda_device)
+    before = backfill.DESIGN_LAUNCHES["fused"]
+    got = backfill.freed_fused(*t)
+    torch.cuda.synchronize()
+    assert backfill.DESIGN_LAUNCHES["fused"] == before + 1
     assert torch.equal(got, backfill._freed_sorted(*t))
+    if t[0].shape[1] <= 300:
+        assert torch.equal(got, backfill._freed_math(*t))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,design", [(backfill.FUSED_MAX_N, "fused"),
+                                      (backfill.FUSED_MAX_N + 1,
+                                       "presorted")])
+def test_freed_design_at_the_fused_limit(cuda_device, n, design):
+    t = _tables(3, n, n, cuda_device)
+    assert backfill.freed_design(n) == design
+    before = dict(backfill.DESIGN_LAUNCHES)
+    got = backfill.freed_matrix(*t)
+    torch.cuda.synchronize()
+    assert backfill.DESIGN_LAUNCHES == {
+        d: before[d] + (d == design) for d in before}
+    assert torch.equal(got, backfill._freed_sorted(*t))
+
+
+@pytest.mark.cuda
+def test_freed_design_matches_the_library(cuda_device):
+    """``freed_design`` names the design the C launcher takes."""
+    import ctypes
+
+    from repro_torch import cuda_build
+
+    fn = cuda_build.load("freed_scan").freed_design
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    for n in (0, 1, 2, 255, 256, 257, 2313, 16383, 16384, 16385, 29056):
+        assert fn(n) == (backfill.freed_design(n) == "fused")
+
+
+@pytest.mark.cuda
+def test_freed_matrix_in_a_cuda_graph(cuda_device):
+    """The "fused" launch captured in a CUDA graph and replayed on new
+    table contents, bitwise; a replay counts no launch."""
+    static = [x.clone() for x in _tables(108, 2313, 0, cuda_device)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):   # warm up (build, attributes) first
+        backfill.freed_matrix(*static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = backfill.freed_matrix(*static)
+    launches = backfill.DESIGN_LAUNCHES["fused"]
+    for seed in (1, 2, 3):
+        fresh = _tables(108, 2313, seed, cuda_device)
+        for dst, src in zip(static, fresh):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, backfill._freed_sorted(*fresh))
+    assert backfill.DESIGN_LAUNCHES["fused"] == launches
 
 
 @pytest.mark.cuda
@@ -96,6 +220,25 @@ def test_freed_scan_refuses_bad_inputs(cuda_device):
         backfill.freed_scan(e.t().contiguous().t(), c, order)
     with pytest.raises(ValueError, match="shapes"):
         backfill.freed_scan(e, c[:, :4].contiguous(), order)
+
+
+@pytest.mark.cuda
+def test_freed_fused_refuses_bad_inputs(cuda_device):
+    e, c, r = _tables(2, 8, 0, cuda_device)
+    with pytest.raises(TypeError):
+        backfill.freed_fused(e.double(), c, r)
+    with pytest.raises(TypeError):
+        backfill.freed_fused(e, c, r.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        backfill.freed_fused(e.t().contiguous().t(), c, r)
+    with pytest.raises(ValueError, match="shapes"):
+        backfill.freed_fused(e, c[:, :4].contiguous(), r)
+    with pytest.raises(ValueError, match="CUDA"):
+        backfill.freed_fused(e, c, r.cpu())
+    n = backfill.FUSED_MAX_N + 1
+    long = torch.zeros(1, n, device=cuda_device)
+    with pytest.raises(ValueError, match="at most"):
+        backfill.freed_fused(long, long, long.bool())
 
 
 def _randn(shape, seed, dev, dtype, scale=1.0):
