@@ -77,13 +77,27 @@ checks the results. Phases:
    prompt within limits, in bfloat16 logits within limits; every float32
    ``wkv6`` launch on the CUDA cores (``simt``), every bfloat16 one on
    the tensor cores (``mma``).
+10. the Table-1 setting of phase 3 with ASA-Naive (policies 0-3, 288
+   scenarios of 73 slots, warmed fleet) under each robustness family
+   (``clean``, ``faulty``, ``elastic``, ``preempt``), kernel path against
+   plain path, bitwise, every launch ``fused``; per family the strategy
+   rows (twt, makespan, core-hours, OH hours, misses, restarts) and the
+   checks: every workflow done under the step budget, misses and
+   over-allocation on some ASA-Naive row, kills under ``faulty`` and
+   ``preempt``, and at the end ``free == total``, ``cap_debt >= 0`` and
+   every fault event consumed on every lane;
+11. that naive-and-faults program at full size: phase 4's geometry under
+   the ``faulty`` family, policies 2-3 (72 scenarios of 2313 slots), one
+   timed run with the same checks and the counts of misses, cancels,
+   kills and hook-drain iterations, then a profiled window of 16 steps.
 
 Matrix products of the plain versions run in full float32 where their
 inputs are float32: TF32 is switched off for matmuls and cuDNN.
 
 The second-to-last line is a JSON object with one entry per ported
-kernel; the last line is ``{"ok": true, "device": {...}}``. Any failure
-raises and ends the script with a non-zero exit code; without a CUDA
+kernel (``freed_scan``'s launches summed over phases 3, 4, 10 and 11,
+by path beside); the last line is ``{"ok": true, "device": {...}}``. Any
+failure raises and ends the script with a non-zero exit code; without a CUDA
 device it exits non-zero before printing any result.
 """
 
@@ -280,6 +294,15 @@ SSM_E2E_TOL = {"float32": dict(logits=(2e-4, 4e-5), wkv=2e-5, shift=2e-4),
 # (53 slots), the run.py Table-1 grid (73), the default config (153) and
 # the full-size grid of phase 4 (2313)
 CHECK_SHAPES = ((1026, 53), (1026, 73), (1026, 153), (108, 2313))
+
+# phase 11: the full-size grid under the faulty family with ASA-Naive
+FAULTY_SEEDS = 2
+FULL_FAULTY_CUTS = (
+    "background arrivals stop after 1024 slots (as phase 4)",
+    f"{FAULTY_SEEDS} seeds per cell",
+    "policies 2-3 only (asa, asa_naive)",
+    "cold estimators (no warm_fleet rounds before the sweep)",
+)
 
 FULL_CUTS = (
     "background arrivals stop after 1024 slots (about 4.8 h of HPC2N "
@@ -1315,17 +1338,19 @@ def ssm_end_to_end(dev) -> None:
           f"tolerance: {failed}")
 
 
-def strategy_rows(grid, m: dict) -> None:
+def strategy_rows(grid, m: dict, tag: str = "table1",
+                  keys=("twt_s", "makespan_s", "core_hours", "oh_hours")
+                  ) -> None:
+    """Each strategy's means of ``keys`` over its scenarios."""
     by: dict[str, list[int]] = {}
     for i, lab in enumerate(grid.labels):
         by.setdefault(lab["strategy"], []).append(i)
     for strat, idx in sorted(by.items()):
-        vals = {k: float(np.mean(m[k][idx])) for k in
-                ("twt_s", "makespan_s", "core_hours", "oh_hours")}
-        print(f"table1/{strat}: n={len(idx)} " + " ".join(
+        vals = {k: float(np.mean(m[k][idx])) for k in keys}
+        print(f"{tag}/{strat}: n={len(idx)} " + " ".join(
             f"{k}={v:.6f}" for k, v in vals.items()))
     frac = float(m["wf_done"].sum() / m["wf_total"].sum())
-    print(f"table1/wf_done_frac={frac:.6f}")
+    print(f"{tag}/wf_done_frac={frac:.6f}")
 
 
 def states_equal(a, b) -> bool:
@@ -1336,10 +1361,10 @@ def states_equal(a, b) -> bool:
         np.array_equal(x[k], y[k]) for k in x)
 
 
-def table1_setting(grid_mod, policies, backfill, dev) -> None:
+def table1_setting(grid_mod, policies, backfill, dev) -> int:
     """Phase 3: ``benchmarks/run.py``'s xsim leg on the port, kernel path
     and plain path, bitwise; the kernel path must launch the kernel and
-    the plain path must not."""
+    the plain path must not. Returns the kernel path's launches."""
     cfg = grid_mod.XSimConfig(n_warm=24, n_backlog=16, n_arrivals=24,
                               max_stages=9, t0=3600.0)
     grid = grid_mod.make_grid(cfg, n_seeds=4, shrink=1 / 64.0,
@@ -1381,6 +1406,7 @@ def table1_setting(grid_mod, policies, backfill, dev) -> None:
           f"plain_path_s={ref_s:.3f} bitwise_equal=True "
           f"freed_scan_launches={kern_launches} by_design={designs}")
     strategy_rows(grid, m)
+    return kern_launches
 
 
 def full_size(grid_mod, policies, backfill, dev, RUNNING) -> dict:
@@ -1399,9 +1425,7 @@ def full_size(grid_mod, policies, backfill, dev, RUNNING) -> dict:
     first_inputs = (s0.end, s0.cores, s0.status == RUNNING)
 
     torch.cuda.reset_peak_memory_stats()
-    for counts in (backfill.KERNEL_LAUNCHES, backfill.DESIGN_LAUNCHES):
-        for k in counts:
-            counts[k] = 0
+    reset_scan_counts(backfill)
     t0 = time.perf_counter()
     final, m = grid_mod.run_grid(grid, fleet, device=dev)
     torch.cuda.synchronize()
@@ -1497,6 +1521,187 @@ def profile_window(events_mod, state, n_steps: int = 16) -> None:
         n_steps, "full-size steps", ("freed_scan",))
 
 
+def reset_scan_counts(backfill) -> None:
+    for counts in (backfill.KERNEL_LAUNCHES, backfill.DESIGN_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def check_naive_faults_run(tag: str, family: str, grid, final,
+                           m: dict) -> dict:
+    """The checks of phases 10 and 11 on a finished naive sweep: every
+    workflow done under the step budget; a miss and over-allocation on
+    some ASA-Naive row; kills under ``faulty`` and ``preempt``; at the
+    end every lane holds its whole machine (``free == total``), owes no
+    negative drain debt and has consumed its whole fault schedule.
+    Returns the counts it read."""
+    steps = final.steps.cpu().numpy()
+    naive = np.array([lab["strategy"] == "asa_naive"
+                      for lab in grid.labels])
+    n_faults = grid.fault_t.shape[1]
+    check(bool(np.all(m["wf_done"] == m["wf_total"])),
+          f"{tag}: not every workflow finished")
+    check(int(steps.max()) < grid.cfg.n_steps,
+          f"{tag}: a scenario used its whole step budget")
+    check(int(m["misses"][naive].sum()) > 0
+          and bool(np.any(m["oh_hours"][naive] > 0.0)),
+          f"{tag}: no ASA-Naive row missed or over-allocated")
+    restarts = int(m["restarts"].sum())
+    if family in ("faulty", "preempt"):
+        check(restarts > 0, f"{tag}: no job was killed")
+    check(bool(torch.equal(final.free, final.total)),
+          f"{tag}: free != total at the end")
+    check(bool((final.cap_debt >= 0.0).all()), f"{tag}: negative cap_debt")
+    check(bool((final.fault_next == n_faults).all()),
+          f"{tag}: a fault event was left unprocessed")
+    for k in ("twt_s", "makespan_s", "core_hours", "oh_hours"):
+        check(m[k].shape == (grid.n,) and bool(np.all(np.isfinite(m[k]))),
+              f"{tag}: metric {k} not finite of shape ({grid.n},)")
+    return dict(steps_max=int(steps.max()),
+                steps_mean=float(steps.mean()),
+                misses=int(m["misses"].sum()),
+                stages_cancelled=int(torch.isfinite(final.canc_start)
+                                     .sum()),
+                restarts=restarts)
+
+
+def table1_families(grid_mod, families, policies, backfill, dev) -> dict:
+    """Phase 10: ``benchmarks/run.py``'s xsim leg with ASA-Naive (policies
+    0-3) under every robustness family, kernel path against plain path,
+    bitwise; every launch ``fused``. Returns the kernel paths' launches
+    by family."""
+    cfg = grid_mod.XSimConfig(n_warm=24, n_backlog=16, n_arrivals=24,
+                              max_stages=9, t0=3600.0)
+    launches = {}
+    for family in families.FAMILIES:
+        tag = f"table1_naive/{family}"
+        grid = families.family_grid(cfg, family, n_seeds=4,
+                                    shrink=1 / 64.0, policy_ids=(0, 1, 2, 3),
+                                    device=dev)
+        fleet = policies.init_fleet(int(grid.geo_idx.max()) + 1, device=dev)
+        t0 = time.perf_counter()
+        fleet = grid_mod.warm_fleet(fleet, grid, rounds=3, device=dev)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        reset_scan_counts(backfill)
+        t0 = time.perf_counter()
+        fin_k, m_k = grid_mod.run_grid(grid, fleet, pred_seed=7, device=dev)
+        torch.cuda.synchronize()
+        kern_s = time.perf_counter() - t0
+        kern_launches = backfill.KERNEL_LAUNCHES["freed_scan"]
+        designs = dict(backfill.DESIGN_LAUNCHES)
+        check(kern_launches > 0 and designs["fused"] == kern_launches,
+              f"{tag}: kernel path launches {kern_launches}, by design "
+              f"{designs}")
+        backfill.KERNEL_LAUNCHES["freed_scan"] = 0
+        t0 = time.perf_counter()
+        fin_r, _ = grid_mod.run_grid(grid, fleet, pred_seed=7,
+                                     freed_mode="ref", device=dev)
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+        check(backfill.KERNEL_LAUNCHES["freed_scan"] == 0,
+              f"{tag}: the plain path launched the kernel")
+        check(states_equal(fin_k, fin_r),
+              f"{tag}: kernel path and plain path differ")
+        m = {k: v.cpu().numpy() for k, v in m_k.items()}
+        counts = check_naive_faults_run(tag, family, grid, fin_k, m)
+        print(f"{tag}: B={grid.n} N={grid.cfg.max_jobs} "
+              f"n_faults={grid.fault_t.shape[1]} "
+              f"n_steps_budget={grid.cfg.n_steps} "
+              f"warm_fleet_s={warm_s:.3f} kernel_path_s={kern_s:.3f} "
+              f"plain_path_s={ref_s:.3f} bitwise_equal=True "
+              f"freed_scan_launches={kern_launches} by_design={designs} "
+              + " ".join(f"{k}={v}" for k, v in counts.items()))
+        strategy_rows(grid, m, tag=tag,
+                      keys=("twt_s", "makespan_s", "core_hours", "oh_hours",
+                            "misses", "restarts"))
+        launches[family] = kern_launches
+    return launches
+
+
+def counting_drain(events_mod, counts: dict):
+    """Count, on the device and without a host sync, the naive drain's
+    iterations that ran a hook in some lane, the lane-iterations, and the
+    cancels (a lane's start hook that set ``repass``), seven small
+    launches an iteration; and, on the host, the steps run again with the
+    whole drain because a step of their chunk needed more than
+    ``events.SPEC_HOOK_PAIRS`` iterations. Counts include the steps run
+    again."""
+    start_hook, sim_step = events_mod._start_hook, events_mod.sim_step
+
+    def start_spy(s, now, bins, live=None):
+        out = start_hook(s, now, bins, live)
+        if live is not None:
+            counts["drain_iterations"] += live.any()
+            counts["drain_lane_iterations"] += live.sum()
+            counts["cancels"] += (out.repass & live).sum()
+        return out
+
+    def step_spy(s, bins, **kw):
+        if kw.get("naive") and kw.get("hook_pairs") is None:
+            counts["steps_run_again"] += 1
+        return sim_step(s, bins, **kw)
+    return patched((events_mod, "_start_hook", start_spy),
+                   (events_mod, "sim_step", step_spy))
+
+
+def full_faulty(grid_mod, families, policies, backfill, events_mod,
+                dev) -> int:
+    """Phase 11: the naive-and-faults program at full size (phase 4's
+    geometry, the ``faulty`` family, policies 2 and 3); one timed run,
+    then a 16-step profiled window. Returns the run's scan launches."""
+    cfg = grid_mod.XSimConfig(n_warm=512, n_backlog=768, n_arrivals=1024,
+                              max_stages=9)
+    grid = families.family_grid(cfg, "faulty", shrink=1.0,
+                                policy_ids=(2, 3), n_seeds=FAULTY_SEEDS,
+                                device=dev)
+    check(grid.n == 36 * FAULTY_SEEDS and grid.cfg.max_jobs == 2313,
+          f"full-size faulty grid is {grid.n} x {grid.cfg.max_jobs}")
+    fleet = policies.init_fleet(int(grid.geo_idx.max()) + 1, device=dev)
+    s0 = grid.build(policies.scenario_estimators(
+        fleet, torch.as_tensor(grid.geo_idx, device=dev), 1))
+
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    drain = {k: zero.clone() for k in ("drain_iterations",
+                                       "drain_lane_iterations", "cancels")}
+    drain["steps_run_again"] = 0
+    torch.cuda.reset_peak_memory_stats()
+    reset_scan_counts(backfill)
+    t0 = time.perf_counter()
+    with counting_drain(events_mod, drain):
+        final, m = grid_mod.run_grid(grid, fleet, device=dev)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = backfill.KERNEL_LAUNCHES["freed_scan"]
+    designs = dict(backfill.DESIGN_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    m = {k: v.cpu().numpy() for k, v in m.items()}
+    counts = check_naive_faults_run("full_faulty", "faulty", grid, final, m)
+    check(launches > 0 and designs["fused"] == launches,
+          f"full_faulty: launches {launches}, by design {designs}")
+    print(f"full_faulty: B={grid.n} N={grid.cfg.max_jobs} "
+          f"n_faults={grid.fault_t.shape[1]} "
+          f"n_steps_budget={grid.cfg.n_steps} run_s={run_s:.6f} "
+          f"ms_per_step={run_s * 1e3 / counts['steps_max']:.3f} "
+          f"scenarios_per_s={grid.n / run_s:.6f} "
+          f"freed_scan_launches={launches} by_design={designs} "
+          f"peak_mem_bytes={peak} "
+          + " ".join(f"{k}={v}" for k, v in counts.items()) + " "
+          + " ".join(f"{k}={int(v)}" for k, v in drain.items()))
+    print("full_faulty/note: run_s includes the drain counters (seven "
+          "small launches a drain iteration)")
+    for cut in FULL_FAULTY_CUTS:
+        print(f"full_faulty/cut: {cut}")
+    strategy_rows(grid, m, tag="full_faulty",
+                  keys=("twt_s", "makespan_s", "core_hours", "oh_hours",
+                        "misses", "restarts"))
+    # as run_grid runs it: two chunks, each tried with the cut drain
+    device_profile("profile_faulty", lambda: events_mod.simulate(
+        s0, n_steps=16, pred_mode="greedy", naive=True, faults=True), 16,
+        "full-size faulty steps", ("freed_scan",))
+    return launches
+
+
 class Phases:
     """Prints each phase's seconds, from the end of the previous one."""
 
@@ -1517,7 +1722,7 @@ def main() -> None:
         fail("torch.cuda.is_available() is False: this smoke needs a GPU")
     sys.path.insert(0, str(SRC))
     from repro_torch import cuda_build
-    from repro_torch.xsim import backfill, policies
+    from repro_torch.xsim import backfill, families, policies
     from repro_torch.xsim import grid as grid_mod
     from repro_torch.xsim.state import RUNNING
 
@@ -1556,7 +1761,8 @@ def main() -> None:
     phases.done("2_kernels")
 
     # phase 3: the repository's Table-1 setting, kernel vs plain path
-    table1_setting(grid_mod, policies, backfill, dev)
+    scan_paths = {"sweep/table1": table1_setting(grid_mod, policies,
+                                                 backfill, dev)}
     phases.done("3_table1")
 
     # phase 4: the main path at full size (counts reset just before it)
@@ -1602,6 +1808,20 @@ def main() -> None:
             phases.done("7_moe_end_to_end")
     ssm_end_to_end(dev)
     phases.done("9_ssm_end_to_end")
+
+    # phase 10: the Table-1 setting with ASA-Naive under every family;
+    # phase 11: that program at full size under the faulty family (counts
+    # reset inside, per path)
+    for family, n in table1_families(grid_mod, families, policies, backfill,
+                                     dev).items():
+        scan_paths[f"sweep/table1_naive_{family}"] = n
+    phases.done("10_table1_families")
+    scan_paths["sweep/full_faulty"] = full_faulty(
+        grid_mod, families, policies, backfill, events_mod, dev)
+    phases.done("11_full_faulty")
+    scan_paths["sweep/full"] = full["launches"]["freed_scan"]
+    entry.update(launches=sum(scan_paths.values()),
+                 launches_by_path=scan_paths)
     by_path = {name: {f"serve/{fam}": r["launches"][name]
                       for fam, r in served.items()}
                for name in ("flash_attention", "grouped_matmul", "wkv6")}

@@ -40,7 +40,12 @@ class ASAState(NamedTuple):
 
 
 def _f32(x, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.float32, device=like.device)
+    """``x`` as a float32 tensor on ``like``'s device. A Python number is
+    written by a fill kernel: a copy from host memory would synchronise
+    the stream inside every event step."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=like.device, dtype=torch.float32)
+    return torch.full((), x, dtype=torch.float32, device=like.device)
 
 
 def select(pred: torch.Tensor, new: ASAState, old: ASAState) -> ASAState:

@@ -111,8 +111,9 @@ def uniform(key: torch.Tensor, shape: tuple[int, ...] = (),
     rounded once to float32."""
     b = bits(key, shape)
     f = ((b >> 9) | _ONE_F32_BITS).to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    # fills, not copies from host memory, which would synchronise
+    lo = torch.full((), minval, dtype=torch.float32, device=key.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=key.device)
     span = (hi - lo).double()
     u = (f.double() * span + lo.double()).float()
     return torch.maximum(lo, u)

@@ -9,10 +9,11 @@ durations by a configurable factor.
 
 ``FaultSchedule`` is the data form of the same failure model: a sorted
 list of capacity events (node failures, graceful drains, recoveries /
-grows) that the fleet engine (``repro.xsim``; in the port only the empty
-schedule is exercised so far) folds into its event scan as
-per-scenario arrays — the robustness scenario families (faulty, elastic,
-preempt) are built from these schedules (see ``xsim.families``).
+grows) that the fleet engine (``repro_torch.xsim``) folds into its
+event steps as per-scenario arrays — the robustness scenario families
+(faulty, elastic, preempt) are built from these schedules (see
+``xsim.families``; ``runtime.elastic.resize_schedule`` turns a live
+capacity plan into one).
 """
 
 from __future__ import annotations

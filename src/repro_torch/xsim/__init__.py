@@ -2,8 +2,11 @@
 
 Fixed-slot job tables, one event step at a time for a whole batch of
 scenarios, the EASY reservation scan as the hand-written CUDA kernel
-``csrc/freed_scan.cu``. Ported: the untraced, fault-free program for the
-BigJob, Per-Stage, ASA and pilot policies (ids 0, 1, 2, 5).
+``csrc/freed_scan.cu``. Ported: the untraced program for the BigJob,
+Per-Stage, ASA, ASA-Naive and pilot policies (ids 0, 1, 2, 3, 5), with
+capacity faults and the robustness families (``clean``, ``faulty``,
+``elastic``, ``preempt``). Not yet: the learned policy (id 4) and event
+tracing.
 """
 
 from repro_torch.xsim.state import (ASA, ASA_NAIVE, BIGJOB, CANCELLED,
@@ -13,10 +16,12 @@ from repro_torch.xsim.events import simulate, sweep
 from repro_torch.xsim.grid import (ScenarioGrid, XSimConfig, center_params,
                                    make_grid, run_grid, warm_fleet)
 from repro_torch.xsim.compare import batched_metrics, metrics
+from repro_torch.xsim.families import FAMILIES, family_grid, family_schedule
 
 __all__ = [
     "ASA", "ASA_NAIVE", "BIGJOB", "CANCELLED", "PER_STAGE", "PILOT",
     "POLICY_NAMES", "RL", "ScenarioState", "simulate", "sweep",
     "ScenarioGrid", "XSimConfig", "center_params", "make_grid", "run_grid",
-    "warm_fleet", "batched_metrics", "metrics",
+    "warm_fleet", "batched_metrics", "metrics", "FAMILIES", "family_grid",
+    "family_schedule",
 ]

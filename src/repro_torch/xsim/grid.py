@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.core import asa, prng
 from repro_torch.device import DEFAULT_DEVICE, check_device, resolve_device
+from repro_torch.runtime.fault import FaultSchedule
 from repro_torch.sched.centers import CENTERS, CenterProfile
 from repro_torch.sched.strategies import PILOT_STARTUP_S, PILOT_TASK_LATENCY_S
 from repro_torch.sched.workflows import WORKFLOWS, Workflow
@@ -81,7 +82,8 @@ class XSimConfig:
     pred_mode: str = "greedy"  # cascade a_y: live MAP or line-4 draw
     chunk_steps: int = 8     # steps between drain-exit checks
     trace_capacity: int = 0  # event-ring slots (not ported: must be 0)
-    n_faults: int = 0        # capacity-fault slots (not ported: must be 0)
+    n_faults: int = 0        # capacity-fault slots per scenario; 0 elides
+    #   the fault machinery from the swept program
 
     def __post_init__(self) -> None:
         if self.pred_mode not in ("greedy", "sample"):
@@ -112,9 +114,6 @@ def _check_config(cfg: XSimConfig) -> None:
     if cfg.trace_capacity:
         raise events.not_ported("event tracing (trace_capacity > 0)",
                                 "item 5")
-    if cfg.n_faults:
-        raise events.not_ported("capacity faults (n_faults > 0)",
-                                "item 4(i)")
 
 
 def build_batch(keys: torch.Tensor, center: XCenter, wf_cores: torch.Tensor,
@@ -330,15 +329,24 @@ def make_grid(cfg: XSimConfig,
     ``shrink`` miniaturises the centers (default 1/64: HPC2N → 263 cores);
     workflow scales shrink alongside. Background draws depend only on
     (geometry, seed), so the strategies and workflows of one cell see the
-    identical machine."""
+    identical machine.
+
+    ``fault_sched`` injects capacity faults (``cfg.n_faults`` must cover
+    the longest schedule): a ``runtime.fault.FaultSchedule`` applied to
+    every scenario, or a callable ``label_dict -> FaultSchedule`` for
+    per-scenario schedules (``xsim.families`` builds the standard
+    robustness families). Event fractions are of the center's shrunk
+    total cores, converted to whole cores here."""
     dev = resolve_device(device)
     _check_config(cfg)
-    if fault_sched is not None:
-        raise events.not_ported("capacity faults (fault_sched)", "item 4(i)")
-    cells, labels, geo, seeds_of = [], [], [], []
+    if fault_sched is not None and cfg.n_faults == 0:
+        raise ValueError("fault_sched given but cfg.n_faults == 0; set "
+                         "XSimConfig(n_faults=...) to size the fault slots")
+    cells, labels, geo, seeds_of, faults = [], [], [], [], []
     geo_ids: dict[tuple[str, int], int] = {}
     for cname in center_names:
         profile = CENTERS[cname]
+        total_cores = _center_values(profile, shrink)[0]
         for scale in (scales or profile.scales):
             eff_scale = max(int(round(scale * shrink)), 2)
             gid = geo_ids.setdefault((cname, scale), len(geo_ids))
@@ -351,10 +359,14 @@ def make_grid(cfg: XSimConfig,
                         cells.append((profile, sc, sd, sv, pol))
                         geo.append(gid)
                         seeds_of.append(gid * 100_003 + s)
-                        labels.append(dict(center=cname, scale=scale,
-                                           workflow=wf.name,
-                                           strategy=POLICY_NAMES[pol],
-                                           seed=s))
+                        lab = dict(center=cname, scale=scale,
+                                   workflow=wf.name,
+                                   strategy=POLICY_NAMES[pol], seed=s)
+                        labels.append(lab)
+                        sched = (fault_sched(lab) if callable(fault_sched)
+                                 else fault_sched) or FaultSchedule()
+                        faults.append(sched.as_arrays(cfg.n_faults,
+                                                      total_cores))
     b = len(cells)
     if b == 0:
         raise ValueError(
@@ -372,7 +384,10 @@ def make_grid(cfg: XSimConfig,
         return torch.as_tensor(np.stack([c[i] for c in cells]), dtype=dtype,
                                device=dev)
 
-    empty = torch.zeros((b, 0), device=dev)
+    def fault_field(j: int, dtype) -> torch.Tensor:
+        return torch.as_tensor(np.stack([f[j] for f in faults]), dtype=dtype,
+                               device=dev)
+
     return ScenarioGrid(
         cfg=cfg,
         keys=keys,
@@ -383,8 +398,9 @@ def make_grid(cfg: XSimConfig,
         wf_valid=stack(3, torch.bool),
         policies=torch.tensor([c[4] for c in cells], dtype=torch.int32,
                               device=dev),
-        fault_t=empty, fault_c=empty,
-        fault_k=empty.to(torch.int32),
+        fault_t=fault_field(0, torch.float32),
+        fault_c=fault_field(1, torch.float32),
+        fault_k=fault_field(2, torch.int32),
         geo_idx=np.asarray(geo),
         labels=labels,
     )
@@ -402,15 +418,15 @@ def run_grid(grid: ScenarioGrid, fleet: asa.ASAState | None = None, *,
     estimator through the sweep; ``pred_seed`` decorrelates the
     per-scenario PRNG streams across sweeps. ``freed_mode`` selects the
     reservation-scan backend (``backfill.FREED_MODES``; the default runs
-    the ``freed_scan`` kernel on CUDA). Returns (final_states, metrics
-    dict of (B,) tensors)."""
+    the ``freed_scan`` kernel on CUDA). The program is picked from the
+    grid, statically: the naive cancel/resubmit world when any scenario
+    runs ASA-Naive, the fault machinery when the grid has fault slots.
+    Returns (final_states, metrics dict of (B,) tensors)."""
     dev = resolve_device(device)
     check_device(grid.keys, dev, "the grid")
     pols = grid.policies.cpu().numpy()
     if params is not None or bool(np.any(pols == RL)):
         raise events.not_ported("the learned policy (rl, id 4)", "item 7")
-    if bool(np.any(pols == ASA_NAIVE)):
-        raise events.not_ported("ASA-Naive (id 3)", "item 4(h)")
     if fleet is None:
         fleet = policies.init_fleet(int(grid.geo_idx.max()) + 1, device=dev)
     ests = policies.scenario_estimators(
@@ -420,6 +436,7 @@ def run_grid(grid: ScenarioGrid, fleet: asa.ASAState | None = None, *,
                          chunk_steps=grid.cfg.chunk_steps,
                          bf_passes=bf_passes, freed_mode=freed_mode,
                          pred_mode=grid.cfg.pred_mode,
+                         naive=bool(np.any(np.isin(pols, (ASA_NAIVE, RL)))),
                          faults=grid.has_faults, device=dev)
     return final, compare.batched_metrics(final)
 

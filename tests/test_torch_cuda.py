@@ -241,6 +241,76 @@ def test_freed_fused_refuses_bad_inputs(cuda_device):
         backfill.freed_fused(long, long, long.bool())
 
 
+# the port's xsim parity tests' grid size (tests/test_torch_xsim.py)
+XSIM_CFG = dict(n_warm=16, n_backlog=12, n_arrivals=16, max_stages=9,
+                t0=1800.0)
+
+
+def _faulty_naive_grid(dev, **kw):
+    from repro_torch.xsim import families
+    from repro_torch.xsim import grid as grid_mod
+
+    return families.family_grid(grid_mod.XSimConfig(**XSIM_CFG), "faulty",
+                                shrink=1 / 64.0, device=dev, **kw)
+
+
+@pytest.mark.cuda
+def test_naive_faulty_sweep_kernel_route_bitwise(cuda_device):
+    """ASA-Naive beside every other ported policy on the ``faulty``
+    family: the sweep through the kernel and through the plain scan give
+    bitwise equal final states; only the kernel route launches."""
+    from repro_torch import convert
+    from repro_torch.xsim import grid as grid_mod
+
+    grid = _faulty_naive_grid(cuda_device, n_seeds=2,
+                              policy_ids=(0, 1, 2, 3, 5))
+    before = backfill.KERNEL_LAUNCHES["freed_scan"]
+    fused = backfill.DESIGN_LAUNCHES["fused"]
+    fin_k, m = grid_mod.run_grid(grid, device=cuda_device)
+    launched = backfill.KERNEL_LAUNCHES["freed_scan"] - before
+    assert launched > 0
+    assert backfill.DESIGN_LAUNCHES["fused"] - fused == launched
+    fin_r, _ = grid_mod.run_grid(grid, freed_mode="ref", device=cuda_device)
+    assert backfill.KERNEL_LAUNCHES["freed_scan"] - before == launched
+    a, b = convert.to_numpy(fin_k), convert.to_numpy(fin_r)
+    for k in a:
+        assert torch.equal(torch.from_numpy(a[k]), torch.from_numpy(b[k])), k
+    assert torch.equal(m["wf_done"], m["wf_total"])
+    assert int(m["misses"].sum()) > 0 and int(m["restarts"].sum()) > 0
+    assert torch.equal(fin_k.free, fin_k.total)
+    assert bool((fin_k.fault_next == grid.fault_t.shape[1]).all())
+
+
+@pytest.mark.cuda
+def test_naive_and_fault_steps_add_no_host_sync(cuda_device):
+    """A few steps of the naive-and-faults program, the capacity faults
+    and the naive drain on their own too, with CUDA's sync debug mode set
+    to raise on any synchronising call."""
+    from repro_torch.core.bins import make_bins
+    from repro_torch.xsim import events, policies
+
+    grid = _faulty_naive_grid(cuda_device, n_seeds=1, policy_ids=(2, 3))
+    fleet = policies.init_fleet(int(grid.geo_idx.max()) + 1,
+                                device=cuda_device)
+    s = grid.build(policies.scenario_estimators(
+        fleet, torch.as_tensor(grid.geo_idx, device=cuda_device), 1))
+    bins = torch.as_tensor(make_bins(53), dtype=torch.float32,
+                           device=cuda_device)
+    kw = dict(naive=True, faults=True, pred_mode="sample")
+    s, _ = events.sim_step(s, bins, **kw)     # builds the kernel library
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(4):
+            events._apply_faults(s, s.t)
+            events._drain_hooks(s, s.t, bins, False, True)
+            s, _ = events.sim_step(s, bins, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert int(s.steps.max()) == 5
+
+
 def _randn(shape, seed, dev, dtype, scale=1.0):
     gen = torch.Generator().manual_seed(seed)
     return (torch.randn(shape, generator=gen) * scale).to(dev, dtype)

@@ -47,6 +47,7 @@ def test_no_jax_or_reference_imports(path):
 def test_import_leaves_jax_unloaded():
     code = ("import sys, repro_torch, repro_torch.convert, "
             "repro_torch.xsim, repro_torch.xsim.grid, repro_torch.cuda_build, "
+            "repro_torch.xsim.families, repro_torch.runtime.elastic, "
             "repro_torch.launch.serve, repro_torch.models.transformer, "
             "repro_torch.models.rwkv6, repro_torch.models.lm, "
             "repro_torch.kernels.rwkv6_scan;"
@@ -62,18 +63,20 @@ def test_entry_points_default_to_cuda():
     from repro_torch.configs import ARCHS
     from repro_torch.launch import serve
     from repro_torch.models import rwkv6, transformer
-    from repro_torch.xsim import grid, policies
+    from repro_torch.xsim import families, grid, policies
 
     cfg = grid.XSimConfig(n_warm=4, n_backlog=4, n_arrivals=4)
     lm = ARCHS["qwen2-0.5b"].reduced()
     ssm = ARCHS["rwkv6-3b"].reduced()
     if torch.cuda.is_available():
         assert policies.init_fleet(2).log_p.is_cuda
+        assert families.family_grid(cfg, "faulty", n_seeds=1).fault_t.is_cuda
         assert transformer.init_lm(lm)["embed"]["table"].is_cuda
         assert rwkv6.init_decode_state(ssm, 1)["wkv"].is_cuda
         return
     for call in (lambda: policies.init_fleet(2),
                  lambda: grid.make_grid(cfg, n_seeds=1),
+                 lambda: families.family_grid(cfg, "faulty", n_seeds=1),
                  lambda: grid.center_params(grid.CENTERS["hpc2n"]),
                  lambda: serve.serve("qwen2-0.5b", gen=1),
                  lambda: serve.serve("rwkv6-3b", gen=1),
