@@ -7,8 +7,8 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 It builds every hand-written kernel of the port from the sources in the
 checkout, holds each kernel against its plain PyTorch version on the
 card, drives the port's main paths (the fleet simulator's Table-1 sweep,
-and model serving of a dense and an MoE transformer and of RWKV-6), and
-checks the results. Phases:
+model serving of a dense and an MoE transformer and of RWKV-6, and the
+paper's Table-1 and Table-2 runners), and checks the results. Phases:
 
 1. the card (``nvidia-smi`` name and power limit) and the kernel build;
 2. each kernel against its plain version at the shapes its path uses
@@ -89,14 +89,27 @@ checks the results. Phases:
 11. that naive-and-faults program at full size: phase 4's geometry under
    the ``faulty`` family, policies 2-3 (72 scenarios of 2313 slots), one
    timed run with the same checks and the counts of misses, cancels,
-   kills and hook-drain iterations, then a profiled window of 16 steps.
+   kills and hook-drain iterations, then a profiled window of 16 steps;
+12. the paper's tables on the card: (a) the QueueSim differentials of the
+   reference's cross-validation tests (6 BigJob, 9 Per-Stage, 12 ASA and
+   ASA-Naive, 6 pilot cases and the cancel/resubmit check), each a port
+   ``QueueSim`` snapshot frozen by ``xsim.freeze`` into one of two batches
+   (27 lanes; 9 with ``naive=True``), swept through the kernel and
+   through the plain scan: bitwise equal, every launch ``fused``, each
+   lane within the reference's tolerances of the port's ``run_*`` on the
+   same simulator; (b) ``sched.runner.run_table1`` at full size (both
+   centers, six scales, three workflows, ASA-Naive and the pilot) with
+   the estimators on the card and on the CPU in one process: every run
+   equal; the normalized averages beside the paper's row, the wall
+   seconds and the estimator's share; (c) ``run_table2(n_submissions=30)``
+   on the card: its 18 rows checked and printed.
 
 Matrix products of the plain versions run in full float32 where their
 inputs are float32: TF32 is switched off for matmuls and cuDNN.
 
 The second-to-last line is a JSON object with one entry per ported
-kernel (``freed_scan``'s launches summed over phases 3, 4, 10 and 11,
-by path beside); the last line is ``{"ok": true, "device": {...}}``. Any
+kernel (``freed_scan``'s launches summed over phases 3, 4, 10, 11 and
+12, by path beside); the last line is ``{"ok": true, "device": {...}}``. Any
 failure raises and ends the script with a non-zero exit code; without a CUDA
 device it exits non-zero before printing any result.
 """
@@ -303,6 +316,38 @@ FULL_FAULTY_CUTS = (
     "policies 2-3 only (asa, asa_naive)",
     "cold estimators (no warm_fleet rounds before the sweep)",
 )
+
+# phase 12: the paper's tables. (a) the QueueSim differentials of the
+# reference's cross-validation tests (tests/test_xsim.py): a warmed tiny
+# center (8 nodes of 4 cores, no arrivals after the snapshot at 600 s),
+# (kind, workflow, seed) as the reference parametrises them, each case's
+# step budget as the reference's test gives it; the "cancel" lanes are its
+# cancel/resubmit check (no QueueSim run). Tolerances are the reference's:
+# twt and makespan within 2% or 5 s, OH within 1e-3 h, misses and the
+# sampled predictions exact.
+QS_TINY = dict(
+    name="tiny", nodes=8, cores_per_node=4,
+    bg_arrival_rate=1 / 200.0, bg_cores_mean=1.5, bg_cores_sigma=0.8,
+    bg_duration_mean_s=7.0, bg_duration_sigma=0.8, bg_initial_backlog=12,
+    bg_burst_mean=1.0, scales=(8,))
+QS_DEPS = ([("bigjob", w, s) for w in ("blast", "statistics")
+            for s in (0, 1, 2)]
+           + [("per_stage", w, s) for w in ("blast", "statistics", "montage")
+              for s in (0, 1, 2)]
+           + [("asa", w, s) for w in ("statistics", "montage")
+              for s in (0, 2, 3)]
+           + [("pilot", w, s) for w in ("blast", "statistics")
+              for s in (0, 1, 2)])
+QS_NAIVE = ([("asa_naive", w, s) for w in ("statistics", "montage")
+             for s in (0, 2, 3)]
+            + [("cancel", "montage", s) for s in (0, 2, 3)])
+QS_STEPS = {"bigjob": 160, "pilot": 160, "per_stage": 220, "asa": 300,
+            "asa_naive": 300, "cancel": 300}
+QS_REL, QS_ABS = 0.02, 5.0
+# (b) and (c): run_table1 at full size, with ASA-Naive and the pilot, and
+# run_table2 at the repository benchmark's own setting
+# (benchmarks/table2_accuracy.py)
+TABLE2_SUBMISSIONS = 30
 
 FULL_CUTS = (
     "background arrivals stop after 1024 slots (about 4.8 h of HPC2N "
@@ -1702,6 +1747,268 @@ def full_faulty(grid_mod, families, policies, backfill, events_mod,
     return launches
 
 
+def queue_sim_batch(cases, dev):
+    """Phase 12(a)'s cases frozen into one batch on ``dev``: each a port
+    QueueSim snapshot with the workflow's rows, taken before the port's
+    ``run_*`` drives the same simulator (estimators on ``dev``). Returns
+    the batch and the runs (None for the cancel lanes)."""
+    from repro_torch.core import asa, prng
+    from repro_torch.sched import strategies as S
+    from repro_torch.sched.centers import CenterProfile
+    from repro_torch.sched.queue_sim import QueueSim
+    from repro_torch.sched.workflows import WORKFLOWS
+    from repro_torch.xsim import compare, policies
+    from repro_torch.xsim import state as X
+
+    tiny = CenterProfile(**QS_TINY)
+    states, refs = [], []
+    for kind, name, seed in cases:
+        wf = WORKFLOWS[name]
+        sim = QueueSim(tiny, seed=seed, bg_horizon=0.0)
+        sim.run_until(600.0)
+        table, row = compare.scenario_from_queue_sim(sim, max_jobs=64)
+        free = compare.queue_sim_free_cores(sim)
+        kw, ref = {}, None
+        if kind in ("asa", "asa_naive", "cancel"):
+            kw["est"] = asa.init(53, prng.PRNGKey(seed + 17, dev))
+            if kind != "cancel":
+                ref = S.run_asa(sim, wf, 8, "tiny",
+                                S.ASAEstimator(seed=seed + 17, device=dev),
+                                use_dependencies=kind == "asa")
+        else:
+            ref = getattr(S, f"run_{kind}")(sim, wf, 8, "tiny")
+        if kind == "pilot":
+            kw["pilot_waste_cs"] = S.pilot_waste_cs(wf, 8)
+        pol = X.ASA_NAIVE if kind == "cancel" else X.POLICY_NAMES.index(kind)
+        policies.add_workflow(table, row, wf, 8, pol, t0=600.0)
+        states.append(X.freeze(table, total_cores=tiny.total_cores,
+                               free_cores=free, now=600.0, policy=pol,
+                               t0=600.0, device=dev, **kw))
+        refs.append(ref)
+    return X.concat(states), refs
+
+
+def staged_sweep(events_mod, batch, naive: bool, dev, freed_mode: str
+                 ) -> dict:
+    """The batch after each step budget of ``QS_STEPS``, by continuing one
+    sweep (a step is a function of the state alone)."""
+    out, done = {}, 0
+    for n in sorted(set(QS_STEPS.values())):
+        batch = events_mod.sweep(batch, n_steps=n - done, naive=naive,
+                                 freed_mode=freed_mode, device=dev)
+        out[n], done = batch, n
+    if batch.status.is_cuda:
+        torch.cuda.synchronize()
+    return out
+
+
+def check_queue_sim_lane(tag: str, case, i: int, fin, m: dict, ref) -> None:
+    """The reference's cross-validation assertions on lane ``i``."""
+    kind, name, _ = case
+
+    def close(k, want):
+        got = float(m[k][i])
+        check(abs(got - want) <= max(QS_REL * abs(want), QS_ABS),
+              f"{tag}: {k} {got} against the QueueSim's {want}")
+
+    close("twt_s", ref.twt_s)
+    close("makespan_s", ref.makespan_s)
+    if kind in ("bigjob", "pilot"):
+        close("core_hours", ref.core_hours)
+    if kind == "per_stage":
+        check(0.0 < float(m["utilization"][i]) <= 1.0,
+              f"{tag}: utilization out of (0, 1]")
+    if kind == "pilot":
+        oh = float(m["oh_hours"][i])
+        check(abs(oh - ref.oh_hours) <= 1e-5 * abs(ref.oh_hours) and oh > 0,
+              f"{tag}: pilot OH {oh} against {ref.oh_hours}")
+        check(int(m["wf_done"][i]) == int(m["wf_total"][i]) == 1,
+              f"{tag}: the pilot did not finish")
+    if kind in ("asa", "asa_naive"):
+        from repro_torch.sched.workflows import WORKFLOWS
+
+        oh = float(m["oh_hours"][i])
+        check(abs(oh - ref.oh_hours) <= 1e-3,
+              f"{tag}: OH {oh} against {ref.oh_hours}")
+        check(int(m["misses"][i]) == ref.misses,
+              f"{tag}: misses {int(m['misses'][i])} against {ref.misses}")
+        check(kind == "asa_naive" or oh == 0.0, f"{tag}: ASA idled")
+        preds = fin.pred_wait[i][fin.is_wf[i]].cpu().numpy()
+        got = preds[1:len(ref.pred_waits) + 1]
+        check(np.allclose(got, ref.pred_waits, rtol=1e-7, atol=0.0),
+              f"{tag}: predictions {got.tolist()} against "
+              f"{ref.pred_waits}")
+        check(int(fin.est.t[i]) >= 2 * len(WORKFLOWS[name].stages),
+              f"{tag}: the estimator did not learn in the run")
+
+
+def queue_sim_differentials(backfill, events_mod, compare_mod, dev) -> int:
+    """Phase 12(a): the QueueSim differentials frozen into two batches on
+    the card (27 lanes without the naive world, 9 with it), each swept
+    through the kernel and through the plain scan: bitwise equal at every
+    step budget, every launch ``fused``, each lane held against the port's
+    QueueSim run at the reference's tolerances. Returns the kernel
+    paths' launches."""
+    total = 0
+    for name, cases, naive in (("deps", QS_DEPS, False),
+                               ("naive", QS_NAIVE, True)):
+        tag = f"tables/queue_sim_{name}"
+        t0 = time.perf_counter()
+        batch, refs = queue_sim_batch(cases, dev)
+        build_s = time.perf_counter() - t0
+        reset_scan_counts(backfill)
+        t0 = time.perf_counter()
+        kern = staged_sweep(events_mod, batch, naive, dev, "auto")
+        kern_s = time.perf_counter() - t0
+        launches = backfill.KERNEL_LAUNCHES["freed_scan"]
+        designs = dict(backfill.DESIGN_LAUNCHES)
+        check(launches > 0 and designs["fused"] == launches,
+              f"{tag}: kernel path launches {launches}, by design {designs}")
+        backfill.KERNEL_LAUNCHES["freed_scan"] = 0
+        t0 = time.perf_counter()
+        plain = staged_sweep(events_mod, batch, naive, dev, "ref")
+        plain_s = time.perf_counter() - t0
+        check(backfill.KERNEL_LAUNCHES["freed_scan"] == 0,
+              f"{tag}: the plain path launched the kernel")
+        for n in kern:
+            check(states_equal(kern[n], plain[n]),
+                  f"{tag}: kernel and plain path differ after {n} steps")
+        metrics = {n: {k: v.cpu().numpy()
+                       for k, v in compare_mod.metrics(st).items()}
+                   for n, st in kern.items()}
+        misses = oh = cancelled = 0
+        for i, (case, ref) in enumerate(zip(cases, refs)):
+            n = QS_STEPS[case[0]]
+            m, fin = metrics[n], kern[n]
+            lane = f"{tag}/{case[0]}-{case[1]}-{case[2]}"
+            if ref is not None:
+                check_queue_sim_lane(lane, case, i, fin, m, ref)
+            else:
+                misses += int(m["misses"][i])
+                oh += float(m["oh_hours"][i])
+                cancelled += int(torch.isfinite(fin.canc_start[i]).sum())
+                check(int(m["wf_done"][i]) == int(m["wf_total"][i]),
+                      f"{lane}: a resubmission did not finish")
+        if naive:
+            check(misses >= 3 and oh > 0.0 and cancelled > 0,
+                  f"{tag}: the cancel check saw misses {misses}, OH {oh}, "
+                  f"cancelled stages {cancelled}")
+        steps = kern[300].steps.cpu().numpy()
+        print(f"{tag}: B={len(cases)} N=64 steps_max={int(steps.max())} "
+              f"build_s={build_s:.3f} kernel_path_s={kern_s:.3f} "
+              f"plain_path_s={plain_s:.3f} bitwise_equal=True "
+              f"freed_scan_launches={launches} by_design={designs} "
+              f"lanes_within_tolerance={sum(r is not None for r in refs)}"
+              + (f" cancel_check_misses={misses} cancel_check_oh_h={oh:.6f}"
+                 f" cancelled_stages={cancelled}" if naive else ""))
+        total += launches
+    return total
+
+
+def timed_estimator(acc: dict):
+    """Within the block, ``ASAEstimator.learn`` and ``predict`` add their
+    host seconds and calls to ``acc`` (``predict`` ends in a device read,
+    so on the card it also waits for the ``learn`` work queued before
+    it)."""
+    from repro_torch.sched.strategies import ASAEstimator
+
+    def timed(name: str):
+        fn = getattr(ASAEstimator, name)
+
+        def call(self, *args):
+            t0 = time.perf_counter()
+            try:
+                return fn(self, *args)
+            finally:
+                acc[name][0] += time.perf_counter() - t0
+                acc[name][1] += 1
+        return call
+
+    for name in ("learn", "predict"):
+        acc[name] = [0.0, 0]
+    return patched((ASAEstimator, "learn", timed("learn")),
+                   (ASAEstimator, "predict", timed("predict")))
+
+
+def run_timed(tag: str, fn):
+    """``fn()`` with its wall seconds and the estimator's share printed."""
+    acc: dict = {}
+    with timed_estimator(acc):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    est_s = acc["learn"][0] + acc["predict"][0]
+    print(f"{tag}: wall_s={wall:.3f} estimator_s={est_s:.3f} "
+          f"estimator_share={est_s / wall:.4f} "
+          f"learn_calls={acc['learn'][1]} learn_s={acc['learn'][0]:.3f} "
+          f"predict_calls={acc['predict'][1]} "
+          f"predict_s={acc['predict'][0]:.3f}")
+    return out
+
+
+def table1_on_card(dev) -> None:
+    """Phase 12(b): ``run_table1`` at full size (both centers, their six
+    scales, three workflows; BigJob, Per-Stage, ASA, ASA-Naive, pilot),
+    the estimators on the card and then on the CPU, in one process (the
+    estimator seeds are ``hash()`` of strings): every run's metrics
+    equal. Prints the normalized averages as
+    ``benchmarks/table1_strategies.py`` does, beside the paper's row."""
+    import dataclasses
+
+    from repro_torch.sched import runner
+
+    kw = dict(seed=0, include_naive=True, include_pilot=True)
+    res = run_timed("tables/table1_cuda",
+                    lambda: runner.run_table1(**kw, device=dev))
+    cpu = run_timed("tables/table1_cpu",
+                    lambda: runner.run_table1(**kw, device="cpu"))
+    check(len(res.runs) == 2 * 3 * 3 * 5,
+          f"tables/table1: {len(res.runs)} runs, expected 90")
+    check(res.rows() == cpu.rows()
+          and [dataclasses.asdict(r) for r in res.runs]
+          == [dataclasses.asdict(r) for r in cpu.runs],
+          "tables/table1: the card's runs differ from the CPU's")
+    for r in res.runs:
+        check(all(math.isfinite(getattr(r, k)) for k in
+                  ("twt_s", "makespan_s", "core_hours", "oh_hours")),
+              f"tables/table1: a non-finite metric in {r}")
+    naive = [r for r in res.runs if r.strategy == "asa_naive"]
+    print(f"tables/table1: runs={len(res.runs)} rows_equal_cpu=True "
+          f"naive_misses={sum(r.misses for r in naive)} "
+          f"naive_oh_h={sum(r.oh_hours for r in naive):.6f}")
+    for strat, d in sorted(runner.summarize_table1(res).items()):
+        print(f"table1_strategies/{strat},0,"
+              f"twt=+{d['twt']*100:.0f}%;makespan=+{d['makespan']*100:.0f}%;"
+              f"ch=+{d['ch']*100:.0f}%")
+    print("table1_strategies/paper_ref,0,"
+          "bigjob_ch=+53%;per_stage_makespan=+34%;asa_makespan=+2%")
+
+
+def table2_on_card(dev) -> None:
+    """Phase 12(c): ``run_table2`` at the repository benchmark's setting
+    with the estimators on the card: 18 rows, ratios in [0, 1], finite
+    waits; printed as ``benchmarks/table2_accuracy.py`` does."""
+    from repro_torch.sched import runner
+
+    rows = run_timed("tables/table2_cuda", lambda: runner.run_table2(
+        n_submissions=TABLE2_SUBMISSIONS, device=dev))
+    check(len(rows) == 18, f"tables/table2: {len(rows)} rows, expected 18")
+    for r in rows:
+        check(0.0 <= r.hit_ratio <= 1.0 and 0.0 <= r.miss_ratio <= 1.0,
+              f"tables/table2: a ratio outside [0, 1] in {r}")
+        check(all(math.isfinite(getattr(r, k)) for k in
+                  ("real_wt_h", "real_wt_std_h", "asa_wt_h", "asa_wt_std_h",
+                   "pwt_h", "pwt_std_h", "oh_loss_h")),
+              f"tables/table2: a non-finite wait in {r}")
+        print(f"table2_accuracy/{r.workflow}_{r.center}_{r.scale},0,"
+              f"real={r.real_wt_h:.2f}h;asa={r.asa_wt_h:.2f}h;"
+              f"pwt={r.pwt_h:.2f}h;hit={r.hit_ratio:.2f};"
+              f"miss={r.miss_ratio:.2f};oh={r.oh_loss_h:.1f}h")
+    print(f"tables/table2: rows={len(rows)} "
+          f"n_submissions={TABLE2_SUBMISSIONS}")
+
+
 class Phases:
     """Prints each phase's seconds, from the end of the previous one."""
 
@@ -1819,6 +2126,15 @@ def main() -> None:
     scan_paths["sweep/full_faulty"] = full_faulty(
         grid_mod, families, policies, backfill, events_mod, dev)
     phases.done("11_full_faulty")
+
+    # phase 12: the paper's tables: the QueueSim differentials through the
+    # kernel (counts reset inside, per path), then Table 1 and Table 2
+    from repro_torch.xsim import compare as compare_mod
+    scan_paths["tables/queue_sim_differentials"] = queue_sim_differentials(
+        backfill, events_mod, compare_mod, dev)
+    table1_on_card(dev)
+    table2_on_card(dev)
+    phases.done("12_tables")
     scan_paths["sweep/full"] = full["launches"]["freed_scan"]
     entry.update(launches=sum(scan_paths.values()),
                  launches_by_path=scan_paths)

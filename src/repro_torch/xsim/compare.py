@@ -1,16 +1,21 @@
-"""Metrics extraction (port of ``repro.xsim.compare.metrics``).
+"""Metrics extraction + the QueueSim cross-validation bridge (port of
+``repro.xsim.compare``).
 
 ``metrics`` reduces a finished batch of scenarios to the quantities
 ``sched.runner``'s RunMetrics carries (twt_s, makespan_s, core_hours,
 oh_hours, utilization, …), one ``(B,)`` tensor each.
+``scenario_from_queue_sim`` snapshots a live event-driven QueueSim into a
+host-side job table, so both engines run from the identical machine
+state and the numbers can be compared.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from repro_torch.xsim.state import (ASA, ASA_NAIVE, DONE, PILOT, RL,
-                                    ScenarioState)
+from repro_torch.xsim.state import (ASA, ASA_NAIVE, DONE, PILOT, QUEUED, RL,
+                                    RUNNING, ScenarioState, empty_table)
 
 _INF = float("inf")
 
@@ -89,3 +94,47 @@ def batched_metrics(final: ScenarioState) -> dict[str, torch.Tensor]:
     """``metrics`` of a batched final state (the port's states are always
     batched, so this is ``metrics`` itself)."""
     return metrics(final)
+
+
+def wf_rows(s: ScenarioState, lane: int = 0) -> dict[str, np.ndarray]:
+    """Host-side view of one lane's workflow rows (stage-ordered)."""
+    mask = s.is_wf[lane].cpu().numpy()
+    return {name: getattr(s, name)[lane].cpu().numpy()[mask]
+            for name in ("submit", "start", "end", "cores", "duration",
+                         "status")}
+
+
+def scenario_from_queue_sim(sim, max_jobs: int) -> tuple[dict, int]:
+    """Snapshot a live QueueSim into a host-side job table.
+
+    Returns (table, next_free_row). Running jobs keep their residual end
+    times, in the order ``(end, id)``; queued jobs follow with their
+    submit times in FCFS order (the engine's stable sort keeps it for
+    equal submit times). Workflow rows are appended by the caller via
+    ``policies.add_workflow`` starting at next_free_row.
+    """
+    table = empty_table(max_jobs)
+    row = 0
+    for _, jid in sorted(sim.running):
+        j = sim.jobs[jid]
+        if jid in sim.finished or j.canceled:
+            continue
+        table["submit"][row] = j.submit_time
+        table["cores"][row] = j.cores
+        table["duration"][row] = j.duration
+        table["start"][row] = j.start_time
+        table["end"][row] = j.end_time
+        table["status"][row] = RUNNING
+        row += 1
+    for jid in sim.queue:
+        j = sim.jobs[jid]
+        table["submit"][row] = j.submit_time
+        table["cores"][row] = j.cores
+        table["duration"][row] = j.duration
+        table["status"][row] = QUEUED
+        row += 1
+    return table, row
+
+
+def queue_sim_free_cores(sim) -> float:
+    return float(sim.free_cores)

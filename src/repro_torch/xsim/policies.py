@@ -7,6 +7,9 @@ differ only in the workflow rows of the job table (built by
 cross-run persistence loop is ``update_fleet``: between sweeps, each
 geometry's shared estimator absorbs observed first-stage waits and seeds
 the next sweep's per-scenario estimators (``scenario_estimators``).
+``add_workflow`` writes one workflow's rows into a host-side table, for
+scenarios snapshotted from the event-driven ``QueueSim``
+(``compare.scenario_from_queue_sim``).
 """
 
 from __future__ import annotations
@@ -18,7 +21,9 @@ from repro_torch.core import asa, prng
 from repro_torch.core.bins import make_bins
 from repro_torch.core.losses import zero_one
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.sched import strategies
 from repro_torch.sched.workflows import Workflow
+from repro_torch.xsim.state import ASA, BIGJOB, PENDING, PILOT, add_job
 
 
 def stage_arrays(wf: Workflow, scale: int, max_stages: int
@@ -35,6 +40,39 @@ def stage_arrays(wf: Workflow, scale: int, max_stages: int
         durs[y] = st.duration(scale)
         valid[y] = True
     return cores, durs, valid
+
+
+def add_workflow(table: dict[str, np.ndarray], offset: int, wf: Workflow,
+                 scale: int, policy: int, t0: float) -> int:
+    """Write one workflow's stage rows into a host-side table from row
+    ``offset``; returns the number of rows used. BigJob and pilot take
+    one peak-width row (the pilot's walltime adds its bootstrap and
+    per-stage dispatch latency); the stage policies one row a stage,
+    chained by ``wf_next``. ASA rows carry the afterok edge, ASA-Naive
+    and learned-policy rows do not. Wait estimates are drawn at run time,
+    so none are written here."""
+    if policy == BIGJOB:
+        add_job(table, offset, cores=wf.peak_cores(scale),
+                duration=wf.total_exec(scale), submit=t0, status=PENDING,
+                is_wf=True)
+        return 1
+    if policy == PILOT:
+        add_job(table, offset, cores=wf.peak_cores(scale),
+                duration=strategies.pilot_duration(wf, scale), submit=t0,
+                status=PENDING, is_wf=True)
+        return 1
+    s = len(wf.stages)
+    with_dep = policy == ASA  # naive (§4.5) + RL: no dependency support
+    for y, st in enumerate(wf.stages):
+        add_job(
+            table, offset + y,
+            cores=st.cores(scale), duration=st.duration(scale),
+            submit=t0 if y == 0 else np.inf, status=PENDING,
+            start_dep=offset + y - 1 if y > 0 and with_dep else -1,
+            wf_next=offset + y + 1 if y + 1 < s else -1,
+            is_wf=True,
+        )
+    return s
 
 
 def init_fleet(n: int, m: int = 53, seed: int = 0, *,

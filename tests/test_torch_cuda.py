@@ -311,6 +311,135 @@ def test_naive_and_fault_steps_add_no_host_sync(cuda_device):
     assert int(s.steps.max()) == 5
 
 
+# the QueueSim differentials of tests/test_torch_xsim_queue_sim.py: a
+# warmed tiny center snapshotted into the fleet simulator, (kind,
+# workflow name, seed) as the reference's cross-validation tests take them
+_TINY_KW = dict(
+    name="tiny", nodes=8, cores_per_node=4,
+    bg_arrival_rate=1 / 200.0, bg_cores_mean=1.5, bg_cores_sigma=0.8,
+    bg_duration_mean_s=7.0, bg_duration_sigma=0.8, bg_initial_backlog=12,
+    bg_burst_mean=1.0, scales=(8,))
+_QS_DEPS = ([("bigjob", w, s) for w in ("blast", "statistics")
+             for s in (0, 1, 2)]
+            + [("per_stage", w, s) for w in ("blast", "statistics", "montage")
+               for s in (0, 1, 2)]
+            + [("asa", w, s) for w in ("statistics", "montage")
+               for s in (0, 2, 3)]
+            + [("pilot", w, s) for w in ("blast", "statistics")
+               for s in (0, 1, 2)])
+_QS_NAIVE = [("asa_naive", w, s) for w in ("statistics", "montage")
+             for s in (0, 2, 3)]
+
+
+def _queue_sim_batch(cases, dev):
+    """(batch on ``dev``, the port's QueueSim run of each case)."""
+    from repro_torch.core import asa, prng
+    from repro_torch.sched import strategies as S
+    from repro_torch.sched.centers import CenterProfile
+    from repro_torch.sched.queue_sim import QueueSim
+    from repro_torch.sched.workflows import WORKFLOWS
+    from repro_torch.xsim import compare, policies
+    from repro_torch.xsim import state as X
+
+    tiny = CenterProfile(**_TINY_KW)
+    states, refs = [], []
+    for kind, name, seed in cases:
+        wf = WORKFLOWS[name]
+        sim = QueueSim(tiny, seed=seed, bg_horizon=0.0)
+        sim.run_until(600.0)
+        table, row = compare.scenario_from_queue_sim(sim, max_jobs=64)
+        free = compare.queue_sim_free_cores(sim)
+        kw = {}
+        if kind in ("asa", "asa_naive"):
+            kw["est"] = asa.init(53, prng.PRNGKey(seed + 17, dev))
+            refs.append(S.run_asa(sim, wf, 8, "tiny",
+                                  S.ASAEstimator(seed=seed + 17, device=dev),
+                                  use_dependencies=kind == "asa"))
+        else:
+            refs.append(getattr(S, f"run_{kind}")(sim, wf, 8, "tiny"))
+        if kind == "pilot":
+            kw["pilot_waste_cs"] = S.pilot_waste_cs(wf, 8)
+        pol = X.POLICY_NAMES.index(kind)
+        policies.add_workflow(table, row, wf, 8, pol, t0=600.0)
+        states.append(X.freeze(table, total_cores=tiny.total_cores,
+                               free_cores=free, now=600.0, policy=pol,
+                               t0=600.0, device=dev, **kw))
+    return X.concat(states), refs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("naive", [False, True])
+def test_queue_sim_differentials_kernel_route_bitwise(cuda_device, naive):
+    """The QueueSim differentials frozen on the card: the sweep through
+    the kernel and through the plain scan give bitwise equal final
+    states, every launch ``fused``; the metrics hold the QueueSim runs
+    at the reference's tolerances."""
+    from repro_torch import convert
+    from repro_torch.xsim import compare, events
+
+    batch, refs = _queue_sim_batch(_QS_NAIVE if naive else _QS_DEPS,
+                                   cuda_device)
+    before = backfill.KERNEL_LAUNCHES["freed_scan"]
+    fused = backfill.DESIGN_LAUNCHES["fused"]
+    fin_k = events.sweep(batch, n_steps=300, naive=naive, device=cuda_device)
+    launched = backfill.KERNEL_LAUNCHES["freed_scan"] - before
+    assert launched > 0
+    assert backfill.DESIGN_LAUNCHES["fused"] - fused == launched
+    fin_r = events.sweep(batch, n_steps=300, naive=naive, freed_mode="ref",
+                         device=cuda_device)
+    assert backfill.KERNEL_LAUNCHES["freed_scan"] - before == launched
+    a, b = convert.to_numpy(fin_k), convert.to_numpy(fin_r)
+    for k in a:
+        assert torch.equal(torch.from_numpy(a[k]), torch.from_numpy(b[k])), k
+    m = {k: v.cpu() for k, v in compare.metrics(fin_k).items()}
+    for i, ref in enumerate(refs):
+        for k in ("twt_s", "makespan_s"):
+            assert float(m[k][i]) == pytest.approx(
+                getattr(ref, k), rel=0.02, abs=5.0), (i, k)
+        assert float(m["oh_hours"][i]) == pytest.approx(ref.oh_hours,
+                                                        abs=1e-3)
+        assert int(m["misses"][i]) == ref.misses
+    if naive:
+        assert int(m["misses"].sum()) > 0
+
+
+@pytest.mark.cuda
+def test_estimator_learn_adds_no_host_sync(cuda_device):
+    """``ASAEstimator.learn`` on the card, with CUDA's sync debug mode set
+    to raise on any synchronising call: its wait and γ are fills."""
+    from repro_torch.sched.strategies import ASAEstimator
+
+    est = ASAEstimator(seed=3, device=cuda_device)
+    est.learn(1234.5)                   # first call: allocations, caches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for w in (0.5, 60.0, 4000.0, 2e5):
+            est.learn(w)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert int(est.state.t) == 10 and est.state.log_p.is_cuda
+
+
+@pytest.mark.cuda
+def test_run_table1_on_cuda_equals_cpu(cuda_device):
+    """A short Table-1 run with the estimators on the card gives the CPU
+    run's metrics, run for run (within one process: the estimator seeds
+    come from ``hash()``)."""
+    import dataclasses
+
+    from repro_torch.sched import runner
+
+    kw = dict(seed=0, include_naive=True, include_pilot=True,
+              workflows=("blast",), n_warmup=2)
+    got = runner.run_table1(**kw, device=cuda_device)
+    want = runner.run_table1(**kw, device="cpu")
+    assert len(got.runs) == 6 * 5
+    assert [dataclasses.asdict(r) for r in got.runs] == \
+        [dataclasses.asdict(r) for r in want.runs]
+
+
 def _randn(shape, seed, dev, dtype, scale=1.0):
     gen = torch.Generator().manual_seed(seed)
     return (torch.randn(shape, generator=gen) * scale).to(dev, dtype)

@@ -50,7 +50,9 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.xsim.families, repro_torch.runtime.elastic, "
             "repro_torch.launch.serve, repro_torch.models.transformer, "
             "repro_torch.models.rwkv6, repro_torch.models.lm, "
-            "repro_torch.kernels.rwkv6_scan;"
+            "repro_torch.kernels.rwkv6_scan, repro_torch.sched, "
+            "repro_torch.sched.queue_sim, repro_torch.sched.strategies, "
+            "repro_torch.sched.runner, repro_torch.core.regret;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')];"
             "assert not bad, bad")
