@@ -7,8 +7,9 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 It builds every hand-written kernel of the port from the sources in the
 checkout, holds each kernel against its plain PyTorch version on the
 card, drives the port's main paths (the fleet simulator's Table-1 sweep,
-model serving of a dense and an MoE transformer and of RWKV-6, and the
-paper's Table-1 and Table-2 runners), and checks the results. Phases:
+untraced and traced, model serving of a dense and an MoE transformer and
+of RWKV-6, and the paper's Table-1 and Table-2 runners), and checks the
+results. Phases:
 
 1. the card (``nvidia-smi`` name and power limit) and the kernel build;
 2. each kernel against its plain version at the shapes its path uses
@@ -102,14 +103,26 @@ paper's Table-1 and Table-2 runners), and checks the results. Phases:
    the estimators on the card and on the CPU in one process: every run
    equal; the normalized averages beside the paper's row, the wall
    seconds and the estimator's share; (c) ``run_table2(n_submissions=30)``
-   on the card: its 18 rows checked and printed.
+   on the card: its 18 rows checked and printed;
+13. traced sweeps (``obs``): (a) phase 10's ``faulty`` setting traced at
+   the default capacity (``XSimConfig.with_trace()``): kernel path
+   against plain path bitwise with the event rings, the untraced run's
+   state and scan launches bit for bit once the ring is removed, no ring
+   overflowed, all six event kinds, ``sweep_summary``'s per-kind
+   counters summing to its ``trace_events``, the chain waits replayed
+   from each ASA and ASA-Naive lane's ring equal to ``twt_s`` bit for
+   bit, a Chrome trace and JSONL written and validated; (b) phase 4's
+   full-size grid traced, one timed run: the state without its ring
+   bitwise phase 4's, the same scan launches, ``sweep_summary`` on the
+   card equal to the same summary on the CPU (its peak memory printed),
+   ``trace_meta``; then 16 profiled steps untraced and traced.
 
 Matrix products of the plain versions run in full float32 where their
 inputs are float32: TF32 is switched off for matmuls and cuDNN.
 
 The second-to-last line is a JSON object with one entry per ported
-kernel (``freed_scan``'s launches summed over phases 3, 4, 10, 11 and
-12, by path beside); the last line is ``{"ok": true, "device": {...}}``. Any
+kernel (``freed_scan``'s launches summed over phases 3, 4 and 10-13, by
+path beside); the last line is ``{"ok": true, "device": {...}}``. Any
 failure raises and ends the script with a non-zero exit code; without a CUDA
 device it exits non-zero before printing any result.
 """
@@ -1512,7 +1525,7 @@ def full_size(grid_mod, policies, backfill, dev, RUNNING) -> dict:
           f"the main path's launches did not all take the fused design: "
           f"{designs} of {launches['freed_scan']}")
     return dict(launches=launches, designs=designs, inputs=first_inputs,
-                state=s0)
+                state=s0, final=final, fleet=fleet, grid=grid)
 
 
 def device_profile(tag: str, run, n_steps: int, what: str,
@@ -2009,6 +2022,216 @@ def table2_on_card(dev) -> None:
           f"n_submissions={TABLE2_SUBMISSIONS}")
 
 
+def state_on_cpu(s):
+    """A copy of a port state (a NamedTuple of tensors, ``est`` and
+    ``trace`` NamedTuples of tensors inside) on the CPU."""
+    return type(s)(*(None if v is None else
+                     type(v)(*(x.cpu() for x in v)) if isinstance(v, tuple)
+                     else v.cpu() for v in s))
+
+
+def check_trace(tag: str, grid, final, m: dict, n_steps: int,
+                kinds: tuple[str, ...]) -> dict:
+    """The checks of phase 13 on a traced final state: no ring overflowed,
+    the named event kinds occur, ``sweep_summary``'s per-kind counters
+    sum to its ``trace_events``; returns the summary on the host."""
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs import trace as obs_trace
+
+    check(not bool(obs_trace.overflowed(final.trace).any()),
+          f"{tag}: a ring overflowed")
+    h = obs_metrics.to_host(obs_metrics.sweep_summary(final,
+                                                      n_steps=n_steps))
+    names = obs_trace.EVENT_NAMES.values()
+    missing = [k for k in kinds if h[f"ev_{k}"] == 0]
+    check(not missing, f"{tag}: no {missing} event in any ring")
+    check(sum(h[f"ev_{k}"] for k in names) == h["trace_events"]
+          == int(final.trace.head.sum()),
+          f"{tag}: per-kind counters do not sum to trace_events")
+    check(h["wf_done"] == int(m["wf_done"].sum()),
+          f"{tag}: sweep_summary's wf_done differs from the metrics'")
+    return h
+
+
+def traced_table1_faulty(grid_mod, families, policies, backfill,
+                         dev) -> int:
+    """Phase 13(a): phase 10's Table-1 setting with ASA-Naive under
+    ``faulty``, traced at the default capacity: kernel path against plain
+    path bitwise (rings included), the untraced run's state and launches
+    bit for bit once the ring is removed, every event kind, the
+    replayed chain waits equal to ``twt_s`` on every ASA and ASA-Naive
+    lane, a Chrome trace and JSONL written and validated. Returns the
+    kernel path's scan launches."""
+    import tempfile
+
+    from repro_torch.obs import export as obs_export
+    from repro_torch.obs import metrics as obs_metrics
+
+    tag = "traced/table1_faulty"
+    cfg = grid_mod.XSimConfig(n_warm=24, n_backlog=16, n_arrivals=24,
+                              max_stages=9, t0=3600.0)
+    kw = dict(n_seeds=4, shrink=1 / 64.0, policy_ids=(0, 1, 2, 3),
+              device=dev)
+    grid = families.family_grid(cfg.with_trace(), "faulty", **kw)
+    plain_grid = families.family_grid(cfg, "faulty", **kw)
+    fleet = policies.init_fleet(int(grid.geo_idx.max()) + 1, device=dev)
+    fleet = grid_mod.warm_fleet(fleet, plain_grid, rounds=3, device=dev)
+    torch.cuda.synchronize()
+    reset_scan_counts(backfill)
+    t0 = time.perf_counter()
+    fin_k, m_k = grid_mod.run_grid(grid, fleet, pred_seed=7, device=dev)
+    torch.cuda.synchronize()
+    kern_s = time.perf_counter() - t0
+    launches = backfill.KERNEL_LAUNCHES["freed_scan"]
+    designs = dict(backfill.DESIGN_LAUNCHES)
+    check(launches > 0 and designs["fused"] == launches,
+          f"{tag}: kernel path launches {launches}, by design {designs}")
+    backfill.KERNEL_LAUNCHES["freed_scan"] = 0
+    t0 = time.perf_counter()
+    fin_r, _ = grid_mod.run_grid(grid, fleet, pred_seed=7, freed_mode="ref",
+                                 device=dev)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    check(backfill.KERNEL_LAUNCHES["freed_scan"] == 0,
+          f"{tag}: the plain path launched the kernel")
+    check(states_equal(fin_k, fin_r),
+          f"{tag}: kernel path and plain path differ (rings included)")
+    backfill.KERNEL_LAUNCHES["freed_scan"] = 0
+    t0 = time.perf_counter()
+    fin_u, _ = grid_mod.run_grid(plain_grid, fleet, pred_seed=7, device=dev)
+    torch.cuda.synchronize()
+    untraced_s = time.perf_counter() - t0
+    check(backfill.KERNEL_LAUNCHES["freed_scan"] == launches,
+          f"{tag}: the untraced run launched the scan "
+          f"{backfill.KERNEL_LAUNCHES['freed_scan']} times, the traced "
+          f"{launches}")
+    check(fin_u.trace is None and states_equal(fin_u,
+                                               fin_k._replace(trace=None)),
+          f"{tag}: without its ring the state differs from the untraced "
+          "run's")
+    m = {k: v.cpu().numpy() for k, v in m_k.items()}
+    counts = check_naive_faults_run(tag, "faulty", grid, fin_k, m)
+    h = check_trace(tag, grid, fin_k, m_k, grid.cfg.n_steps,
+                    ("submit", "start", "finish", "cancel", "resubmit",
+                     "kill"))
+    host = state_on_cpu(fin_k)
+    lanes = [i for i, lab in enumerate(grid.labels)
+             if lab["strategy"] in ("asa", "asa_naive")]
+    for i in lanes:
+        twt = obs_metrics.replay_chain_waits(host, i)[2]
+        check(twt == m["twt_s"][i],
+              f"{tag}: lane {i}: replayed twt {twt!r} != twt_s "
+              f"{m['twt_s'][i]!r}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "trace.json")
+        meta = obs_export.write_chrome_trace(path, fin_k, grid.labels)
+        rows = obs_export.write_jsonl(str(Path(tmp) / "events.jsonl"),
+                                      fin_k, grid.labels)
+        with open(path) as f:
+            chrome = json.load(f)
+        errs = obs_export.validate_chrome(chrome) + \
+            obs_export.validate_file(path)
+        size = Path(path).stat().st_size
+    check(errs == [], f"{tag}: the Chrome trace is invalid: {errs[:3]}")
+    check(rows == meta["events_total"] == h["trace_events"],
+          f"{tag}: {rows} JSONL rows, {meta['events_total']} events")
+    print(f"{tag}: B={grid.n} N={grid.cfg.max_jobs} "
+          f"capacity={grid.cfg.trace_capacity} kernel_path_s={kern_s:.3f} "
+          f"plain_path_s={ref_s:.3f} untraced_s={untraced_s:.3f} "
+          f"bitwise_equal=True untraced_equal=True "
+          f"freed_scan_launches={launches} by_design={designs} "
+          f"replayed_lanes={len(lanes)} chrome_events="
+          f"{len(chrome['traceEvents'])} chrome_bytes={size} "
+          f"jsonl_rows={rows} "
+          + " ".join(f"{k}={v}" for k, v in counts.items()))
+    print(f"{tag}/events: total={h['trace_events']} "
+          f"dropped={h['trace_dropped']} " + " ".join(
+              f"{k}={h[k]}" for k in h if k.startswith("ev_")))
+    return launches
+
+
+def traced_full_size(grid_mod, policies, backfill, events_mod, full: dict,
+                     dev) -> int:
+    """Phase 13(b): phase 4's full-size grid, traced at the default
+    capacity, one timed run against phase 4's untraced run (the state
+    bitwise once the ring is removed, the same scan launches), the
+    summary on the card against the same summary on the CPU, its peak
+    memory, ``trace_meta``; then 16 profiled steps, untraced and traced.
+    Returns the run's scan launches."""
+    from repro_torch.obs import export as obs_export
+    from repro_torch.obs import metrics as obs_metrics
+
+    tag = "traced/full"
+    plain = full["grid"]
+    cfg = plain.cfg.with_trace()
+    grid = grid_mod.make_grid(cfg, shrink=1.0, policy_ids=(0, 1, 2),
+                              n_seeds=2, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_scan_counts(backfill)
+    t0 = time.perf_counter()
+    final, m = grid_mod.run_grid(grid, full["fleet"], device=dev)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = backfill.KERNEL_LAUNCHES["freed_scan"]
+    designs = dict(backfill.DESIGN_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check(launches == full["launches"]["freed_scan"]
+          and designs == full["designs"],
+          f"{tag}: scan launches {launches} {designs}, untraced "
+          f"{full['launches']['freed_scan']} {full['designs']}")
+    check(states_equal(final._replace(trace=None), full["final"]),
+          f"{tag}: without its ring the state differs from phase 4's")
+    h = check_trace(tag, grid, final, m, cfg.n_steps,
+                    ("submit", "start", "finish"))
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    on_card = obs_metrics.to_host(obs_metrics.sweep_summary(
+        final, n_steps=cfg.n_steps))
+    summary_s = time.perf_counter() - t0
+    summary_peak = torch.cuda.max_memory_allocated() - base
+    t0 = time.perf_counter()
+    on_cpu = obs_metrics.to_host(obs_metrics.sweep_summary(
+        state_on_cpu(final), n_steps=cfg.n_steps))
+    cpu_s = time.perf_counter() - t0
+    check(on_card.keys() == on_cpu.keys() == h.keys(),
+          f"{tag}: summary keys differ between the card and the CPU")
+    floats = [k for k in on_card if isinstance(on_card[k], float)]
+    for k in on_card:
+        if k in floats:
+            check(math.isclose(on_card[k], on_cpu[k], rel_tol=1e-6),
+                  f"{tag}: summary {k}: card {on_card[k]!r}, CPU "
+                  f"{on_cpu[k]!r}")
+        else:
+            check(on_card[k] == on_cpu[k],
+                  f"{tag}: summary counter {k}: card {on_card[k]!r}, CPU "
+                  f"{on_cpu[k]!r}")
+    steps = final.steps.cpu().numpy()
+    print(f"{tag}: B={grid.n} N={cfg.max_jobs} "
+          f"capacity={cfg.trace_capacity} run_s={run_s:.6f} "
+          f"ms_per_step={run_s * 1e3 / int(steps.max()):.3f} "
+          f"steps_max={int(steps.max())} freed_scan_launches={launches} "
+          f"by_design={designs} peak_mem_bytes={peak} "
+          f"ring_bytes={final.trace.data.numel() * 4} "
+          f"untraced_state_equal=True")
+    print(f"{tag}/summary: card_s={summary_s:.6f} cpu_s={cpu_s:.6f} "
+          f"peak_mem_increment_bytes={summary_peak} counters_equal=True "
+          + " ".join(f"{k}={on_card[k]}" for k in
+                     ("trace_events", "backfill_hits", "wf_done",
+                      "wf_total", "drain_frac", "steps_frac"))
+          + " " + " ".join(f"{k}={on_card[k]}" for k in on_card
+                           if k.startswith("ev_")))
+    print(f"{tag}/trace_meta: {json.dumps(obs_export.trace_meta(final))}")
+    s0 = grid.build(policies.scenario_estimators(
+        full["fleet"], torch.as_tensor(grid.geo_idx, device=dev), 1))
+    for what, state in (("untraced", full["state"]), ("traced", s0)):
+        device_profile(f"profile_{what}", lambda st=state: events_mod.simulate(
+            st, n_steps=16, chunk_steps=0, pred_mode="greedy"), 16,
+            f"full-size {what} steps", ("freed_scan",))
+    return launches
+
+
 class Phases:
     """Prints each phase's seconds, from the end of the previous one."""
 
@@ -2135,6 +2358,14 @@ def main() -> None:
     table1_on_card(dev)
     table2_on_card(dev)
     phases.done("12_tables")
+
+    # phase 13: traced sweeps (obs) through the scan kernel (counts reset
+    # inside, per path)
+    scan_paths["sweep/table1_naive_faulty_traced"] = traced_table1_faulty(
+        grid_mod, families, policies, backfill, dev)
+    scan_paths["sweep/full_traced"] = traced_full_size(
+        grid_mod, policies, backfill, events_mod, full, dev)
+    phases.done("13_traced")
     scan_paths["sweep/full"] = full["launches"]["freed_scan"]
     entry.update(launches=sum(scan_paths.values()),
                  launches_by_path=scan_paths)

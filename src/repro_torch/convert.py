@@ -1,7 +1,7 @@
 """Carry state across from the reference package.
 
 The reference keeps its states as pytrees of arrays (NamedTuples).
-``scenario_state`` and ``asa_state`` take such a tree whose leaves are
+``scenario_state``, ``asa_state`` and ``trace_buffer`` take such a tree whose leaves are
 numpy arrays (or anything ``numpy.asarray`` accepts) and return the
 port's tensors, field by field and dtype for dtype: float32 stays
 float32, int32 stays int32, bool stays bool, and uint32 PRNG keys become
@@ -18,6 +18,7 @@ import torch
 from repro_torch.core.asa import ASAState
 from repro_torch.device import resolve_device
 from repro_torch.models import lm, lm_module
+from repro_torch.obs.trace import TraceBuffer
 from repro_torch.xsim.state import ScenarioState
 
 _DTYPES = {np.dtype(np.float32): torch.float32,
@@ -42,31 +43,41 @@ def asa_state(ref, device: str | torch.device = "cpu") -> ASAState:
     return ASAState(*(tensor(getattr(ref, f), dev) for f in ASAState._fields))
 
 
+def trace_buffer(ref, device: str | torch.device = "cpu") -> TraceBuffer:
+    """A batched ``TraceBuffer`` from the reference's vmapped one (its
+    ``(B, C, NF)`` data and ``(B,)`` head are the port's layout)."""
+    dev = resolve_device(device)
+    return TraceBuffer(*(tensor(getattr(ref, f), dev)
+                         for f in TraceBuffer._fields))
+
+
 def scenario_state(ref, device: str | torch.device = "cpu"
                    ) -> ScenarioState:
     """A batched ``ScenarioState`` from the reference's, as
-    ``grid.ScenarioGrid.build`` returns it. Traced states (a non-None
-    ``trace``) are not ported and raise."""
+    ``grid.ScenarioGrid.build`` returns it, its event ring included when
+    it carries one."""
     dev = resolve_device(device)
-    if getattr(ref, "trace", None) is not None:
-        raise NotImplementedError("traced states are not ported yet")
     fields = {}
     for f in ScenarioState._fields:
-        if f == "trace":
-            continue
         v = getattr(ref, f)
-        fields[f] = asa_state(v, dev) if f == "est" else tensor(v, dev)
-    return ScenarioState(**fields, trace=None)
+        if f == "est":
+            fields[f] = asa_state(v, dev)
+        elif f == "trace":
+            fields[f] = None if v is None else trace_buffer(v, dev)
+        else:
+            fields[f] = tensor(v, dev)
+    return ScenarioState(**fields)
 
 
 def to_numpy(state) -> dict[str, np.ndarray]:
     """Flatten a port state (``ScenarioState`` or ``ASAState``) to
-    ``{field: numpy array}``, ``est`` fields as ``est.<name>``."""
+    ``{field: numpy array}``, ``est`` and ``trace`` fields as
+    ``est.<name>`` and ``trace.<name>``."""
     out = {}
     for f, v in state._asdict().items():
         if v is None:
             continue
-        if isinstance(v, ASAState):
+        if isinstance(v, (ASAState, TraceBuffer)):
             for g, w in v._asdict().items():
                 out[f"{f}.{g}"] = w.cpu().numpy()
         else:

@@ -2,14 +2,15 @@
 
 Fixed-slot job tables, one event step at a time for a whole batch of
 scenarios, the EASY reservation scan as the hand-written CUDA kernel
-``csrc/freed_scan.cu``. Ported: the untraced program for the BigJob,
+``csrc/freed_scan.cu``. Ported: the program for the BigJob,
 Per-Stage, ASA, ASA-Naive and pilot policies (ids 0, 1, 2, 3, 5), with
 capacity faults and the robustness families (``clean``, ``faulty``,
 ``elastic``, ``preempt``), and the host-side helpers that snapshot the
 event-driven ``sched.QueueSim`` into a scenario (``empty_table``,
 ``add_job``, ``freeze``, ``concat``, ``policies.add_workflow``,
-``scenario_from_queue_sim``). Not yet: the learned policy (id 4) and
-event tracing.
+``scenario_from_queue_sim``), and event tracing (``XSimConfig.with_trace``,
+``freeze(trace_capacity=...)``: the ``obs.trace`` rings). Not yet: the
+learned policy (id 4).
 """
 
 from repro_torch.xsim.state import (ASA, ASA_NAIVE, BIGJOB, CANCELLED,

@@ -1,6 +1,6 @@
 """Event-time advance, completions, releases, capacity faults, admissions,
-hooks and the chunked sweep (port of ``repro.xsim.events`` for the
-untraced program without the learned policy).
+hooks and the chunked sweep (port of ``repro.xsim.events`` without the
+learned policy).
 
 One ``sim_step`` jumps every lane of the batch to its next event time
 (earliest pending submission, running-job completion or unprocessed
@@ -37,6 +37,13 @@ pair a step, raises an on-device flag if any hook were left pending, and
 the sweep checks that flag at each chunk's host sync and raises rather
 than continue on a wrong program.
 
+A state that carries an event ring (``obs.trace``) appends to it where
+the reference does: one fused write a step (finishes, naive resubmits,
+admissions, starts, in that order, just before the hook drain), the
+kills of each fault iteration, and the cancels of each naive drain
+iteration. Each append sits under ``if s.trace is not None``, so the
+untraced program launches exactly what it launched before tracing.
+
 ``simulate`` runs the steps in chunks and leaves as soon as every lane is
 out of events. The host synchronises once a chunk, never once a step.
 """
@@ -48,6 +55,7 @@ import torch
 from repro_torch.core import asa
 from repro_torch.core.bins import make_bins
 from repro_torch.device import DEFAULT_DEVICE, check_device, resolve_device
+from repro_torch.obs import trace as obs_trace
 from repro_torch.runtime.fault import FAULT_DRAIN, FAULT_FAIL, FAULT_GROW
 from repro_torch.sched.strategies import (NAIVE_CANCEL_LATENCY_S,
                                           NAIVE_IDLE_THRESHOLD_S)
@@ -93,6 +101,17 @@ def _clear(mask: torch.Tensor, y: torch.Tensor,
     if where is None:
         return mask & (cols != y.unsqueeze(1))
     return mask & ~((cols == y.unsqueeze(1)) & where.unsqueeze(1))
+
+
+def _job_stage(s: ScenarioState) -> torch.Tensor:
+    """i32 (B, max_jobs) workflow stage index per row; -1 for background."""
+    b, n = s.status.shape
+    y = torch.arange(s.wf_rows.shape[1], dtype=torch.int32,
+                     device=s.status.device).expand(b, -1)
+    tgt = torch.where(s.wf_rows >= 0, s.wf_rows, n).long()   # n = drop
+    out = torch.full((b, n + 1), -1, dtype=torch.int32,
+                     device=s.status.device)
+    return out.scatter(1, tgt, y)[:, :n]
 
 
 def _asa_like(s: ScenarioState) -> torch.Tensor:
@@ -173,14 +192,19 @@ def _release_per_stage(s: ScenarioState, newly_done: torch.Tensor,
 
 
 def _release_naive_resubmit(s: ScenarioState, newly_done: torch.Tensor,
-                            now: torch.Tensor) -> ScenarioState:
-    """Stage y DONE ⇒ a CANCELLED successor is resubmitted now (§4.5)."""
+                            now: torch.Tensor
+                            ) -> tuple[ScenarioState, torch.Tensor,
+                                       torch.Tensor]:
+    """Stage y DONE ⇒ a CANCELLED successor is resubmitted now (§4.5).
+
+    Also returns ``(fire, succ_c)``: the firing predecessor lanes and
+    their (clamped) successor rows, for the step's fused ring append."""
     n = s.status.shape[1]
     succ_c = s.wf_next.clamp(0, n - 1).long()
     fire = (newly_done & s.is_wf & _naive_like(s).unsqueeze(1)
             & (s.wf_next >= 0)
             & (torch.gather(s.status, 1, succ_c) == CANCELLED))
-    return _submit_successors(s, fire, now)
+    return _submit_successors(s, fire, now), fire, succ_c
 
 
 def _apply_faults(s: ScenarioState, now: torch.Tensor) -> ScenarioState:
@@ -202,11 +226,17 @@ def _apply_faults(s: ScenarioState, now: torch.Tensor) -> ScenarioState:
     ``fault_next < n_faults`` and the event being due: a lane with no
     event due is left exactly as it was. The float operations keep the
     reference's order, so ``free``, ``total`` and ``cap_debt`` (sums of
-    whole cores) stay exact."""
+    whole cores) stay exact. A traced state appends each iteration's kills
+    (masked by the iteration's active lanes, so an idle lane appends
+    nothing)."""
     nf = s.fault_t.shape[1]
     if nf == 0:
         return s
     col = now.unsqueeze(1)
+    if s.trace is not None:
+        row_i = torch.arange(s.status.shape[1], dtype=torch.int32,
+                             device=now.device).expand_as(s.status)
+        stage = _job_stage(s)
     for _ in range(nf):
         i = s.fault_next.clamp(0, nf - 1)
         active = (s.fault_next < nf) & (_take(s.fault_t, i) <= now)
@@ -234,6 +264,10 @@ def _apply_faults(s: ScenarioState, now: torch.Tensor) -> ScenarioState:
                 & running & (is_fail & active).unsqueeze(1))
         killed = torch.where(kill, s.cores, 0.0).sum(dim=1)
         lost_cs = torch.where(kill, s.cores * (col - s.start), 0.0).sum(dim=1)
+        if s.trace is not None:
+            s = s._replace(trace=obs_trace.append_masked(
+                s.trace, kill, kind=obs_trace.EV_KILL, t=now, job=row_i,
+                stage=stage, cores=s.cores, policy=s.policy, step=s.steps))
 
         free = torch.where(
             is_grow, s.free + d,
@@ -275,7 +309,8 @@ def _start_hook(s: ScenarioState, now: torch.Tensor, bins: torch.Tensor,
     gaps cancel it (OH += cores·latency) and park the row as CANCELLED
     until the predecessor completes, setting ``repass``. A cancelled
     start does not learn. ``live=None`` is the program without the naive
-    world: every lane, no miss machinery."""
+    world: every lane, no miss machinery. A traced state appends each
+    cancel to its ring."""
     n = s.status.shape[1]
     pending = s.start_pending
     any_p = pending.any(dim=1)
@@ -315,6 +350,11 @@ def _start_hook(s: ScenarioState, now: torch.Tensor, bins: torch.Tensor,
     resub_t = torch.where(has_prev & (prev_status == DONE), now, _INF)
     cores = _take(s.cores, row)
     start = _take(s.start, row)
+    if s.trace is not None:
+        s = s._replace(trace=obs_trace.append_if(
+            s.trace, do_cancel, kind=obs_trace.EV_CANCEL, t=now, job=row,
+            stage=y.to(torch.int32), cores=cores, policy=s.policy,
+            step=s.steps))
     return s._replace(
         est=est,
         start_pending=_clear(pending, y, any_p),
@@ -457,7 +497,8 @@ def sim_step(s: ScenarioState, bins: torch.Tensor, *,
     s, newly_done = complete_jobs(s, now, faults)
     s = _release_per_stage(s, newly_done, now)
     if naive:
-        s = _release_naive_resubmit(s, newly_done, now)
+        s, resub_fire, resub_succ = _release_naive_resubmit(
+            s, newly_done, now)
     if faults:
         # after completions (a job ending at the fault instant finished),
         # before admissions and scheduling (which see post-fault capacity)
@@ -473,6 +514,23 @@ def sim_step(s: ScenarioState, bins: torch.Tensor, *,
     pre_start = s.start
     s = backfill.schedule_pass(s, bf_passes=bf_passes, freed_mode=freed_mode)
     started = (s.status == RUNNING) & torch.isinf(pre_start)
+    if s.trace is not None:
+        # one fused ring write a step, in event order: finishes, naive
+        # resubmissions, admissions, starts (cancels are appended by the
+        # start hook itself, inside the drain)
+        row_i = torch.arange(s.status.shape[1], dtype=torch.int32,
+                             device=now.device).expand_as(s.status)
+        stg = _job_stage(s)
+        segs = [(newly_done, obs_trace.EV_FINISH, row_i, stg, s.cores)]
+        if naive:
+            segs.append((resub_fire, obs_trace.EV_RESUBMIT, resub_succ,
+                         torch.gather(stg, 1, resub_succ),
+                         torch.gather(s.cores, 1, resub_succ)))
+        segs.append((newly_admitted, obs_trace.EV_SUBMIT, row_i, stg,
+                     s.cores))
+        segs.append((started, obs_trace.EV_START, row_i, stg, s.cores))
+        s = s._replace(trace=obs_trace.append_segments(
+            s.trace, segs, t=now, policy=s.policy, step=s.steps))
     s = s._replace(start_pending=s.start_pending | (
         stage_ok & torch.gather(started, 1, rows)))
     return _drain_hooks(s, now, bins, greedy, naive, hook_pairs)

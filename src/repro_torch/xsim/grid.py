@@ -18,6 +18,7 @@ core.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import NamedTuple, Sequence
 
@@ -26,6 +27,7 @@ import torch
 
 from repro_torch.core import asa, prng
 from repro_torch.device import DEFAULT_DEVICE, check_device, resolve_device
+from repro_torch.obs import trace as obs_trace
 from repro_torch.runtime.fault import FaultSchedule
 from repro_torch.sched.centers import CENTERS, CenterProfile
 from repro_torch.sched.strategies import PILOT_STARTUP_S, PILOT_TASK_LATENCY_S
@@ -81,7 +83,7 @@ class XSimConfig:
     warm_fill: float = 0.97  # warm-start capacity target
     pred_mode: str = "greedy"  # cascade a_y: live MAP or line-4 draw
     chunk_steps: int = 8     # steps between drain-exit checks
-    trace_capacity: int = 0  # event-ring slots (not ported: must be 0)
+    trace_capacity: int = 0  # event-ring slots per scenario; 0 = untraced
     n_faults: int = 0        # capacity-fault slots per scenario; 0 elides
     #   the fault machinery from the swept program
 
@@ -101,6 +103,20 @@ class XSimConfig:
     def max_jobs(self) -> int:
         return self.n_warm + self.n_backlog + self.n_arrivals + self.max_stages
 
+    def with_trace(self, capacity: int | None = None) -> "XSimConfig":
+        """This config with event tracing on. The default capacity,
+        4·max_jobs, covers the worst event sequence a scenario can emit
+        (submit, start and finish a job, plus the naive cancel/resubmit
+        detours) with slack, so rings normally never overflow."""
+        if capacity is None:
+            capacity = 4 * self.max_jobs
+        elif capacity < 1:
+            # an explicit "trace with no room" is a contradiction, not a
+            # request to disable tracing (that is the default config)
+            raise ValueError(f"with_trace needs trace_capacity >= 1, "
+                             f"got {capacity}")
+        return dataclasses.replace(self, trace_capacity=capacity)
+
     @property
     def n_steps(self) -> int:
         """Safe event budget: one admission and one completion step per
@@ -108,12 +124,6 @@ class XSimConfig:
         the capacity-fault term (the reference's formula)."""
         return (2 * self.max_jobs + 2 * self.max_stages + 16
                 + self.n_faults * (1 + self.max_jobs))
-
-
-def _check_config(cfg: XSimConfig) -> None:
-    if cfg.trace_capacity:
-        raise events.not_ported("event tracing (trace_capacity > 0)",
-                                "item 5")
 
 
 def build_batch(keys: torch.Tensor, center: XCenter, wf_cores: torch.Tensor,
@@ -124,8 +134,8 @@ def build_batch(keys: torch.Tensor, center: XCenter, wf_cores: torch.Tensor,
     """B scenarios as a pure function of (keys, cell data): ``keys`` is
     ``(B, 2)``, center fields and ``policy`` are ``(B,)``, stage data
     ``(B, max_stages)``, ``est`` the ``(B,)``-batched live estimators and
-    the fault arrays ``(B, n_faults)``."""
-    _check_config(cfg)
+    the fault arrays ``(B, n_faults)``. ``cfg.trace_capacity > 0``
+    attaches an event ring to each scenario, on the keys' device."""
     dev = keys.device
     b = keys.shape[0]
     ks = prng.split(keys, 9)
@@ -264,7 +274,8 @@ def build_batch(keys: torch.Tensor, center: XCenter, wf_cores: torch.Tensor,
         fault_next=scalar(0, i32), cap_debt=scalar(0.0),
         restarts=scalar(0, i32), restart_cs=scalar(0.0),
         pilot_waste_cs=waste_cs.to(f32),
-        trace=None,
+        trace=(obs_trace.init(cfg.trace_capacity, b, device=dev)
+               if cfg.trace_capacity else None),
     )
 
 
@@ -338,7 +349,6 @@ def make_grid(cfg: XSimConfig,
     robustness families). Event fractions are of the center's shrunk
     total cores, converted to whole cores here."""
     dev = resolve_device(device)
-    _check_config(cfg)
     if fault_sched is not None and cfg.n_faults == 0:
         raise ValueError("fault_sched given but cfg.n_faults == 0; set "
                          "XSimConfig(n_faults=...) to size the fault slots")

@@ -25,6 +25,7 @@ import torch
 from repro_torch.core import asa, prng
 from repro_torch.core.bins import M_DEFAULT
 from repro_torch.device import DEFAULT_DEVICE, check_device, resolve_device
+from repro_torch.obs import trace as obs_trace
 from repro_torch.runtime.fault import FaultSchedule
 
 # --- job status ladder -----------------------------------------------------
@@ -104,7 +105,7 @@ class ScenarioState(NamedTuple):
     restart_cs: torch.Tensor  # f32 (B,) lost core-seconds of kills
     pilot_waste_cs: torch.Tensor  # f32 (B,) pilot over-allocation
     # observability ------------------------------------------------------------
-    trace: None = None        # event rings are not ported yet (always None)
+    trace: obs_trace.TraceBuffer | None = None  # event rings; None = untraced
 
 
 def empty_table(max_jobs: int) -> dict[str, np.ndarray]:
@@ -162,18 +163,14 @@ def freeze(table: dict[str, np.ndarray], *, total_cores: float,
     faults, padded to ``n_faults`` slots (default: its length); run the
     batch with ``faults=True``. ``pilot_waste_cs`` is the pilot policy's
     over-allocation (``sched.strategies.pilot_waste_cs``). ASA-Naive
-    rows need ``simulate(..., naive=True)``. Event tracing
-    (``trace_capacity > 0``) is not ported and raises."""
-    from repro_torch.xsim import events
-
+    rows need ``simulate(..., naive=True)``. ``trace_capacity > 0``
+    attaches an ``obs.trace`` event ring of that many slots; 0 (default)
+    leaves ``trace=None``, the untraced program."""
     if pred_mode not in ("sample", "greedy"):
         raise ValueError(f"unknown pred_mode {pred_mode!r}")
     if trace_capacity < 0:
         raise ValueError(
             f"trace_capacity must be >= 0, got {trace_capacity}")
-    if trace_capacity:
-        raise events.not_ported("event tracing (trace_capacity > 0)",
-                                "item 5")
     dev = resolve_device(device)
     if fault_sched is None:
         fault_sched = FaultSchedule()
@@ -225,17 +222,27 @@ def freeze(table: dict[str, np.ndarray], *, total_cores: float,
         restarts=row(i32(0)),
         restart_cs=row(f32(0.0)),
         pilot_waste_cs=row(f32(pilot_waste_cs)),
+        trace=(obs_trace.init(trace_capacity, 1, device=dev)
+               if trace_capacity else None),
     )
 
 
 def concat(states: list[ScenarioState]) -> ScenarioState:
     """One batch of the given batches, field by field along the batch
-    axis (they must share ``max_jobs``, ``max_stages``, fault slots and
-    device)."""
+    axis (they must share ``max_jobs``, ``max_stages``, fault slots,
+    device and, when traced, ring capacity). Either every batch carries an
+    event ring or none does."""
+    traced = {s.trace is not None for s in states}
+    if len(traced) > 1:
+        raise ValueError("concat: some batches carry an event ring and "
+                         "some do not")
+
+    def join(parts):   # a NamedTuple of tensors, field by field
+        return type(parts[0])(*(torch.cat(x, dim=0) for x in zip(*parts)))
+
     return ScenarioState(**{
-        f: (asa.ASAState(*(torch.cat(x, dim=0)
-                           for x in zip(*(s.est for s in states))))
-            if f == "est" else torch.cat([getattr(s, f) for s in states],
-                                         dim=0))
-        for f in ScenarioState._fields if f != "trace"
+        f: (join([getattr(s, f) for s in states])
+            if f in ("est", "trace") else
+            torch.cat([getattr(s, f) for s in states], dim=0))
+        for f in ScenarioState._fields if f != "trace" or traced == {True}
     })

@@ -246,12 +246,13 @@ XSIM_CFG = dict(n_warm=16, n_backlog=12, n_arrivals=16, max_stages=9,
                 t0=1800.0)
 
 
-def _faulty_naive_grid(dev, **kw):
+def _faulty_naive_grid(dev, traced: bool = False, **kw):
     from repro_torch.xsim import families
     from repro_torch.xsim import grid as grid_mod
 
-    return families.family_grid(grid_mod.XSimConfig(**XSIM_CFG), "faulty",
-                                shrink=1 / 64.0, device=dev, **kw)
+    cfg = grid_mod.XSimConfig(**XSIM_CFG)
+    return families.family_grid(cfg.with_trace() if traced else cfg,
+                                "faulty", shrink=1 / 64.0, device=dev, **kw)
 
 
 @pytest.mark.cuda
@@ -309,6 +310,126 @@ def test_naive_and_fault_steps_add_no_host_sync(cuda_device):
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     assert int(s.steps.max()) == 5
+
+
+@pytest.mark.cuda
+def test_traced_sweep_kernel_route_bitwise(cuda_device):
+    """The traced naive ``faulty`` sweep through the kernel and through
+    the plain scan: bitwise equal final states, event rings included;
+    without its ring the state is the untraced run's, bit for bit, with
+    the same launches; every event kind occurs and nothing overflowed."""
+    from repro_torch import convert
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.xsim import grid as grid_mod
+
+    kw = dict(n_seeds=2, policy_ids=(0, 1, 2, 3))
+    grid = _faulty_naive_grid(cuda_device, traced=True, **kw)
+    before = backfill.KERNEL_LAUNCHES["freed_scan"]
+    fin_k, m = grid_mod.run_grid(grid, device=cuda_device)
+    launched = backfill.KERNEL_LAUNCHES["freed_scan"] - before
+    assert launched > 0 and fin_k.trace.data.is_cuda
+    fin_r, _ = grid_mod.run_grid(grid, freed_mode="ref", device=cuda_device)
+    a, b = convert.to_numpy(fin_k), convert.to_numpy(fin_r)
+    assert "trace.data" in a and "trace.head" in a
+    for k in a:
+        assert torch.equal(torch.from_numpy(a[k]), torch.from_numpy(b[k])), k
+    before = backfill.KERNEL_LAUNCHES["freed_scan"]
+    fin_u, _ = grid_mod.run_grid(_faulty_naive_grid(cuda_device, **kw),
+                                 device=cuda_device)
+    assert backfill.KERNEL_LAUNCHES["freed_scan"] - before == launched
+    u = convert.to_numpy(fin_u)
+    assert u.keys() == {k for k in a if not k.startswith("trace.")}
+    for k in u:
+        assert torch.equal(torch.from_numpy(u[k]), torch.from_numpy(a[k])), k
+    assert not bool(obs_trace.overflowed(fin_k.trace).any())
+    h = obs_metrics.to_host(obs_metrics.sweep_summary(
+        fin_k, n_steps=grid.cfg.n_steps))
+    assert all(h[f"ev_{n}"] > 0 for n in obs_trace.EVENT_NAMES.values()), h
+    assert sum(h[f"ev_{n}"] for n in obs_trace.EVENT_NAMES.values()) \
+        == h["trace_events"]
+
+
+@pytest.mark.cuda
+def test_trace_appends_add_no_host_sync(cuda_device):
+    """A few traced steps of the naive-and-faults program, the kill,
+    cancel and fused appends among them, and each append on its own,
+    with CUDA's sync debug mode set to raise on any synchronising call."""
+    from repro_torch.core.bins import make_bins
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.xsim import events, policies
+
+    grid = _faulty_naive_grid(cuda_device, traced=True, n_seeds=1,
+                              policy_ids=(2, 3))
+    fleet = policies.init_fleet(int(grid.geo_idx.max()) + 1,
+                                device=cuda_device)
+    s = grid.build(policies.scenario_estimators(
+        fleet, torch.as_tensor(grid.geo_idx, device=cuda_device), 1))
+    bins = torch.as_tensor(make_bins(53), dtype=torch.float32,
+                           device=cuda_device)
+    kw = dict(naive=True, faults=True, pred_mode="sample")
+    s, _ = events.sim_step(s, bins, **kw)     # builds the kernel library
+    torch.cuda.synchronize()
+    s0 = s
+    b, n = s.status.shape
+    running = s.status == 3
+    lanes = dict(job=torch.zeros((b, n), dtype=torch.int32,
+                                 device=cuda_device),
+                 stage=events._job_stage(s), cores=s.cores)
+    scen = dict(t=s.t, policy=s.policy, step=s.steps)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tr = obs_trace.append_masked(s.trace, running,
+                                     kind=obs_trace.EV_START, **lanes,
+                                     **scen)
+        tr = obs_trace.append_segments(
+            tr, [(running, obs_trace.EV_FINISH, lanes["job"],
+                  lanes["stage"], s.cores)] * 2, **scen)
+        tr = obs_trace.append_if(tr, s.repass, kind=obs_trace.EV_CANCEL,
+                                 job=s.steps, stage=s.steps,
+                                 cores=s.free, **scen)
+        for _ in range(4):
+            events._apply_faults(s, s.t)
+            events._drain_hooks(s, s.t, bins, False, True)
+            s, _ = events.sim_step(s, bins, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert int(s.steps.max()) == 5 and int(s.trace.head.min()) > 0
+    assert torch.equal(tr.head, s0.trace.head
+                       + 3 * running.sum(dim=1, dtype=torch.int32)
+                       + s0.repass.to(torch.int32))
+
+
+@pytest.mark.cuda
+def test_trace_init_and_traced_grid_on_the_card(cuda_device):
+    """``trace.init`` and a traced ``make_grid`` place their rings on the
+    card by default; the card's ``sweep_summary`` equals the same summary
+    computed on the CPU from the card's final state."""
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.xsim import grid as grid_mod
+
+    tr = obs_trace.init(8, 3)
+    assert tr.data.is_cuda and tr.data.shape == (3, 8, obs_trace.NF)
+    cfg = grid_mod.XSimConfig(**XSIM_CFG).with_trace()
+    grid = grid_mod.make_grid(cfg, n_seeds=1, policy_ids=(0, 1, 2))
+    final, _ = grid_mod.run_grid(grid)
+    assert final.trace.data.is_cuda and final.trace.head.is_cuda
+    on_card = obs_metrics.to_host(obs_metrics.sweep_summary(
+        final, n_steps=cfg.n_steps))
+    cpu = type(final)(*(None if v is None else
+                        type(v)(*(x.cpu() for x in v)) if isinstance(v, tuple)
+                        else v.cpu() for v in final))
+    on_cpu = obs_metrics.to_host(obs_metrics.sweep_summary(
+        cpu, n_steps=cfg.n_steps))
+    assert on_card.keys() == on_cpu.keys()
+    for k in on_card:
+        if isinstance(on_card[k], float):
+            assert on_card[k] == pytest.approx(on_cpu[k], rel=1e-6), k
+        else:
+            assert on_card[k] == on_cpu[k], k
+    assert on_card["trace_events"] == int(final.trace.head.sum()) > 0
 
 
 # the QueueSim differentials of tests/test_torch_xsim_queue_sim.py: a

@@ -52,7 +52,9 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.models.rwkv6, repro_torch.models.lm, "
             "repro_torch.kernels.rwkv6_scan, repro_torch.sched, "
             "repro_torch.sched.queue_sim, repro_torch.sched.strategies, "
-            "repro_torch.sched.runner, repro_torch.core.regret;"
+            "repro_torch.sched.runner, repro_torch.core.regret, "
+            "repro_torch.obs, repro_torch.obs.trace, repro_torch.obs.metrics, "
+            "repro_torch.obs.export, repro_torch.obs.telemetry;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')];"
             "assert not bad, bad")
@@ -65,9 +67,14 @@ def test_entry_points_default_to_cuda():
     from repro_torch.configs import ARCHS
     from repro_torch.launch import serve
     from repro_torch.models import rwkv6, transformer
-    from repro_torch.xsim import families, grid, policies
+    from repro_torch.obs import trace
+    from repro_torch.xsim import families, grid, policies, state
 
     cfg = grid.XSimConfig(n_warm=4, n_backlog=4, n_arrivals=4)
+
+    def frozen():   # a traced one-scenario batch, on the default device
+        return state.freeze(state.empty_table(4), total_cores=8.0,
+                            free_cores=8.0, trace_capacity=4)
     lm = ARCHS["qwen2-0.5b"].reduced()
     ssm = ARCHS["rwkv6-3b"].reduced()
     if torch.cuda.is_available():
@@ -75,11 +82,16 @@ def test_entry_points_default_to_cuda():
         assert families.family_grid(cfg, "faulty", n_seeds=1).fault_t.is_cuda
         assert transformer.init_lm(lm)["embed"]["table"].is_cuda
         assert rwkv6.init_decode_state(ssm, 1)["wkv"].is_cuda
+        assert trace.init(4, 2).data.is_cuda
+        assert frozen().trace.head.is_cuda
         return
     for call in (lambda: policies.init_fleet(2),
                  lambda: grid.make_grid(cfg, n_seeds=1),
                  lambda: families.family_grid(cfg, "faulty", n_seeds=1),
                  lambda: grid.center_params(grid.CENTERS["hpc2n"]),
+                 lambda: trace.init(4, 2),
+                 lambda: grid.make_grid(cfg.with_trace(), n_seeds=1),
+                 frozen,
                  lambda: serve.serve("qwen2-0.5b", gen=1),
                  lambda: serve.serve("rwkv6-3b", gen=1),
                  lambda: rwkv6.init_lm(ssm),

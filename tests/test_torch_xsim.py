@@ -217,14 +217,11 @@ def test_own_grid_sampler_matches_reference(reference_grid):
 
 
 def test_unported_programs_raise(reference_grid):
-    """The learned policy (item 7) and tracing (item 5) still raise."""
+    """The learned policy (item 7) still raises."""
     cfg, _, st = reference_grid
     base = convert.scenario_state(jax.tree.map(np.asarray, st))
     with pytest.raises(NotImplementedError, match="item 7"):
         tevents.sweep(base, n_steps=4, device="cpu", params={})
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tgrid.make_grid(tgrid.XSimConfig(trace_capacity=292, **CFG_KW),
-                        device="cpu")
     rl = tgrid.make_grid(tgrid.XSimConfig(**CFG_KW), policy_ids=(4,),
                          n_seeds=1, device="cpu")
     with pytest.raises(NotImplementedError, match="item 7"):

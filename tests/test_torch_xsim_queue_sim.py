@@ -408,8 +408,14 @@ def test_freeze_equals_reference(variant):
 
 def test_freeze_refuses_what_is_not_ported():
     t = X.empty_table(8)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        X.freeze(t, total_cores=8, free_cores=8, trace_capacity=16,
+    # event tracing is ported: a capacity attaches a ring, a negative one
+    # is refused
+    traced = X.freeze(t, total_cores=8, free_cores=8, trace_capacity=16,
+                      device="cpu")
+    assert traced.trace.data.shape == (1, 16, 7)
+    assert traced.trace.head.tolist() == [0]
+    with pytest.raises(ValueError, match="trace_capacity"):
+        X.freeze(t, total_cores=8, free_cores=8, trace_capacity=-1,
                  device="cpu")
     with pytest.raises(ValueError, match="pred_mode"):
         X.freeze(t, total_cores=8, free_cores=8, pred_mode="map",
