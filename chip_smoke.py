@@ -8,8 +8,8 @@ It builds every hand-written kernel of the port from the sources in the
 checkout, holds each kernel against its plain PyTorch version on the
 card, drives the port's main paths (the fleet simulator's Table-1 sweep,
 untraced and traced, model serving of a dense and an MoE transformer and
-of RWKV-6, and the paper's Table-1 and Table-2 runners), and checks the
-results. Phases:
+of RWKV-6, the paper's Table-1 and Table-2 runners, and the ASA decision
+service), and checks the results. Phases:
 
 1. the card (``nvidia-smi`` name and power limit) and the kernel build;
 2. each kernel against its plain version at the shapes its path uses
@@ -35,9 +35,11 @@ results. Phases:
    their three paper scales, three workflows, policies 0-2, two seeds
    (108 scenarios of 2313 job slots), through the user-facing entry
    points; the kernel's launches in this run are counted, and all must
-   take the ``fused`` design; then a profiled window of 16 steps and
-   ``freed_scan`` at the sweep's own first input (its running slots a
-   row, both designs' times);
+   take the ``fused`` design; one run (phase 13(b) sweeps the grid again
+   and holds it bitwise to this run), so ``scenarios_per_s`` is over the
+   first run; then a profiled window of 16 steps and ``freed_scan`` at
+   the sweep's own first input (its running slots a row, both designs'
+   times);
 5. serving ``qwen2-0.5b`` at full size (24 layers, d896; batch 8, prompt
    2048, 32 new tokens) through ``repro_torch.launch.serve.serve``, whose
    prefill runs the flash-attention kernel, all 24 launches on the tensor
@@ -115,13 +117,33 @@ results. Phases:
    full-size grid traced, one timed run: the state without its ring
    bitwise phase 4's, the same scan launches, ``sweep_summary`` on the
    card equal to the same summary on the CPU (its peak memory printed),
-   ``trace_meta``; then 16 profiled steps untraced and traced.
+   ``trace_meta``; then 16 profiled steps untraced and traced;
+14. the ASA decision service (``serve.loop.ASAServer``) at the setting of
+   ``benchmarks/serve_latency.py``: (a) its load generator on the port, a
+   traced ``clean`` sweep of ASA at 1/64 size with 57 seeds a cell (1026
+   tenants, at least 1000 required) through the kernel and through the
+   plain scan, bitwise, every launch ``fused``, turned into the request
+   stream (each tenant's stage-0 query, then its observed stage waits in
+   simulated-time order); (b) a 1536-slot table, batches of 256: a
+   warm-up replay, 3 open-loop replays, a closed-loop replay at 64 in
+   flight (decisions/s, p50/p99/max ms, pad fraction, defer rate), 8
+   profiled decision steps (launches a step, idle share) and paired
+   spans-off/on replays in turns (the observability overhead); (c) save,
+   restore, every tenant probed on both servers: bitwise, the codec
+   printed; (d) a ``ServeSupervisor`` under chaos (a step exception, a
+   burst, a crash): every future resolves with a Decision or a typed
+   error, and the restored incarnation answers every tenant bitwise as
+   the uninterrupted server; (e) the whole stream through ``step_once``
+   on the card and on the CPU route: tenant ids and keys equal, log_p
+   and the decisions within stated tolerances, MAP flips counted; (f)
+   the merged Chrome trace (rings and server spans, no pid collision)
+   validated, and one scrape of ``/metrics`` and ``/metrics.json``.
 
 Matrix products of the plain versions run in full float32 where their
 inputs are float32: TF32 is switched off for matmuls and cuDNN.
 
 The second-to-last line is a JSON object with one entry per ported
-kernel (``freed_scan``'s launches summed over phases 3, 4 and 10-13, by
+kernel (``freed_scan``'s launches summed over phases 3, 4 and 10-14, by
 path beside); the last line is ``{"ok": true, "device": {...}}``. Any
 failure raises and ends the script with a non-zero exit code; without a CUDA
 device it exits non-zero before printing any result.
@@ -1491,12 +1513,8 @@ def full_size(grid_mod, policies, backfill, dev, RUNNING) -> dict:
     launches = dict(backfill.KERNEL_LAUNCHES)
     designs = dict(backfill.DESIGN_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-
-    t0 = time.perf_counter()
-    final2, _ = grid_mod.run_grid(grid, fleet, device=dev)
-    torch.cuda.synchronize()
-    steady_s = time.perf_counter() - t0
-    check(states_equal(final, final2), "full-size sweep is not repeatable")
+    # one run: phase 13(b) sweeps the same grid again and holds its state
+    # bitwise to this one's, which checks repeatability
 
     m = {k: v.cpu().numpy() for k, v in m.items()}
     steps = final.steps.cpu().numpy()
@@ -1511,8 +1529,9 @@ def full_size(grid_mod, policies, backfill, dev, RUNNING) -> dict:
     print(f"full: B={grid.n} N={cfg.max_jobs} centers_cores={total_cores} "
           f"n_steps_budget={cfg.n_steps} steps_max={int(steps.max())} "
           f"steps_mean={float(steps.mean()):.3f} "
-          f"first_run_s={first_s:.6f} steady_s={steady_s:.6f} "
-          f"scenarios_per_s={grid.n / steady_s:.6f} "
+          f"first_run_s={first_s:.6f} "
+          f"scenarios_per_s={grid.n / first_s:.6f} "
+          f"scenarios_per_s_from=first_run_s "
           f"wf_done_frac={frac:.6f} "
           f"freed_scan_launches={launches['freed_scan']} "
           f"by_design={designs} peak_mem_bytes={peak}")
@@ -2232,6 +2251,454 @@ def traced_full_size(grid_mod, policies, backfill, events_mod, full: dict,
     return launches
 
 
+# phase 14: the ASA decision service at the setting of
+# benchmarks/serve_latency.py. (a) its load generator (build_traffic): the
+# clean family at 1/64 size, ASA only, 57 seeds a cell (18 cells: 1026
+# tenants), traced so that (f) can merge its rings; (b) its server: a
+# 1536-slot table, batches of 256, 3 open-loop replays, a closed-loop
+# replay at 64 in flight, then paired spans-off/on replays
+SERVE_LOADGEN = dict(n_warm=16, n_backlog=12, n_arrivals=16, max_stages=9,
+                     t0=3600.0)
+SERVE_SEEDS = 57
+SERVE_MIN_TENANTS = 1000
+SERVE_SLOTS, SERVE_BATCH = 1536, 256
+SERVE_REPLAYS, SERVE_CLOSED, SERVE_AB_PAIRS = 3, 64, 2
+SERVE_PROFILE_STEPS = 8
+SERVE_TRACE_SCENARIOS = 8
+# (e) the card's decisions against the CPU route's (the engine's
+# tolerances, as tests/test_torch_serve_asa.py holds the port against the
+# reference): log_p absolute, expected_s relative, entropy absolute; a MAP
+# bin may flip only where the CPU posterior's two bins are within
+# SERVE_NEAR_TIE
+SERVE_LOG_P_ATOL, SERVE_EXPECTED_RTOL, SERVE_ENTROPY_ATOL = 1e-4, 1.5e-5, 1e-5
+SERVE_NEAR_TIE = 2e-4
+
+
+def build_traffic(grid_mod, families, policies, backfill, dev) -> dict:
+    """Phase 14(a): ``benchmarks/serve_latency.py::build_traffic`` on the
+    port. The load generator's sweep runs through the scan kernel, and
+    once more through the plain scan: the states (rings included) must be
+    bitwise equal and every launch ``fused``. Returns the request stream
+    ``(t_sim, tenant, observed_wait or None)`` in simulated-time order,
+    the traced final state, its labels and the scan's launches."""
+    from repro_torch.xsim.state import ASA
+
+    cfg = grid_mod.XSimConfig(**SERVE_LOADGEN).with_trace()
+    grid = families.family_grid(cfg, "clean", policy_ids=(ASA,),
+                                n_seeds=SERVE_SEEDS, shrink=1 / 64.0,
+                                seed=0, device=dev)
+    fleet = policies.init_fleet(int(grid.geo_idx.max()) + 1, device=dev)
+    torch.cuda.synchronize()
+    reset_scan_counts(backfill)
+    t0 = time.perf_counter()
+    final, _ = grid_mod.run_grid(grid, fleet, device=dev)
+    torch.cuda.synchronize()
+    kern_s = time.perf_counter() - t0
+    launches = backfill.KERNEL_LAUNCHES["freed_scan"]
+    designs = dict(backfill.DESIGN_LAUNCHES)
+    check(launches > 0 and designs["fused"] == launches,
+          f"serve/loadgen: scan launches {launches}, by design {designs}")
+    backfill.KERNEL_LAUNCHES["freed_scan"] = 0
+    t0 = time.perf_counter()
+    plain, _ = grid_mod.run_grid(grid, fleet, freed_mode="ref", device=dev)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    check(backfill.KERNEL_LAUNCHES["freed_scan"] == 0,
+          "serve/loadgen: the plain path launched the kernel")
+    check(states_equal(final, plain),
+          "serve/loadgen: kernel path and plain path differ")
+    waits, valid = grid_mod.stage_waits(final, cfg)
+    sl = slice(cfg.max_jobs - cfg.max_stages, cfg.max_jobs)
+    starts = final.start[:, sl].cpu().numpy()
+    events: list[tuple[float, int, float | None]] = []
+    for t in range(grid.n):
+        # the stream opens with the stage-0 submit-lead query, then every
+        # observed stage start feeds the posterior
+        events.append((cfg.t0, t, None))
+        for y in range(cfg.max_stages):
+            if valid[t, y]:
+                events.append((float(starts[t, y]), t, float(waits[t, y])))
+    events.sort(key=lambda e: (e[0], e[1]))
+    n_obs = sum(1 for e in events if e[2] is not None)
+    check(grid.n >= SERVE_MIN_TENANTS,
+          f"serve/loadgen: {grid.n} tenants, fewer than {SERVE_MIN_TENANTS}")
+    print(f"serve/loadgen: tenants={grid.n} N={cfg.max_jobs} "
+          f"events={len(events)} observations={n_obs} "
+          f"kernel_path_s={kern_s:.3f} plain_path_s={plain_s:.3f} "
+          f"bitwise_equal=True freed_scan_launches={launches} "
+          f"by_design={designs}")
+    return dict(events=events, n_tenants=grid.n, final=final,
+                labels=grid.labels, launches=launches)
+
+
+def _run_stream(server, events, in_flight: int | None = None
+                ) -> tuple[float, list[float]]:
+    """Submit the stream (open loop, or at most ``in_flight`` unresolved);
+    returns (wall seconds, submit-to-resolution latencies). A failed
+    request raises here: a batch the card failed is not served."""
+    import threading
+
+    lat: list[float] = []
+    lock = threading.Lock()
+    slots = threading.BoundedSemaphore(in_flight) if in_flight else None
+
+    def stamp(t_sub):
+        def cb(fut):
+            if fut.exception() is None:
+                dt = time.perf_counter() - t_sub
+                with lock:
+                    lat.append(dt)
+            if slots is not None:
+                slots.release()
+        return cb
+
+    futures = []
+    t0 = time.perf_counter()
+    for _t, tenant, wait in events:
+        if slots is not None:
+            check(slots.acquire(timeout=300), "serve: closed loop stalled")
+        fut = server.submit(tenant, wait)
+        fut.add_done_callback(stamp(time.perf_counter()))
+        futures.append(fut)
+    for fut in futures:
+        fut.result(timeout=300)
+    return time.perf_counter() - t0, lat
+
+
+def _latency(lat: list[float], n: int, wall: float) -> dict:
+    a = np.asarray(lat) * 1e3
+    return dict(n_requests=n, wall_s=wall, decisions_per_s=n / wall,
+                p50_ms=float(np.percentile(a, 50)),
+                p99_ms=float(np.percentile(a, 99)),
+                max_ms=float(a.max()), mean_ms=float(a.mean()))
+
+
+def _leg_rates(after: dict, before: dict) -> dict:
+    d = {k: float(after[k]) - float(before[k]) for k in (
+        "asa_serve_decisions_total", "asa_serve_padded_rows_total",
+        "asa_serve_requests_total", "asa_serve_deferrals_total",
+        "asa_serve_batches_total")}
+    dispatched = d["asa_serve_decisions_total"] + \
+        d["asa_serve_padded_rows_total"]
+    return dict(pad_fraction=d["asa_serve_padded_rows_total"] / dispatched,
+                defer_rate=d["asa_serve_deferrals_total"]
+                / d["asa_serve_requests_total"],
+                batches=int(d["asa_serve_batches_total"]))
+
+
+def _print_leg(tag: str, lat: dict, rates: dict) -> None:
+    print(f"{tag}: " + " ".join(
+        f"{k}={v:.6f}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in {**lat, **rates}.items()))
+
+
+def _probe(server, tenants) -> list[tuple[float, float, float]]:
+    """Decide-only probes through a running server: pure table reads."""
+    futs = [server.submit(t) for t in tenants]
+    return [(d.lead_s, d.expected_s, d.entropy)
+            for d in (f.result(timeout=300) for f in futs)]
+
+
+def serve_replays(traffic: dict, ckpt_dir: str, dev):
+    """Phase 14(b): the server of ``serve_latency``'s default setting on
+    the card: a warm-up replay, 3 open-loop replays, the closed loop at 64
+    in flight, 8 profiled steps, and paired spans-off/on replays in
+    turns. Returns the server (stopped) and its config."""
+    import gc
+
+    from repro_torch.serve.loop import ASAServer, ServeConfig
+
+    events = traffic["events"]
+    cfg = ServeConfig(n_slots=SERVE_SLOTS, batch_size=SERVE_BATCH,
+                      checkpoint_dir=ckpt_dir)
+    server = ASAServer(cfg, device=dev)
+    t0 = time.perf_counter()
+    warm = server.submit(0)
+    server.step_once(wait_s=0)
+    warm.result(timeout=300)
+    first_s = time.perf_counter() - t0
+    server.start()
+    try:
+        t0 = time.perf_counter()
+        _run_stream(server, events)      # admits every tenant
+        warmup_s = time.perf_counter() - t0
+        reg = server.obs.registry
+        s0 = reg.snapshot()
+        gc.collect()
+        gc.disable()
+        try:
+            wall, lat = 0.0, []
+            for _ in range(SERVE_REPLAYS):
+                w, ls = _run_stream(server, events)
+                wall += w
+                lat += ls
+        finally:
+            gc.enable()
+        s1 = reg.snapshot()
+        _print_leg(f"serve/open_loop: replays={SERVE_REPLAYS}",
+                   _latency(lat, SERVE_REPLAYS * len(events), wall),
+                   _leg_rates(s1, s0))
+        gc.collect()
+        gc.disable()
+        try:
+            wall, lat = _run_stream(server, events, SERVE_CLOSED)
+        finally:
+            gc.enable()
+        s2 = reg.snapshot()
+        _print_leg(f"serve/closed_loop: in_flight={SERVE_CLOSED}",
+                   _latency(lat, len(events), wall), _leg_rates(s2, s1))
+        # paired replays, spans off and on, the order flipped each pair
+        walls = {False: 0.0, True: 0.0}
+        pairs = []
+        for rep in range(SERVE_AB_PAIRS):
+            w = {}
+            for spans in ((False, True) if rep % 2 == 0 else (True, False)):
+                server.obs.spans = spans
+                gc.collect()
+                gc.disable()
+                try:
+                    w[spans] = _run_stream(server, events)[0]
+                finally:
+                    gc.enable()
+                walls[spans] += w[spans]
+            pairs.append(w[True] / w[False] - 1.0)
+        server.obs.spans = False
+        print(f"serve/obs_ab: pairs={SERVE_AB_PAIRS} "
+              f"wall_off_s={walls[False]:.6f} wall_on_s={walls[True]:.6f} "
+              f"overhead_frac={walls[True] / walls[False] - 1.0:.6f} "
+              f"pair_overheads={[round(x, 4) for x in pairs]} "
+              f"span_events={len(server.obs.events)}")
+    finally:
+        server.stop()
+    # where a decision step's time goes: 8 full batches (each 256 distinct
+    # tenants, every other row observing), stepped by hand on a server of
+    # its own (the profiler's warm-up call admits the tenants)
+    obs_waits = [e[2] for e in events if e[2] is not None]
+    n = traffic["n_tenants"]
+    bench = ASAServer(ServeConfig(n_slots=SERVE_SLOTS,
+                                  batch_size=SERVE_BATCH), device=dev)
+
+    def steps():
+        for i in range(SERVE_PROFILE_STEPS * SERVE_BATCH):
+            bench.submit(i % n, obs_waits[i % len(obs_waits)]
+                         if i % 2 == 0 else None)
+        done = 0
+        while done < SERVE_PROFILE_STEPS:
+            done += bench.step_once(wait_s=0) > 0
+    device_profile("serve/profile", steps, SERVE_PROFILE_STEPS,
+                   "decision steps of 256", ())
+    print(f"serve/setting: slots={SERVE_SLOTS} batch={SERVE_BATCH} "
+          f"tenants={server.n_tenants} first_step_s={first_s:.6f} "
+          f"warmup_replay_s={warmup_s:.6f} "
+          f"stats={json.dumps(server.stats, sort_keys=True)}")
+    return server, cfg
+
+
+def serve_restart(server, cfg, tenants, dev) -> list:
+    """Phase 14(c): save, restore, probe every tenant on both servers:
+    bitwise equal. Returns the uninterrupted server's probes."""
+    from repro_torch.runtime import checkpoint
+    from repro_torch.serve.loop import ASAServer
+
+    t0 = time.perf_counter()
+    path = server.save(step=999)
+    save_s = time.perf_counter() - t0
+    manifest = json.loads((path / "manifest.json").read_text())
+    t0 = time.perf_counter()
+    restored = ASAServer.restore(cfg, step=999, device=dev)
+    restore_s = time.perf_counter() - t0
+    check(checkpoint.verify_step(cfg.checkpoint_dir, 999) == [],
+          "serve/restart: the checkpoint does not verify")
+    out = {}
+    for name, srv in (("uninterrupted", server), ("restored", restored)):
+        srv.start()
+        try:
+            out[name] = _probe(srv, tenants)
+        finally:
+            srv.stop()
+    check(out["restored"] == out["uninterrupted"],
+          "serve/restart: the restored server's decisions differ")
+    for a, b in zip(server._table, restored._table):
+        check(torch.equal(a, b), "serve/restart: the restored table differs")
+    nbytes = sum(m["nbytes"] for m in manifest["leaves"])
+    print(f"serve/restart: codec={manifest['codec']} "
+          f"leaves={len(manifest['leaves'])} payload_bytes={nbytes} "
+          f"save_s={save_s:.6f} restore_s={restore_s:.6f} "
+          f"probed_tenants={len(tenants)} bitwise_equal=True")
+    return out["uninterrupted"]
+
+
+def serve_crash_recovery(cfg, events, tenants, want, dev) -> None:
+    """Phase 14(d): a supervised server under chaos (a step exception, a
+    burst, a crash) on the card. Its first incarnation serves a stream of
+    other tenants (ids shifted past the table's) and crashes; every
+    future resolves with a Decision or a typed error; the restored
+    incarnation answers every tenant bitwise as the uninterrupted server
+    did (the contract of tests/test_serve_chaos.py::
+    test_crash_recovery_is_bitwise_with_uninterrupted_run)."""
+    from repro_torch.serve import chaos as schaos
+    from repro_torch.serve.loop import Decision, ServeSupervisor
+
+    inj = schaos.ChaosInjector(schaos.ChaosSchedule((
+        schaos.step_exception(1), schaos.queue_burst(2, 64),
+        schaos.crash(3))), seed=0)
+    sup = ServeSupervisor(cfg, chaos=inj, device=dev)
+    shift = 1 << 16
+    sup.start()
+    try:
+        futs = [sup.submit(t + shift, w)
+                for _s, t, w in events[:4 * SERVE_BATCH]]
+        deadline = time.monotonic() + 120
+        while sup.restarts == 0 and time.monotonic() < deadline:
+            time.sleep(0.005)
+        restarted = time.monotonic()
+        check(sup.restarts == 1, "serve/crash: the supervisor did not "
+              "restart the crashed server")
+        outcomes: dict[str, int] = {}
+        for f in futs + list(inj.burst_futures):
+            err = f.exception(timeout=300)
+            check(err is None or isinstance(err, RuntimeError),
+                  f"serve/crash: an untyped failure {err!r}")
+            if err is None:
+                check(isinstance(f.result(), Decision),
+                      "serve/crash: a future resolved to no Decision")
+            key = "decision" if err is None else type(err).__name__
+            outcomes[key] = outcomes.get(key, 0) + 1
+        got = _probe(sup, tenants)
+    finally:
+        sup.stop()
+    check(inj.pending == (), f"serve/crash: events not fired {inj.pending}")
+    check(got == want, "serve/crash: the restored decisions differ from "
+          "the uninterrupted server's")
+    crash_t = next(w for _b, ev, w in inj.fired
+                   if ev.kind == "crash_kill_between_batches")
+    print(f"serve/crash: fired={inj.counts()} outcomes={outcomes} "
+          f"futures={sum(outcomes.values())} all_resolved=True "
+          f"restart_observed_s={restarted - crash_t:.6f} "
+          f"probed_tenants={len(tenants)} bitwise_equal=True")
+
+
+def serve_card_vs_cpu(events, dev) -> None:
+    """Phase 14(e): the whole stream through ``step_once`` on the card and
+    on the CPU route, in this process: identical batches, so the tenant
+    ids, dirty masks and keys are equal, log_p within the engine's
+    tolerance, the decisions within theirs, and the MAP flips counted."""
+    from repro_torch.serve.loop import ASAServer, ServeConfig
+
+    cfg = ServeConfig(n_slots=SERVE_SLOTS, batch_size=SERVE_BATCH)
+    out = {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        srv = ASAServer(cfg, device=d)
+        t0 = time.perf_counter()
+        futs = [srv.submit(t, w) for _s, t, w in events]
+        while any(not f.done() for f in futs):
+            srv.step_once(wait_s=0)
+        wall = time.perf_counter() - t0
+        out[name] = (srv, [f.result(timeout=60) for f in futs], wall)
+    (card, dc, wall_c), (cpu, dp, wall_p) = out["card"], out["cpu"]
+    check(card._batches == cpu._batches, "serve/card_vs_cpu: batch counts "
+          f"{card._batches} and {cpu._batches}")
+    check(np.array_equal(card._tenant_ids, cpu._tenant_ids)
+          and card._dirty == cpu._dirty
+          and card._admissions == cpu._admissions,
+          "serve/card_vs_cpu: tenant maps differ")
+    for f in ("key", "rounds", "t", "round_loss"):
+        check(torch.equal(getattr(card._table, f).cpu(),
+                          getattr(cpu._table, f)),
+              f"serve/card_vs_cpu: table {f} differs")
+    log_p_err = float((card._table.log_p.cpu() - cpu._table.log_p)
+                      .abs().max())
+    check(log_p_err <= SERVE_LOG_P_ATOL,
+          f"serve/card_vs_cpu: log_p differs by {log_p_err}")
+    exp_err = max(abs(a.expected_s - b.expected_s) / abs(b.expected_s)
+                  for a, b in zip(dc, dp))
+    ent_err = max(abs(a.entropy - b.entropy) for a, b in zip(dc, dp))
+    check(exp_err <= SERVE_EXPECTED_RTOL and ent_err <= SERVE_ENTROPY_ATOL,
+          f"serve/card_vs_cpu: expected_s {exp_err}, entropy {ent_err}")
+    flips = sum(a.lead_s != b.lead_s for a, b in zip(dc, dp))
+    # the final tables' MAP bins: a flip only at a near-tie of the CPU's
+    lp_c, lp_p = card._table.log_p.cpu(), cpu._table.log_p
+    table_flips = torch.nonzero(lp_c.argmax(-1) != lp_p.argmax(-1))[:, 0]
+    for s in table_flips.tolist():
+        gap = float(lp_p[s].max() - lp_p[s, lp_c[s].argmax()])
+        check(gap <= SERVE_NEAR_TIE,
+              f"serve/card_vs_cpu: slot {s} flips its MAP at a gap {gap}")
+    print(f"serve/card_vs_cpu: requests={len(dc)} batches={card._batches} "
+          f"card_s={wall_c:.6f} cpu_s={wall_p:.6f} keys_equal=True "
+          f"tenant_ids_equal=True log_p_max_abs_err={log_p_err:.3e} "
+          f"expected_max_rel_err={exp_err:.3e} "
+          f"entropy_max_abs_err={ent_err:.3e} decision_map_flips={flips} "
+          f"table_map_flips={len(table_flips)}")
+
+
+def serve_exports(traffic: dict, server) -> None:
+    """Phase 14(f): the merged Chrome trace (the load generator's rings of
+    its first scenarios and the server's spans, no pid collision), one
+    scrape of ``/metrics`` and ``/metrics.json`` over localhost."""
+    import tempfile
+    import urllib.request
+
+    from repro_torch.obs import export as obs_export
+    from repro_torch.obs.serve_obs import SERVE_PID, SERVE_REQUEST_PID
+    from repro_torch.parallel import fleet
+
+    k = SERVE_TRACE_SCENARIOS
+    part = fleet.unpad(traffic["final"], k)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "merged.json")
+        meta = obs_export.write_merged_trace(path, part,
+                                             traffic["labels"][:k],
+                                             serve=server.obs)
+        with open(path) as f:
+            obj = json.load(f)
+        errs = obs_export.validate_chrome(obj) + \
+            obs_export.validate_file(path)
+        size = Path(path).stat().st_size
+    check(errs == [], f"serve/exports: the merged trace is invalid "
+          f"{errs[:3]}")
+    pids = {e["pid"] for e in obj["traceEvents"]}
+    check({p for p in pids if p < SERVE_PID} == set(range(k))
+          and {SERVE_PID, SERVE_REQUEST_PID} <= pids,
+          f"serve/exports: pids {sorted(pids)[:12]}")
+    port = server.serve_metrics_http(port=0)
+    try:
+        got = {}
+        for route in ("/metrics", "/metrics.json"):
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}{route}", timeout=30) as r:
+                got[route] = (r.status, r.read())
+    finally:
+        server.stop_metrics_http()
+    text = got["/metrics"][1].decode()
+    snap = json.loads(got["/metrics.json"][1])
+    check(got["/metrics"][0] == 200 and got["/metrics.json"][0] == 200
+          and "# TYPE asa_serve_requests_total counter" in text
+          and snap["asa_serve_requests_total"]
+          == server.stats["requests"],
+          "serve/exports: the scrape endpoint answered wrong")
+    print(f"serve/exports: merged_events={meta['events_total']} "
+          f"serve_events_kept={meta['serve_events_kept']} "
+          f"serve_events_dropped={meta['serve_events_dropped']} "
+          f"scenarios={meta['n_scenarios']} bytes={size} valid=True "
+          f"scrape_metrics_bytes={len(got['/metrics'][1])} "
+          f"scrape_json_series={len(snap)}")
+
+
+def serve_service(grid_mod, families, policies, backfill, dev) -> int:
+    """Phase 14, (a)-(f); returns the load generator's scan launches."""
+    import tempfile
+
+    traffic = build_traffic(grid_mod, families, policies, backfill, dev)
+    tenants = list(range(traffic["n_tenants"]))
+    with tempfile.TemporaryDirectory() as ckpt:
+        server, cfg = serve_replays(traffic, ckpt, dev)
+        want = serve_restart(server, cfg, tenants, dev)
+        serve_crash_recovery(cfg, traffic["events"], tenants, want, dev)
+    serve_card_vs_cpu(traffic["events"], dev)
+    serve_exports(traffic, server)
+    return traffic["launches"]
+
+
 class Phases:
     """Prints each phase's seconds, from the end of the previous one."""
 
@@ -2366,6 +2833,12 @@ def main() -> None:
     scan_paths["sweep/full_traced"] = traced_full_size(
         grid_mod, policies, backfill, events_mod, full, dev)
     phases.done("13_traced")
+
+    # phase 14: the ASA decision service on traffic from the port's own
+    # sweep (counts reset inside, per path)
+    scan_paths["serve/loadgen"] = serve_service(grid_mod, families,
+                                                policies, backfill, dev)
+    phases.done("14_serve_asa")
     scan_paths["sweep/full"] = full["launches"]["freed_scan"]
     entry.update(launches=sum(scan_paths.values()),
                  launches_by_path=scan_paths)

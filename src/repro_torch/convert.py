@@ -1,9 +1,10 @@
 """Carry state across from the reference package.
 
 The reference keeps its states as pytrees of arrays (NamedTuples).
-``scenario_state``, ``asa_state`` and ``trace_buffer`` take such a tree whose leaves are
-numpy arrays (or anything ``numpy.asarray`` accepts) and return the
-port's tensors, field by field and dtype for dtype: float32 stays
+``scenario_state``, ``asa_state``, ``trace_buffer`` and ``serve_state``
+take such a tree whose leaves are numpy arrays (or anything
+``numpy.asarray`` accepts) and return the port's tensors, field by field
+and dtype for dtype: float32 stays
 float32, int32 stays int32, bool stays bool, and uint32 PRNG keys become
 the port's int64 keys with the same values. ``lm_params`` takes the
 reference's language-model parameter tree (``init_params``) and returns
@@ -41,6 +42,18 @@ def asa_state(ref, device: str | torch.device = "cpu") -> ASAState:
     """An ``ASAState`` (batched or not) from the reference's."""
     dev = resolve_device(device)
     return ASAState(*(tensor(getattr(ref, f), dev) for f in ASAState._fields))
+
+
+def serve_state(tree, device: str | torch.device = "cpu") -> dict:
+    """The port's ASA-server state tree from a reference server's
+    (``ASAServer._state_tree()``: ``table``, ``tenant_ids``,
+    ``admissions``, ``dirty``): the table as an ``ASAState`` on
+    ``device``, the host bookkeeping as the port's server keeps it
+    (int32 tenant ids, a bool dirty mask, an int32 admissions count)."""
+    return {"table": asa_state(tree["table"], device),
+            "tenant_ids": np.array(tree["tenant_ids"], np.int32),
+            "admissions": np.int32(tree["admissions"]),
+            "dirty": np.array(tree["dirty"], bool)}
 
 
 def trace_buffer(ref, device: str | torch.device = "cpu") -> TraceBuffer:

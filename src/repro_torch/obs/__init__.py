@@ -9,7 +9,12 @@
   JSONL, schema validation, ``torch.profiler`` wiring.
 * ``obs.telemetry`` — the port's copy of the stdlib-only telemetry
   schema.
+* ``obs.registry`` / ``obs.serve_obs`` — the port's copies of the
+  stdlib-only live-metrics registry and the serving loop's
+  request-lifecycle spans (``serve.loop.ASAServer``'s metrics, scrape
+  endpoint and the serve rows of the merged Chrome trace).
 
-Deliberately NOT importing submodules here: ``obs.telemetry`` itself
-imports nothing beyond the standard library.
+Deliberately NOT importing submodules here: ``obs.telemetry``,
+``obs.registry`` and ``obs.serve_obs`` import nothing beyond the standard
+library.
 """

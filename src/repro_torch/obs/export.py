@@ -13,6 +13,10 @@ Perfetto / ``chrome://tracing``.
 ``jsonl_events`` is the structured-log view: one JSON object per decoded
 event, ready for ad-hoc ``jq``/pandas work.
 
+``merged_chrome_trace``/``write_merged_trace`` add the serving loop's
+request-lifecycle spans (``obs.serve_obs``) to the rings, on reserved pid
+rows above every scenario's.
+
 ``profile_session`` wraps a ``torch.profiler`` session that writes its
 Chrome trace into a directory (warm-up against steady attribution:
 annotate the first rep with ``annotate("warmup")`` and the rest with
@@ -126,30 +130,56 @@ def chrome_trace(final, labels: list[dict] | None = None) -> dict[str, Any]:
 
 def merged_chrome_trace(final=None, labels: list[dict] | None = None,
                         serve=None) -> dict[str, Any]:
-    """One Chrome trace of the device event rings, in the layout of the
-    reference's merged trace (which also interleaves the serve-side
-    request timeline). ``final`` is a batched final ``ScenarioState``
-    carrying a trace. The serve side (``serve``, a ``ServeObs``) is not
-    ported yet and raises."""
+    """One Chrome trace interleaving the device event rings with the
+    serve-side request-lifecycle timeline.
+
+    ``final`` is a batched final ``ScenarioState`` carrying a trace (or
+    None for a serve-only file); ``serve`` is an
+    ``obs.serve_obs.ServeObs``. The serve rows land on the reserved pids
+    ``serve_obs.SERVE_PID``/``SERVE_REQUEST_PID``, checked to lie above
+    every scenario pid, so one file never collides ids between the two
+    sources. Scenario rows tick in simulated seconds, serve rows in
+    wall-clock seconds since the ``ServeObs`` epoch: separate process
+    tracks, not aligned clocks.
+    """
+    from repro_torch.obs import serve_obs as sobs
+
+    if final is None and serve is None:
+        raise ValueError("merged_chrome_trace needs a traced final "
+                         "state, a ServeObs, or both")
+    if final is not None:
+        out = chrome_trace(final, labels)
+    else:
+        out = {"traceEvents": [], "displayTimeUnit": "ms",
+               "otherData": {"format": "repro.obs.chrome_trace",
+                             "version": 1, "n_scenarios": 0}}
     if serve is not None:
-        raise NotImplementedError(
-            "repro_torch.obs.export: the serve-side timeline (ServeObs) is "
-            "not ported yet (ROADMAP Queue 1, item 6(b))")
-    if final is None:
-        raise ValueError("merged_chrome_trace needs a traced final state")
-    return chrome_trace(final, labels)
+        n = out["otherData"]["n_scenarios"]
+        if n >= sobs.SERVE_PID:
+            raise ValueError(
+                f"{n} scenario pids reach the reserved serve pid "
+                f"{sobs.SERVE_PID}; shrink the fleet or move SERVE_PID")
+        out["traceEvents"].extend(serve.chrome_events())
+        out["otherData"]["serve_pid"] = sobs.SERVE_PID
+        out["otherData"]["serve_request_pid"] = sobs.SERVE_REQUEST_PID
+    return out
 
 
 def write_merged_trace(path: str, final=None, labels=None,
                        serve=None) -> dict[str, Any]:
     """Export + write the merged trace; returns a small accounting dict
-    for the telemetry record (event counts + the path)."""
+    for the telemetry record (event counts per source + the path)."""
     merged = merged_chrome_trace(final, labels, serve)
     with open(path, "w") as f:
         json.dump(merged, f)
-    return {"path": path,
-            "n_scenarios": merged["otherData"]["n_scenarios"],
-            "events_total": len(merged["traceEvents"])}
+    meta: dict[str, Any] = {"path": path,
+                            "n_scenarios": merged["otherData"]
+                            ["n_scenarios"],
+                            "events_total": len(merged["traceEvents"])}
+    if serve is not None:
+        meta["serve_events_kept"] = len(serve.events)
+        meta["serve_events_dropped"] = serve.events_dropped
+    return meta
 
 
 def jsonl_events(final, labels: list[dict] | None = None) -> list[dict]:

@@ -1,1 +1,4 @@
-"""repro_torch.runtime — own copy of the capacity-fault schedule model."""
+"""repro_torch.runtime — own copies of the capacity-fault schedule model
+(``runtime.fault``) and the resource pool (``runtime.pool``), the
+resize schedule (``runtime.elastic``), and the checkpoint codec
+(``runtime.checkpoint``, the reference's on-disk format)."""

@@ -934,3 +934,142 @@ def test_wkv6_kernel_refuses_bad_inputs(cuda_device):
                           device=cuda_device)[1:].view(1, 32, 2, 64)
     with pytest.raises(ValueError, match="aligned"):
         wkv_ops.wkv6(shifted, k64, v64, w64, u64, chunk=16)
+
+
+# ----------------------------------------------- the ASA service on the card
+def _serve_batches(n_slots: int, batch: int, n_batches: int, seed: int):
+    """Host query batches (distinct observing slots, repeated decision
+    slots, pad rows), made from a seed."""
+    import numpy as np
+
+    from repro_torch.parallel import fleet
+    from repro_torch.serve import asa as serve_asa
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_batches):
+        live = int(rng.integers(1, batch + 1))
+        slot = rng.integers(0, n_slots, live).astype(np.int32)
+        has = rng.random(live) < 0.6
+        _, first = np.unique(slot, return_index=True)
+        has &= np.isin(np.arange(live), first)   # one observation a slot
+        wait = np.exp(rng.uniform(np.log(5.0), np.log(9e4), live))
+        q = serve_asa.QueryBatch(
+            slot=torch.from_numpy(slot),
+            observed_wait=torch.from_numpy(wait.astype(np.float32)),
+            has_obs=torch.from_numpy(has))
+        out.append((live,) + fleet.pad_batch(q, batch))
+    return out
+
+
+@pytest.mark.cuda
+def test_serve_step_on_the_card_against_the_cpu_route(cuda_device):
+    """The decision step on the card and on the CPU from the same table:
+    keys, rounds and t bitwise, log_p within 1e-4 (the engine's), the
+    decisions within the CPU parity tests' tolerances; a MAP bin may flip
+    only at a near-tie of the CPU posterior (gap <= 2e-4)."""
+    import numpy as np
+
+    from repro_torch.core.bins import make_bins
+    from repro_torch.serve import asa as serve_asa
+
+    cpu = serve_asa.init_table(1536, device="cpu", seed=3)
+    card = serve_asa.init_table(1536, device=cuda_device, seed=3)
+    bins = make_bins(53).astype(np.float32)
+    flips = reads = 0
+    for live, q, mask in _serve_batches(1536, 256, 40, seed=5):
+        cpu, dec_c = serve_asa.serve_step(cpu, q, mask)
+        qd, md = serve_asa.query_to(q, mask, cuda_device)
+        card, dec_g = serve_asa.serve_step(card, qd, md)
+        for f in ("key", "rounds", "t"):
+            assert torch.equal(getattr(card, f).cpu(), getattr(cpu, f)), f
+        assert float((card.log_p.cpu() - cpu.log_p).abs().max()) <= 1e-4
+        lc, ec, hc = serve_asa.decisions_to_host(dec_c)
+        lg, eg, hg = serve_asa.decisions_to_host(dec_g)
+        np.testing.assert_allclose(eg[:live], ec[:live], rtol=1.5e-5)
+        np.testing.assert_allclose(hg[:live], hc[:live], rtol=0, atol=1e-5)
+        rows = cpu.log_p[q.slot.long()].numpy()
+        for i in np.flatnonzero(lg[:live] != lc[:live]):
+            got = int(np.flatnonzero(bins == lg[i])[0])
+            assert rows[i].max() - rows[i, got] <= 2e-4
+            flips += 1
+        reads += live
+    assert flips <= reads // 10, (flips, reads)
+
+
+@pytest.mark.cuda
+def test_serve_step_issues_no_host_sync(cuda_device):
+    """``query_to`` and ``serve_step`` run under CUDA's sync debug mode
+    set to raise: no device read, no blocking copy; the one read of a
+    batch is ``decisions_to_host``."""
+    from repro_torch.serve import asa as serve_asa
+
+    table = serve_asa.init_table(1536, device=cuda_device)
+    batches = _serve_batches(1536, 256, 4, seed=9)
+    serve_asa.wait_bins(53, table.log_p.device)     # made once, outside
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _live, q, mask in batches:
+            qd, md = serve_asa.query_to(q, mask, cuda_device)
+            table, dec = serve_asa.serve_step(table, qd, md)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    lead, _, _ = serve_asa.decisions_to_host(dec)
+    assert lead.shape == (256,)
+
+
+@pytest.mark.cuda
+def test_threaded_server_on_the_card_restarts_and_recovers_bitwise(
+        cuda_device, tmp_path):
+    """A threaded ``ASAServer`` on the card: a checkpoint restores into a
+    server whose decide-only probes are bitwise the running one's, and a
+    supervised crash restores from it bitwise too."""
+    import time
+
+    from repro_torch.serve import chaos as schaos
+    from repro_torch.serve.loop import (ASAServer, ServeConfig,
+                                        ServeSupervisor)
+
+    cfg = ServeConfig(n_slots=64, batch_size=16,
+                      checkpoint_dir=str(tmp_path / "ckpt"))
+    server = ASAServer(cfg, device=cuda_device)
+    server.start()
+    try:
+        futs = [server.submit(t % 40, observed_wait=30.0 * (1 + t % 7))
+                for t in range(200)]
+        for f in futs:
+            f.result(timeout=60)
+    finally:
+        server.stop()
+    server.save(step=5)
+    restored = ASAServer.restore(cfg, step=5, device=cuda_device)
+
+    def probe(srv):
+        srv.start()
+        try:
+            fs = [srv.submit(t) for t in range(40)]
+            return [(d.lead_s, d.expected_s, d.entropy)
+                    for d in (f.result(timeout=60) for f in fs)]
+        finally:
+            srv.stop()
+    want = probe(server)
+    assert probe(restored) == want
+    for a, b in zip(server._table, restored._table):
+        assert torch.equal(a, b)
+
+    inj = schaos.ChaosInjector(schaos.ChaosSchedule((schaos.crash(0),)))
+    sup = ServeSupervisor(cfg, chaos=inj, device=cuda_device)
+    sup.start()
+    try:
+        sup.submit(0).exception(timeout=60)     # trips the crash
+        deadline = time.monotonic() + 60
+        while sup.restarts == 0 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert sup.restarts == 1
+        fs = [sup.submit(t) for t in range(40)]
+        got = [(d.lead_s, d.expected_s, d.entropy)
+               for d in (f.result(timeout=60) for f in fs)]
+    finally:
+        sup.stop()
+    assert got == want

@@ -54,7 +54,11 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.sched.queue_sim, repro_torch.sched.strategies, "
             "repro_torch.sched.runner, repro_torch.core.regret, "
             "repro_torch.obs, repro_torch.obs.trace, repro_torch.obs.metrics, "
-            "repro_torch.obs.export, repro_torch.obs.telemetry;"
+            "repro_torch.obs.export, repro_torch.obs.telemetry, "
+            "repro_torch.obs.registry, repro_torch.obs.serve_obs, "
+            "repro_torch.parallel.fleet, repro_torch.runtime.pool, "
+            "repro_torch.runtime.checkpoint, repro_torch.serve.asa, "
+            "repro_torch.serve.chaos, repro_torch.serve.loop;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')];"
             "assert not bad, bad")
@@ -68,6 +72,8 @@ def test_entry_points_default_to_cuda():
     from repro_torch.launch import serve
     from repro_torch.models import rwkv6, transformer
     from repro_torch.obs import trace
+    from repro_torch.serve import asa as serve_asa
+    from repro_torch.serve import loop
     from repro_torch.xsim import families, grid, policies, state
 
     cfg = grid.XSimConfig(n_warm=4, n_backlog=4, n_arrivals=4)
@@ -84,6 +90,8 @@ def test_entry_points_default_to_cuda():
         assert rwkv6.init_decode_state(ssm, 1)["wkv"].is_cuda
         assert trace.init(4, 2).data.is_cuda
         assert frozen().trace.head.is_cuda
+        assert serve_asa.init_table(4).key.is_cuda
+        assert loop.ASAServer(loop.ServeConfig(n_slots=4))._table.t.is_cuda
         return
     for call in (lambda: policies.init_fleet(2),
                  lambda: grid.make_grid(cfg, n_seeds=1),
@@ -97,9 +105,41 @@ def test_entry_points_default_to_cuda():
                  lambda: rwkv6.init_lm(ssm),
                  lambda: rwkv6.init_decode_state(ssm, 1),
                  lambda: transformer.init_lm(lm),
-                 lambda: transformer.init_kv_caches(lm, 1, 4)):
+                 lambda: transformer.init_kv_caches(lm, 1, 4),
+                 lambda: serve_asa.init_table(4),
+                 lambda: loop.ASAServer(loop.ServeConfig(n_slots=4)),
+                 lambda: loop.ServeSupervisor(loop.ServeConfig(n_slots=4))):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     g = grid.make_grid(cfg, n_seeds=1, policy_ids=(1,), device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         grid.run_grid(g)
+
+
+# the port's line-for-line copies of stdlib-only reference modules
+COPIES = ("runtime/pool.py", "obs/registry.py", "obs/serve_obs.py",
+          "serve/chaos.py")
+
+
+def _body_below_docstring_and_imports(path: Path) -> str:
+    """The module's code without its docstring and its top-level imports
+    (comments aside: the AST keeps none)."""
+    body = ast.parse(path.read_text()).body
+    if body and isinstance(body[0], ast.Expr) and \
+            isinstance(body[0].value, ast.Constant):
+        body = body[1:]
+    body = [n for n in body if not isinstance(n, (ast.Import,
+                                                  ast.ImportFrom))]
+    return "\n".join(ast.dump(n) for n in body)
+
+
+@pytest.mark.parametrize("rel", COPIES)
+def test_copies_equal_the_reference_below_docstring_and_imports(rel):
+    port = _body_below_docstring_and_imports(PORT / rel)
+    ref = _body_below_docstring_and_imports(ROOT / "src" / "repro" / rel)
+    assert port == ref, f"{rel} drifted from the reference"
+    imports = [n for n in _imports(PORT / rel)
+               if n.split(".")[0] not in ("__future__",)]
+    assert all(n.split(".")[0] == "repro_torch" or n in sys.stdlib_module_names
+               or n.split(".")[0] in sys.stdlib_module_names
+               for n in imports), imports

@@ -32,6 +32,7 @@ import subprocess
 import sys
 from pathlib import Path
 from types import SimpleNamespace
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -341,8 +342,22 @@ def test_merged_trace_without_serve_and_serve_refused(tmp_path, runs):
     assert merged == obs_export.chrome_trace(runs.ft, runs.grid.labels)
     meta = obs_export.write_merged_trace(str(tmp_path / "m.json"), runs.ft)
     assert meta["events_total"] == len(merged["traceEvents"])
-    with pytest.raises(NotImplementedError, match=r"item 6\(b\)"):
-        obs_export.merged_chrome_trace(runs.ft, serve=object())
+    # the serve side merges since the service was ported: its rows follow
+    # the rings' on the reserved pids, and it is refused where the
+    # scenario pids would reach them
+    from repro_torch.obs.serve_obs import SERVE_PID, ServeObs
+    obs = ServeObs(spans=True)
+    obs.enqueue(0, 3, obs.now())
+    with_serve = obs_export.merged_chrome_trace(runs.ft, runs.grid.labels,
+                                                serve=obs)
+    n = len(merged["traceEvents"])
+    assert with_serve["traceEvents"][:n] == merged["traceEvents"]
+    assert with_serve["traceEvents"][n:] == obs.chrome_events()
+    assert with_serve["otherData"]["serve_pid"] == SERVE_PID
+    crowded = {"traceEvents": [], "otherData": {"n_scenarios": SERVE_PID}}
+    with mock.patch.object(obs_export, "chrome_trace", return_value=crowded):
+        with pytest.raises(ValueError, match="reserved serve pid"):
+            obs_export.merged_chrome_trace(runs.ft, serve=obs)
     with pytest.raises(ValueError, match="traced final state"):
         obs_export.merged_chrome_trace()
 
