@@ -8,8 +8,9 @@ It builds every hand-written kernel of the port from the sources in the
 checkout, holds each kernel against its plain PyTorch version on the
 card, drives the port's main paths (the fleet simulator's Table-1 sweep,
 untraced and traced, model serving of a dense and an MoE transformer and
-of RWKV-6, the paper's Table-1 and Table-2 runners, and the ASA decision
-service), and checks the results. Phases:
+of RWKV-6, the paper's Table-1 and Table-2 runners, the ASA decision
+service and the learned submission policy's training), and checks the
+results. Phases:
 
 1. the card (``nvidia-smi`` name and power limit) and the kernel build;
 2. each kernel against its plain version at the shapes its path uses
@@ -104,8 +105,9 @@ service), and checks the results. Phases:
    centers, six scales, three workflows, ASA-Naive and the pilot) with
    the estimators on the card and on the CPU in one process: every run
    equal; the normalized averages beside the paper's row, the wall
-   seconds and the estimator's share; (c) ``run_table2(n_submissions=30)``
-   on the card: its 18 rows checked and printed;
+   seconds and the estimator's share; (c) ``run_table2(n_submissions=10)``
+   on the card (the benchmark's 30 cut to 10 for the smoke's time): its 18
+   rows checked and printed;
 13. traced sweeps (``obs``): (a) phase 10's ``faulty`` setting traced at
    the default capacity (``XSimConfig.with_trace()``): kernel path
    against plain path bitwise with the event rings, the untraced run's
@@ -137,13 +139,30 @@ service), and checks the results. Phases:
    on the card and on the CPU route: tenant ids and keys equal, log_p
    and the decisions within stated tolerances, MAP flips counted; (f)
    the merged Chrome trace (rings and server spans, no pid collision)
-   validated, and one scrape of ``/metrics`` and ``/metrics.json``.
+   validated, and one scrape of ``/metrics`` and ``/metrics.json``;
+15. the learned submission policy (``rl``, policy id 4): (a) the full
+   recipe's geometry (``rl.train.TrainConfig()``: both centers at 1/64,
+   three scales, three workflows, 8 seeds; B=144, N=73): a warmed fleet,
+   one sampled rollout (``rl.rollout.collect``) through the kernel and
+   through the plain scan, bitwise with the recorded observations and
+   actions, every launch ``fused``, every workflow done under the step
+   budget; the same rollout on the CPU route from the card-built state
+   (lanes that part at a near-tie counted and printed with their gaps);
+   one ``reinforce_step`` on the card against the CPU; 16 profiled RL
+   steps; the seconds of a rollout, a REINFORCE step and an iteration,
+   and the estimated seconds of the 30-iteration recipe; (b)
+   ``benchmarks/rl_train.py``'s ``SMOKE`` recipe (3 iterations, tiny
+   tables) trained and evaluated on the card at its held-out seed 1234,
+   held to the reference's contract: the trained head's reward above the
+   init head's, its twt no worse than Per-Stage's and within 15% of
+   ASA's, no OH for ASA and Per-Stage; the reward curve, the entropies
+   and the wall seconds printed.
 
 Matrix products of the plain versions run in full float32 where their
 inputs are float32: TF32 is switched off for matmuls and cuDNN.
 
 The second-to-last line is a JSON object with one entry per ported
-kernel (``freed_scan``'s launches summed over phases 3, 4 and 10-14, by
+kernel (``freed_scan``'s launches summed over phases 3, 4 and 10-15, by
 path beside); the last line is ``{"ok": true, "device": {...}}``. Any
 failure raises and ends the script with a non-zero exit code; without a CUDA
 device it exits non-zero before printing any result.
@@ -381,8 +400,8 @@ QS_STEPS = {"bigjob": 160, "pilot": 160, "per_stage": 220, "asa": 300,
 QS_REL, QS_ABS = 0.02, 5.0
 # (b) and (c): run_table1 at full size, with ASA-Naive and the pilot, and
 # run_table2 at the repository benchmark's own setting
-# (benchmarks/table2_accuracy.py)
-TABLE2_SUBMISSIONS = 30
+# (benchmarks/table2_accuracy.py) but for its submissions a row
+TABLE2_SUBMISSIONS = 10   # cut from the benchmark's 30 (the smoke's time)
 
 FULL_CUTS = (
     "background arrivals stop after 1024 slots (about 4.8 h of HPC2N "
@@ -2699,6 +2718,263 @@ def serve_service(grid_mod, families, policies, backfill, dev) -> int:
     return traffic["launches"]
 
 
+# the learned policy (phase 15): (a) rl.train.TrainConfig()'s geometry, one
+# rollout through the kernel and the plain scan; (b) the repository's
+# acceptance recipe, benchmarks/rl_train.py's SMOKE and its held-out
+# seed (copied: the smoke imports nothing of the reference)
+RL_SMOKE = dict(iters=3, n_seeds=8, lr=0.5,
+                sim=dict(n_warm=16, n_backlog=12, n_arrivals=16,
+                         max_stages=9, t0=1800.0))
+RL_EVAL_SEED = 1234
+RL_PROFILE_STEPS = 16
+# lanes of the card-vs-CPU rollout that may part at a near-tie (the MAP
+# feature of a posterior at a near-tie, or an action's Gumbel top two)
+RL_MAX_PARTED = 0.1
+
+
+def lane_gap_spy(policy_mod, gaps: dict):
+    """Within the block, ``act_sample`` keeps each lane's smallest top-two
+    gap of (logits + Gumbel noise) over its draws in ``gaps["min"]`` (a
+    host-side spy for the CPU route)."""
+    from repro_torch.core import prng
+
+    act_sample = policy_mod.act_sample
+
+    def spy(params, obs, key):
+        lg = policy_mod.logits(params, obs)
+        top = torch.topk(prng.gumbel(key, (lg.shape[-1],)) + lg, 2).values
+        gap = top[..., 0] - top[..., 1]
+        old = gaps.get("min")
+        gaps["min"] = gap if old is None else torch.minimum(old, gap)
+        return act_sample(params, obs, key)
+    return patched((policy_mod, "act_sample", spy))
+
+
+def rl_card_vs_cpu(events_mod, policy_mod, s0, fin_k, params, grid) -> None:
+    """Phase 15(a): the card's rollout against the CPU route's on the same
+    (card-built) state and weights: lanes equal in every integer field and
+    ``rl_act``, or parted, each parted lane printed with its first
+    differing stage, the largest feature gap of its observations there
+    and its smallest top-two gap on the CPU route."""
+    gaps: dict = {}
+    cpu_params = type(params)(*(p.cpu() for p in params))
+    t0 = time.perf_counter()
+    with lane_gap_spy(policy_mod, gaps):
+        fin_c = events_mod.sweep(
+            state_on_cpu(s0), n_steps=grid.cfg.n_steps,
+            chunk_steps=grid.cfg.chunk_steps, pred_mode=grid.cfg.pred_mode,
+            naive=True, params=cpu_params, rl_mode="sample", device="cpu")
+    cpu_s = time.perf_counter() - t0
+    from repro_torch import convert
+
+    a, b = convert.to_numpy(fin_k), convert.to_numpy(fin_c)
+    parted = np.zeros(grid.n, bool)
+    for k in a:
+        if a[k].dtype.kind in "biu":
+            parted |= (a[k] != b[k]).reshape(grid.n, -1).any(axis=1)
+    obs_err = np.abs(a["rl_obs"] - b["rl_obs"])[~parted]
+    gap = gaps["min"].numpy()
+    for lane in np.flatnonzero(parted):
+        diff = np.flatnonzero(a["rl_act"][lane] != b["rl_act"][lane])
+        y = int(diff[0]) if diff.size else -1
+        d = (np.abs(a["rl_obs"][lane, y] - b["rl_obs"][lane, y])
+             if y >= 0 else np.zeros(1))
+        print(f"rl/card_vs_cpu/parted: lane={lane} "
+              f"label={grid.labels[lane]} first_act_stage={y} "
+              f"obs_max_diff={float(d.max()):.6g} "
+              f"at_feature={int(d.argmax())} cpu_min_top2_gap="
+              f"{float(gap[lane]):.6g}")
+    print(f"rl/card_vs_cpu: lanes={grid.n} parted={int(parted.sum())} "
+          f"rl_act_flips={int((a['rl_act'] != b['rl_act']).sum())} "
+          f"rl_obs_max_abs_err_equal_lanes="
+          f"{float(obs_err.max()) if obs_err.size else 0.0:.6g} "
+          f"cpu_rollout_s={cpu_s:.3f} min_top2_gap={float(gap.min()):.6g}")
+    check(parted.mean() <= RL_MAX_PARTED,
+          f"rl/card_vs_cpu: {int(parted.sum())} of {grid.n} lanes parted")
+    check(obs_err.size == 0 or float(obs_err.max()) <= 1e-4,
+          "rl/card_vs_cpu: observations differ in lanes that agree")
+
+
+def rl_full_recipe(backfill, events_mod, dev) -> int:
+    """Phase 15(a): ``rl.train.TrainConfig()``'s geometry (B=144, N=73):
+    a warmed fleet, one sampled rollout through the kernel and through
+    the plain scan, bitwise with the buffers; the card against the CPU
+    route; one REINFORCE step on the card against the CPU; 16 profiled RL
+    steps; the seconds of a rollout, a step and an iteration, and from
+    them the estimated seconds of the 30-iteration recipe. Returns the
+    kernel rollout's scan launches."""
+    from repro_torch.core import prng
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.rl import policy as rl_policy
+    from repro_torch.rl import rollout
+    from repro_torch.rl import train as rl_train
+    from repro_torch.xsim import families, policies
+    from repro_torch.xsim.state import RL
+
+    cfg = rl_train.TrainConfig()
+    t0 = time.perf_counter()
+    fleet = rl_train.warmed_fleet(cfg, grid_seed=cfg.seed, device=dev)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    params = rl_policy.init_params(prng.PRNGKey(cfg.seed, dev),
+                                   hidden=cfg.hidden, device=dev)
+    t0 = time.perf_counter()
+    grid = families.family_grid(
+        cfg.sim, cfg.family, center_names=cfg.center_names,
+        workflows=cfg.workflows, policy_ids=(RL,), n_seeds=cfg.n_seeds,
+        shrink=cfg.shrink, seed=cfg.seed * 10_000 + 1, device=dev)
+    grid_s = time.perf_counter() - t0
+    check(grid.n == 144 and grid.cfg.max_jobs == 73,
+          f"rl: the training grid is {grid.n} x {grid.cfg.max_jobs}")
+    s0 = grid.build(policies.scenario_estimators(
+        fleet, torch.as_tensor(grid.geo_idx, device=dev), 1))
+
+    reset_scan_counts(backfill)
+    t0 = time.perf_counter()
+    fin_k, m_k, traj = rollout.collect(grid, params, fleet, pred_seed=1,
+                                       rl_mode="sample",
+                                       oh_weight=cfg.oh_weight, device=dev)
+    torch.cuda.synchronize()
+    rollout_s = time.perf_counter() - t0
+    launches = backfill.KERNEL_LAUNCHES["freed_scan"]
+    designs = dict(backfill.DESIGN_LAUNCHES)
+    check(launches > 0 and designs["fused"] == launches,
+          f"rl/rollout: launches {launches}, by design {designs}")
+    backfill.KERNEL_LAUNCHES["freed_scan"] = 0
+    t0 = time.perf_counter()
+    fin_r, _, _ = rollout.collect(grid, params, fleet, pred_seed=1,
+                                  rl_mode="sample", freed_mode="ref",
+                                  device=dev)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    check(backfill.KERNEL_LAUNCHES["freed_scan"] == 0,
+          "rl/rollout: the plain path launched the kernel")
+    check(states_equal(fin_k, fin_r),
+          "rl/rollout: kernel path and plain path differ")
+    m = {k: v.cpu().numpy() for k, v in m_k.items()}
+    steps = fin_k.steps.cpu().numpy()
+    check(bool(np.all(m["wf_done"] == m["wf_total"])),
+          "rl/rollout: not every workflow finished")
+    check(int(steps.max()) < grid.cfg.n_steps,
+          "rl/rollout: a scenario used its whole step budget")
+    act = traj.act.cpu().numpy()
+    valid = fin_k.wf_rows.cpu().numpy() >= 0
+    check(bool(np.all(act[valid] >= 0)) and bool(np.all(act[~valid] == -1)),
+          "rl/rollout: a stage drew no action, or a padding slot one")
+    check(bool(torch.isfinite(traj.obs).all())
+          and bool(torch.isfinite(traj.reward).all()),
+          "rl/rollout: non-finite observations or rewards")
+
+    t0 = time.perf_counter()
+    summary = obs_metrics.to_host(obs_metrics.sweep_summary(
+        fin_k, n_steps=grid.cfg.n_steps))
+    summary_s = time.perf_counter() - t0
+    # the first step pays autograd's and cuBLAS's set-up; the second is
+    # a training iteration's
+    step_s = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        new, ent = rl_train.reinforce_step(params, traj.obs, traj.act,
+                                           traj.reward, cfg.lr)
+        ent_v = float(ent)
+        step_s.append(time.perf_counter() - t0)
+    first_step_s, step_s = step_s
+    cpu_new, cpu_ent = rl_train.reinforce_step(
+        type(params)(*(p.cpu() for p in params)),
+        *(x.cpu() for x in traj), cfg.lr)
+    errs = [float((g.cpu() - c).abs().max() / c.abs().max())
+            for g, c in zip(new, cpu_new)]
+    ent_err = abs(ent_v - float(cpu_ent)) / abs(float(cpu_ent))
+    check(max(errs) <= 1e-5 and ent_err <= 1e-5,
+          f"rl/reinforce_step: card against CPU {errs}, entropy {ent_err}")
+    check(all(not torch.equal(a, b) for a, b in zip(new[::2], params[::2])),
+          "rl/reinforce_step: the weights did not move")
+    iter_s = grid_s + rollout_s + summary_s + step_s
+    print(f"rl/rollout: B={grid.n} N={grid.cfg.max_jobs} "
+          f"n_steps_budget={grid.cfg.n_steps} steps_max={int(steps.max())} "
+          f"steps_mean={float(steps.mean()):.3f} warm_fleet_s={warm_s:.3f} "
+          f"kernel_rollout_s={rollout_s:.6f} plain_rollout_s={plain_s:.6f} "
+          f"bitwise_equal=True freed_scan_launches={launches} "
+          f"by_design={designs} reward_mean="
+          f"{float(traj.reward.mean()):.6f} misses={int(m['misses'].sum())} "
+          f"oh_hours_mean={float(m['oh_hours'].mean()):.6f} "
+          f"drain_frac={summary['drain_frac']:.6f}")
+    print(f"rl/reinforce_step: step_s={step_s:.6f} "
+          f"first_step_s={first_step_s:.6f} entropy={ent_v:.6f} "
+          f"card_vs_cpu_rel_err={max(errs):.3g} entropy_rel_err="
+          f"{ent_err:.3g} n_params={rl_policy.n_params(params)}")
+    print(f"rl/iteration: grid_s={grid_s:.6f} rollout_s={rollout_s:.6f} "
+          f"summary_s={summary_s:.6f} step_s={step_s:.6f} "
+          f"iteration_s={iter_s:.6f} est_recipe_s="
+          f"{warm_s + cfg.iters * iter_s:.3f} (warm_fleet_s + {cfg.iters} "
+          f"iterations)")
+    rl_card_vs_cpu(events_mod, rl_policy, s0, fin_k, params, grid)
+    device_profile("profile_rl", lambda: events_mod.simulate(
+        s0, n_steps=RL_PROFILE_STEPS, pred_mode=grid.cfg.pred_mode,
+        naive=True, params=params, rl_mode="sample"), RL_PROFILE_STEPS,
+        "RL steps (B=144, N=73)", ("freed_scan",))
+    return launches
+
+
+def rl_acceptance(backfill, dev) -> int:
+    """Phase 15(b): ``benchmarks/rl_train.py``'s ``SMOKE`` recipe on the
+    card: ``train``, then ``evaluate`` of the trained head and of the init
+    head on one warmed fleet at the held-out seed, held to the
+    reference's contract (the trained head's reward above the init
+    head's, twt no worse than Per-Stage's and within 15% of ASA's, no OH
+    for ASA and Per-Stage). Returns the scan launches of the run."""
+    from repro_torch.rl import train as rl_train
+    from repro_torch.xsim.grid import XSimConfig
+
+    kw = dict(RL_SMOKE, sim=XSimConfig(**RL_SMOKE["sim"]))
+    cfg = rl_train.TrainConfig(**kw)
+    reset_scan_counts(backfill)
+    t0 = time.perf_counter()
+    res = rl_train.train(cfg, device=dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fleet = rl_train.warmed_fleet(cfg, grid_seed=RL_EVAL_SEED, device=dev)
+    ev = rl_train.evaluate(res.params, cfg, eval_seed=RL_EVAL_SEED,
+                           fleet=fleet, device=dev)
+    ev0 = rl_train.evaluate(res.init_params, cfg, eval_seed=RL_EVAL_SEED,
+                            fleet=fleet, device=dev)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    launches = backfill.KERNEL_LAUNCHES["freed_scan"]
+    designs = dict(backfill.DESIGN_LAUNCHES)
+    check(launches > 0 and designs["fused"] == launches,
+          f"rl/train: launches {launches}, by design {designs}")
+    for strat, d in sorted(ev.items()):
+        print(f"rl_eval/{strat},0,twt_s={d['twt_s']:.0f};"
+              f"oh_hours={d['oh_hours']:.3f};reward={d['reward']:.3f};"
+              f"n={d['n']}")
+    improved = ev["rl"]["reward"] > ev0["rl"]["reward"]
+    vs_ps = ev["rl"]["twt_s"] <= ev["per_stage"]["twt_s"]
+    vs_asa = ev["rl"]["twt_s"] <= 1.15 * ev["asa"]["twt_s"]
+    print(f"rl/train: iters={cfg.iters} rewards={res.rewards} "
+          f"entropies={res.entropies} train_s={train_s:.3f} "
+          f"eval_s={eval_s:.3f} s_per_iter={train_s / cfg.iters:.3f} "
+          f"init_eval={ev0['rl']['reward']:.6f} "
+          f"trained_eval={ev['rl']['reward']:.6f} improved={improved} "
+          f"beats_per_stage={vs_ps} within_15pct_asa={vs_asa} "
+          f"freed_scan_launches={launches}")
+    check(set(ev) == {"bigjob", "per_stage", "asa", "asa_naive", "rl"},
+          f"rl/train: strategies {sorted(ev)}")
+    check(improved, "rl/train: the trained head did not improve on the "
+          f"init head's held-out reward ({ev['rl']['reward']:.3f} vs "
+          f"{ev0['rl']['reward']:.3f})")
+    check(vs_ps and vs_asa, f"rl/train: twt rl={ev['rl']['twt_s']:.0f}s, "
+          f"per_stage={ev['per_stage']['twt_s']:.0f}s, "
+          f"asa={ev['asa']['twt_s']:.0f}s")
+    check(ev["asa"]["oh_hours"] == 0.0 and ev["per_stage"]["oh_hours"] == 0.0,
+          "rl/train: ASA or Per-Stage paid OH core-hours")
+    check(len(res.telemetry) == cfg.iters
+          and all(t["drain_frac"] == 1.0 for t in res.telemetry),
+          "rl/train: a training rollout left a lane undrained")
+    return launches
+
+
 class Phases:
     """Prints each phase's seconds, from the end of the previous one."""
 
@@ -2839,6 +3115,12 @@ def main() -> None:
     scan_paths["serve/loadgen"] = serve_service(grid_mod, families,
                                                 policies, backfill, dev)
     phases.done("14_serve_asa")
+
+    # phase 15: the learned submission policy (counts reset inside, per
+    # path): the training geometry's rollout, then the acceptance recipe
+    scan_paths["rl/rollout"] = rl_full_recipe(backfill, events_mod, dev)
+    scan_paths["rl/train"] = rl_acceptance(backfill, dev)
+    phases.done("15_rl")
     scan_paths["sweep/full"] = full["launches"]["freed_scan"]
     entry.update(launches=sum(scan_paths.values()),
                  launches_by_path=scan_paths)

@@ -8,7 +8,8 @@ and dtype for dtype: float32 stays
 float32, int32 stays int32, bool stays bool, and uint32 PRNG keys become
 the port's int64 keys with the same values. ``lm_params`` takes the
 reference's language-model parameter tree (``init_params``) and returns
-the port's. Nothing here imports the reference: it reads fields by name.
+the port's; ``policy_params`` the learned policy head's. Nothing here
+imports the reference: it reads fields by name.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from repro_torch.core.asa import ASAState
 from repro_torch.device import resolve_device
 from repro_torch.models import lm, lm_module
 from repro_torch.obs.trace import TraceBuffer
+from repro_torch.rl.policy import PolicyParams
 from repro_torch.xsim.state import ScenarioState
 
 _DTYPES = {np.dtype(np.float32): torch.float32,
@@ -132,3 +134,26 @@ def lm_params(tree, cfg, device: str | torch.device = "cpu",
         out[path] = torch.from_numpy(a.copy()).to(
             device=dev, dtype=torch.float32 if leaf.f32 else dtype)
     return lm.unflatten(out)
+
+
+def policy_params(tree, device: str | torch.device = "cpu") -> PolicyParams:
+    """The port's ``rl.policy.PolicyParams`` from the reference's (its
+    fields ``w1``, ``b1``, ``w2``, ``b2`` read by name, numpy or jax
+    leaves), float32 on ``device``. Raises unless the leaves are float32
+    with the head's shapes: ``w1 (F, H)``, ``b1 (H,)``, ``w2 (H, m)``,
+    ``b2 (m,)``."""
+    dev = resolve_device(device)
+    leaves = {f: np.asarray(getattr(tree, f)) for f in PolicyParams._fields}
+    w1, w2 = leaves["w1"], leaves["w2"]
+    if w1.ndim != 2 or w2.ndim != 2:
+        raise ValueError(f"policy_params: w1 {w1.shape} and w2 {w2.shape} "
+                         f"must be matrices")
+    (f_in, hidden), m = w1.shape, w2.shape[1]
+    want = {"w1": (f_in, hidden), "b1": (hidden,), "w2": (hidden, m),
+            "b2": (m,)}
+    for f, a in leaves.items():
+        if a.dtype != np.float32 or a.shape != want[f]:
+            raise ValueError(f"policy_params: {f} is {a.dtype} {a.shape}, "
+                             f"the head wants float32 {want[f]}")
+    return PolicyParams(*(tensor(leaves[f], dev)
+                          for f in PolicyParams._fields))

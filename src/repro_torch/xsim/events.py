@@ -1,6 +1,5 @@
 """Event-time advance, completions, releases, capacity faults, admissions,
-hooks and the chunked sweep (port of ``repro.xsim.events`` without the
-learned policy).
+hooks and the chunked sweep (port of ``repro.xsim.events``).
 
 One ``sim_step`` jumps every lane of the batch to its next event time
 (earliest pending submission, running-job completion or unprocessed
@@ -8,8 +7,9 @@ capacity fault), then applies, as masked writes: completions → per-stage
 release → naive resubmit release → capacity faults → admissions →
 FCFS/backfill scheduling pass → stage-start hook (learn the observed
 wait; under ASA-Naive, idle or cancel an early allocation) → ASA chain
-hook (sample the cascade). A lane with no events left steps as an exact
-no-op: its time, key and tables are untouched.
+hook (sample the cascade; under the learned policy, the policy head's
+draws). A lane with no events left steps as an exact no-op: its time,
+key and tables are untouched.
 
 Two static flags pick the program, as in the reference:
 
@@ -27,6 +27,12 @@ Two static flags pick the program, as in the reference:
   ``simulate`` first tries each chunk with the drain cut at
   ``SPEC_HOOK_PAIRS`` iterations and runs it again whole if a step
   needed more: the result is the same, and most steps need none.
+
+``params`` (a ``repro_torch.rl.policy.PolicyParams``, or None) adds the
+learned-policy branch of the chain hook: lanes of policy id 4 draw their
+leads from the policy head and record each observation and action in
+``rl_obs``/``rl_act``. ``params=None`` runs the program without it,
+operation for operation.
 
 Without the naive world (ASA stages carry their afterok edge) a lane has
 at most one pending start hook and one pending chain hook a step: a
@@ -52,7 +58,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core import asa
+from repro_torch.core import asa, prng
 from repro_torch.core.bins import make_bins
 from repro_torch.device import DEFAULT_DEVICE, check_device, resolve_device
 from repro_torch.obs import trace as obs_trace
@@ -70,15 +76,12 @@ SPEC_HOOK_PAIRS = 2  # naive hook-drain iterations of a first try at a chunk
 _INF = float("inf")
 
 
-def not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"repro_torch.xsim: {what} is not ported yet (ROADMAP Queue 1, "
-        f"{item})")
+RL_MODES = ("sample", "greedy")
 
 
-def _check_program(params) -> None:
-    if params is not None:
-        raise not_ported("the learned policy head (params=...)", "item 7")
+def check_rl_mode(rl_mode: str) -> None:
+    if rl_mode not in RL_MODES:
+        raise ValueError(f"unknown rl_mode {rl_mode!r}")
 
 
 def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -91,6 +94,21 @@ def _put(x: torch.Tensor, idx: torch.Tensor, val: torch.Tensor
     """x with x[b, idx[b]] = val[b] (a new tensor)."""
     return x.scatter(1, idx.long().unsqueeze(1),
                      val.to(x.dtype).unsqueeze(1))
+
+
+def _row_index(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return idx.long().view(-1, 1, 1).expand(-1, 1, x.shape[2])
+
+
+def _take_row(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[b, idx[b], :] for a (B, K, F) tensor and (B,) indices."""
+    return torch.gather(x, 1, _row_index(x, idx)).squeeze(1)
+
+
+def _put_row(x: torch.Tensor, idx: torch.Tensor, val: torch.Tensor
+             ) -> torch.Tensor:
+    """x with x[b, idx[b], :] = val[b] (a new tensor)."""
+    return x.scatter(1, _row_index(x, idx), val.unsqueeze(1))
 
 
 def _clear(mask: torch.Tensor, y: torch.Tensor,
@@ -382,13 +400,19 @@ def _start_hook(s: ScenarioState, now: torch.Tensor, bins: torch.Tensor,
 
 def _chain_hook(s: ScenarioState, now: torch.Tensor, bins: torch.Tensor,
                 greedy: bool | torch.Tensor,
-                live: torch.Tensor | None = None) -> ScenarioState:
+                live: torch.Tensor | None = None, params=None,
+                rl_mode: str = "sample") -> ScenarioState:
     """Process ONE pending stage admission per lane (in ``live`` lanes,
     when given): the §3.2 cascade.
 
     Stage y first admitted at s_y ⇒ (stage 0 only) draw a_0, fix
     E_y = max(s_y + a_y, E_{y−1}) + t_y, draw the successor's a_{y+1} from
-    the live estimator and schedule it for max(now, E_y − a_{y+1})."""
+    the live estimator and schedule it for max(now, E_y − a_{y+1}).
+
+    With ``params``, lanes of policy id 4 draw a_0 and a_{y+1} from the
+    policy head instead (``_rl_draws``) and record both observations and
+    actions; their estimator draws are computed and dropped, as the
+    reference's ``lax.cond`` under ``vmap`` selects."""
     n = s.status.shape[1]
     pending = s.chain_pending
     any_p = pending.any(dim=1)
@@ -415,9 +439,12 @@ def _chain_hook(s: ScenarioState, now: torch.Tensor, bins: torch.Tensor,
         est, a0 = asa.sample_wait_if(s.est, bins, need_a0, greedy)
         est, a1 = asa.sample_wait_if(est, bins, has_succ, greedy)
 
-    pw_row = torch.where(need_a0, a0, _take(s.pred_wait, row))
-    ee = torch.maximum(now + pw_row, prev_ee) + _take(s.duration, row)
+    if params is not None:
+        s, est, a0, a1 = _rl_draws(s, est, a0, a1, now, bins, live, params,
+                                   rl_mode, y, row, sc, prev_ee, need_a0,
+                                   has_succ)
 
+    pw_row, ee = _cascade(s, row, need_a0, a0, now, prev_ee)
     pred_wait = _put(s.pred_wait, row, pw_row)
     pred_wait = _put(pred_wait, sc,
                      torch.where(has_succ, a1, _take(pred_wait, sc)))
@@ -433,9 +460,76 @@ def _chain_hook(s: ScenarioState, now: torch.Tensor, bins: torch.Tensor,
     )
 
 
+def _cascade(s: ScenarioState, row: torch.Tensor, need_a0: torch.Tensor,
+             a0: torch.Tensor, now: torch.Tensor, prev_ee: torch.Tensor
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stage y's settled a_y (a_0 where it is drawn now) and its expected
+    end E_y = max(now + a_y, E_{y−1}) + t_y: ``now`` is the admission
+    instant (a same-instant naive cancel may already have rewritten the
+    stage's own submit entry)."""
+    pw_row = torch.where(need_a0, a0, _take(s.pred_wait, row))
+    return pw_row, torch.maximum(now + pw_row, prev_ee) + _take(s.duration,
+                                                                 row)
+
+
+def _rl_draws(s: ScenarioState, est: asa.ASAState, a0: torch.Tensor,
+              a1: torch.Tensor, now: torch.Tensor, bins: torch.Tensor,
+              live: torch.Tensor | None, params, rl_mode: str,
+              y: torch.Tensor, row: torch.Tensor, sc: torch.Tensor,
+              prev_ee: torch.Tensor, need_a0: torch.Tensor,
+              has_succ: torch.Tensor):
+    """The learned policy's leads in lanes of policy id 4, in place of the
+    estimator's ``est``, ``a0`` and ``a1``; returns the state with the
+    observations and actions recorded, and the lanes' est, a0, a1.
+
+    ``"sample"``: a lane's key splits in three (the first kept, the others
+    drawing a_0 and a_{y+1}) in every drain iteration the lane is in
+    (``live``), as the reference's loop body splits it whether or not a
+    chain hook is pending; ``"greedy"``: argmax, no key consumed. The
+    buffer writes are out of place, stage y first, then y + 1 (clamped),
+    which reads the first write where the two coincide."""
+    from repro_torch.rl import features as rl_features
+    from repro_torch.rl import policy as rl_policy
+
+    rl = s.policy == RL
+    est_rl, k0, k1 = s.est, None, None
+    if rl_mode == "sample":
+        ks = prng.split(s.est.key, 3)
+        k0, k1 = ks[:, 1], ks[:, 2]
+        moved = rl if live is None else rl & live
+        est_rl = est_rl._replace(key=torch.where(
+            moved.unsqueeze(1), ks[:, 0], s.est.key))
+
+    def act(obs: torch.Tensor, key: torch.Tensor | None) -> torch.Tensor:
+        if key is None:
+            return rl_policy.act_greedy(params, obs).to(torch.int32)
+        return rl_policy.act_sample(params, obs, key).to(torch.int32)
+
+    obs0 = rl_features.observe(s, y, row, prev_ee, now, bins)
+    i0 = act(obs0, k0)
+    a0_rl = torch.where(need_a0, bins[i0], 0.0)
+    _, ee = _cascade(s, row, need_a0, a0_rl, now, prev_ee)
+    obs1 = rl_features.observe(s, y + 1, sc, ee, now, bins)
+    i1 = act(obs1, k1)
+    a1_rl = torch.where(has_succ, bins[i1], 0.0)
+
+    rec0, rec1 = rl & need_a0, rl & has_succ
+    y1 = (y + 1).clamp_max(s.wf_rows.shape[1] - 1)
+    rl_obs = _put_row(s.rl_obs, y, torch.where(
+        rec0.unsqueeze(1), obs0, _take_row(s.rl_obs, y)))
+    rl_obs = _put_row(rl_obs, y1, torch.where(
+        rec1.unsqueeze(1), obs1, _take_row(rl_obs, y1)))
+    rl_act = _put(s.rl_act, y, torch.where(rec0, i0, _take(s.rl_act, y)))
+    rl_act = _put(rl_act, y1, torch.where(rec1, i1, _take(rl_act, y1)))
+    return (s._replace(rl_obs=rl_obs, rl_act=rl_act),
+            asa.select(rl, est_rl, est), torch.where(rl, a0_rl, a0),
+            torch.where(rl, a1_rl, a1))
+
+
 def _drain_hooks(s: ScenarioState, now: torch.Tensor, bins: torch.Tensor,
                  greedy: bool | torch.Tensor, naive: bool,
-                 hook_pairs: int | None = None
+                 hook_pairs: int | None = None, params=None,
+                 rl_mode: str = "sample"
                  ) -> tuple[ScenarioState, torch.Tensor | None]:
     """Drain the step's pending hooks, learning before predicting, as the
     event-driven simulator does.
@@ -452,38 +546,46 @@ def _drain_hooks(s: ScenarioState, now: torch.Tensor, bins: torch.Tensor,
     no lane in it changes nothing, and neither does any after it. Returns
     the state and, when cut at ``hook_pairs``, a () bool tensor, True if
     some lane would run a further iteration (None for the whole drain,
-    whose bound holds by construction)."""
-    if not naive:
-        s = _start_hook(s, now, bins)
-        s = _chain_hook(s, now, bins, greedy)
-        return s, (s.start_pending | s.chain_pending).any()
+    whose bound holds by construction).
 
+    ``params``/``rl_mode`` feed the chain hook's learned-policy branch,
+    whose key split needs the iteration's lane mask in both programs."""
     def live_lanes(s: ScenarioState) -> torch.Tensor:
         return ~s.repass & (s.start_pending | s.chain_pending).any(dim=1)
+
+    if not naive:
+        live = None if params is None else live_lanes(s)
+        s = _start_hook(s, now, bins)
+        s = _chain_hook(s, now, bins, greedy, live, params, rl_mode)
+        return s, (s.start_pending | s.chain_pending).any()
 
     n_stages = s.wf_rows.shape[1]
     pairs = n_stages if hook_pairs is None else min(hook_pairs, n_stages)
     for _ in range(pairs):
         live = live_lanes(s)
         s = _start_hook(s, now, bins, live)
-        s = _chain_hook(s, now, bins, greedy, live)
+        s = _chain_hook(s, now, bins, greedy, live, params, rl_mode)
     return s, (None if pairs == n_stages else live_lanes(s).any())
 
 
 def sim_step(s: ScenarioState, bins: torch.Tensor, *,
              bf_passes: int = backfill.BF_PASSES, freed_mode: str = "auto",
              pred_mode: str | None = None, naive: bool = False, params=None,
-             faults: bool = False, hook_pairs: int | None = None
+             rl_mode: str = "sample", faults: bool = False,
+             hook_pairs: int | None = None
              ) -> tuple[ScenarioState, torch.Tensor | None]:
     """One event step for every lane. ``pred_mode`` None reads each lane's
     ``pred_greedy`` flag; ``"greedy"``/``"sample"`` fix the rule for the
-    batch. ``naive=False`` asserts that no lane runs ASA-Naive, eliding
-    the cancel/resubmit world; ``faults=False`` that no lane carries
-    capacity-fault events, eliding the fault machinery. ``hook_pairs``
-    cuts the naive drain short (``simulate``'s speculative chunks).
-    Returns the state and the flag of ``_drain_hooks``: the hook overflow
-    without the naive world, a cut drain's unfinished work, else None."""
-    _check_program(params)
+    batch. ``naive=False`` asserts that no lane runs ASA-Naive or the
+    learned policy, eliding the cancel/resubmit world; ``faults=False``
+    that no lane carries capacity-fault events, eliding the fault
+    machinery. ``params``/``rl_mode`` feed the learned-policy branch of
+    the chain hook (``params=None`` elides it); ``rl_mode`` picks sampled
+    (training) or argmax (evaluation) actions. ``hook_pairs`` cuts the
+    naive drain short (``simulate``'s speculative chunks). Returns the
+    state and the flag of ``_drain_hooks``: the hook overflow without the
+    naive world, a cut drain's unfinished work, else None."""
+    check_rl_mode(rl_mode)
     greedy = {None: s.pred_greedy, "greedy": True,
               "sample": False}[pred_mode]
     nxt = next_event_time(s, naive, faults)
@@ -533,7 +635,8 @@ def sim_step(s: ScenarioState, bins: torch.Tensor, *,
             s.trace, segs, t=now, policy=s.policy, step=s.steps))
     s = s._replace(start_pending=s.start_pending | (
         stage_ok & torch.gather(started, 1, rows)))
-    return _drain_hooks(s, now, bins, greedy, naive, hook_pairs)
+    return _drain_hooks(s, now, bins, greedy, naive, hook_pairs, params,
+                        rl_mode)
 
 
 def _bins_for(s: ScenarioState) -> torch.Tensor:
@@ -546,7 +649,7 @@ def simulate(s: ScenarioState, *, n_steps: int,
              chunk_steps: int = CHUNK_STEPS,
              bf_passes: int = backfill.BF_PASSES, freed_mode: str = "auto",
              pred_mode: str | None = None, naive: bool = False, params=None,
-             faults: bool = False) -> ScenarioState:
+             rl_mode: str = "sample", faults: bool = False) -> ScenarioState:
     """Run a batch for up to ``n_steps`` event steps, leaving early once
     every lane is drained.
 
@@ -562,8 +665,8 @@ def simulate(s: ScenarioState, *, n_steps: int,
     iteration to run (read at the chunk's host sync). The iterations it
     cut change nothing when no lane needs them, so the result is the
     whole drain's, bit for bit; states are never written in place, so
-    keeping the first state costs nothing."""
-    _check_program(params)
+    keeping the first state costs nothing. ``params``/``rl_mode``: see
+    ``sim_step``."""
     bins = _bins_for(s)
     spec = SPEC_HOOK_PAIRS if naive and chunk_steps > 0 else None
 
@@ -572,7 +675,8 @@ def simulate(s: ScenarioState, *, n_steps: int,
         for _ in range(k):
             s, left = sim_step(s, bins, bf_passes=bf_passes,
                                freed_mode=freed_mode, pred_mode=pred_mode,
-                               naive=naive, faults=faults, hook_pairs=pairs)
+                               naive=naive, params=params, rl_mode=rl_mode,
+                               faults=faults, hook_pairs=pairs)
             if left is not None:
                 flag = flag | left
         return s, flag
@@ -611,14 +715,17 @@ def sweep(batched: ScenarioState, *, n_steps: int,
           chunk_steps: int = CHUNK_STEPS,
           bf_passes: int = backfill.BF_PASSES, freed_mode: str = "auto",
           pred_mode: str | None = None, naive: bool = False, params=None,
-          faults: bool = False,
+          rl_mode: str = "sample", faults: bool = False,
           device: str | torch.device = DEFAULT_DEVICE) -> ScenarioState:
     """The fleet program: ``simulate`` over a batch that lies on
     ``device``. With the default ``freed_mode="auto"`` the reservation
-    scan runs as the ``freed_scan`` kernel on CUDA."""
+    scan runs as the ``freed_scan`` kernel on CUDA. ``params`` (the policy
+    head's weights, broadcast to every lane) must lie on ``device`` too."""
     dev = resolve_device(device)
     check_device(batched.status, dev, "the scenario batch")
+    for p in params or ():
+        check_device(p, dev, "the policy head's params")
     return simulate(batched, n_steps=n_steps, chunk_steps=chunk_steps,
                     bf_passes=bf_passes, freed_mode=freed_mode,
                     pred_mode=pred_mode, naive=naive, params=params,
-                    faults=faults)
+                    rl_mode=rl_mode, faults=faults)

@@ -418,7 +418,7 @@ def make_grid(cfg: XSimConfig,
 
 def run_grid(grid: ScenarioGrid, fleet: asa.ASAState | None = None, *,
              pred_seed: int = 1, bf_passes: int = backfill.BF_PASSES,
-             freed_mode: str = "auto", params=None,
+             freed_mode: str = "auto", params=None, rl_mode: str = "sample",
              device: str | torch.device = DEFAULT_DEVICE
              ) -> tuple[ScenarioState, dict[str, torch.Tensor]]:
     """Build and sweep the whole grid as one batch on ``device``.
@@ -428,15 +428,22 @@ def run_grid(grid: ScenarioGrid, fleet: asa.ASAState | None = None, *,
     estimator through the sweep; ``pred_seed`` decorrelates the
     per-scenario PRNG streams across sweeps. ``freed_mode`` selects the
     reservation-scan backend (``backfill.FREED_MODES``; the default runs
-    the ``freed_scan`` kernel on CUDA). The program is picked from the
-    grid, statically: the naive cancel/resubmit world when any scenario
-    runs ASA-Naive, the fault machinery when the grid has fault slots.
-    Returns (final_states, metrics dict of (B,) tensors)."""
+    the ``freed_scan`` kernel on CUDA). ``params`` is the learned
+    submission policy's weights (``repro_torch.rl.policy.PolicyParams``),
+    required when the grid holds policy id 4 scenarios; ``rl_mode`` picks
+    sampled (training) or greedy (evaluation) actions for them. The
+    program is picked from the grid, statically: the naive
+    cancel/resubmit world when any scenario runs ASA-Naive or the learned
+    policy, the fault machinery when the grid has fault slots. Returns
+    (final_states, metrics dict of (B,) tensors)."""
     dev = resolve_device(device)
     check_device(grid.keys, dev, "the grid")
     pols = grid.policies.cpu().numpy()
-    if params is not None or bool(np.any(pols == RL)):
-        raise events.not_ported("the learned policy (rl, id 4)", "item 7")
+    if params is None and bool(np.any(pols == RL)):
+        raise ValueError(
+            "grid contains learned-policy (rl, id 4) scenarios; pass "
+            "params= (repro_torch.rl.policy.PolicyParams) to run_grid")
+    events.check_rl_mode(rl_mode)
     if fleet is None:
         fleet = policies.init_fleet(int(grid.geo_idx.max()) + 1, device=dev)
     ests = policies.scenario_estimators(
@@ -447,6 +454,7 @@ def run_grid(grid: ScenarioGrid, fleet: asa.ASAState | None = None, *,
                          bf_passes=bf_passes, freed_mode=freed_mode,
                          pred_mode=grid.cfg.pred_mode,
                          naive=bool(np.any(np.isin(pols, (ASA_NAIVE, RL)))),
+                         params=params, rl_mode=rl_mode,
                          faults=grid.has_faults, device=dev)
     return final, compare.batched_metrics(final)
 
@@ -465,7 +473,9 @@ def warm_fleet(fleet: asa.ASAState, grid: ScenarioGrid, rounds: int = 2,
                device: str | torch.device = DEFAULT_DEVICE) -> asa.ASAState:
     """§4.3 cross-run persistence: sweep, observe first-stage waits (a
     clean per-geometry queue sample), update every geometry's estimator,
-    repeat. Returns the warmed fleet."""
+    repeat. Returns the warmed fleet. ``params`` is forwarded to
+    ``run_grid`` (required only when the grid holds learned-policy
+    scenarios)."""
     dev = resolve_device(device)
     n_geo = fleet.log_p.shape[0]
     # BigJob's and the pilot's row 0 is the peak-cores monolith, not a

@@ -282,6 +282,101 @@ def test_naive_faulty_sweep_kernel_route_bitwise(cuda_device):
     assert bool((fin_k.fault_next == grid.fault_t.shape[1]).all())
 
 
+def _rl_grid(dev, **kw):
+    from repro_torch.xsim import grid as grid_mod
+
+    return grid_mod.make_grid(grid_mod.XSimConfig(**XSIM_CFG),
+                              shrink=1 / 64.0, device=dev, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rl_mode", ["sample", "greedy"])
+def test_rl_sweep_kernel_route_bitwise(cuda_device, rl_mode):
+    """The learned policy beside ASA and ASA-Naive: the sweep through the
+    kernel and through the plain scan give bitwise equal final states, the
+    recorded observations and actions included; every launch ``fused``."""
+    from repro_torch import convert
+    from repro_torch.core import prng
+    from repro_torch.rl import policy as rl_policy
+    from repro_torch.xsim import grid as grid_mod
+
+    grid = _rl_grid(cuda_device, n_seeds=2, policy_ids=(2, 3, 4))
+    params = rl_policy.init_params(prng.PRNGKey(4), device=cuda_device)
+    before = backfill.KERNEL_LAUNCHES["freed_scan"]
+    fused = backfill.DESIGN_LAUNCHES["fused"]
+    fin_k, m = grid_mod.run_grid(grid, params=params, rl_mode=rl_mode,
+                                 device=cuda_device)
+    launched = backfill.KERNEL_LAUNCHES["freed_scan"] - before
+    assert launched > 0
+    assert backfill.DESIGN_LAUNCHES["fused"] - fused == launched
+    fin_r, _ = grid_mod.run_grid(grid, params=params, rl_mode=rl_mode,
+                                 freed_mode="ref", device=cuda_device)
+    assert backfill.KERNEL_LAUNCHES["freed_scan"] - before == launched
+    a, b = convert.to_numpy(fin_k), convert.to_numpy(fin_r)
+    for k in a:
+        assert torch.equal(torch.from_numpy(a[k]), torch.from_numpy(b[k])), k
+    assert torch.equal(m["wf_done"], m["wf_total"])
+    rl = fin_k.policy == 4
+    assert bool((fin_k.rl_act[rl] >= 0).any())
+    assert bool((fin_k.rl_act[~rl] == -1).all())
+
+
+@pytest.mark.cuda
+def test_reinforce_step_on_the_card_against_the_cpu(cuda_device):
+    """One REINFORCE update on a rollout's buffers on the card and on the
+    CPU: new params within 1e-5 relative (of each leaf's largest entry),
+    the entropy within 1e-5."""
+    from repro_torch.core import prng
+    from repro_torch.rl import policy as rl_policy
+    from repro_torch.rl import rollout
+    from repro_torch.rl import train as rl_train
+
+    grid = _rl_grid(cuda_device, n_seeds=4, policy_ids=(4,))
+    params = rl_policy.init_params(prng.PRNGKey(1), device=cuda_device)
+    _, _, traj = rollout.collect(grid, params, device=cuda_device)
+    new_g, ent_g = rl_train.reinforce_step(params, *traj, 0.3)
+    cpu = rl_policy.PolicyParams(*(p.cpu() for p in params))
+    new_c, ent_c = rl_train.reinforce_step(cpu, *(x.cpu() for x in traj),
+                                           0.3)
+    for g, c in zip(new_g, new_c):
+        scale = float(c.abs().max())
+        assert float((g.cpu() - c).abs().max()) <= 1e-5 * scale
+    assert abs(float(ent_g) - float(ent_c)) <= 1e-5 * float(ent_c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rl_mode", ["sample", "greedy"])
+def test_rl_steps_add_no_host_sync(cuda_device, rl_mode):
+    """A chunk of the learned policy's steps (the drain cut as
+    ``simulate``'s first try cuts it, then whole) with CUDA's sync debug
+    mode set to raise on any synchronising call."""
+    from repro_torch.core import prng
+    from repro_torch.core.bins import make_bins
+    from repro_torch.rl import policy as rl_policy
+    from repro_torch.xsim import events, policies
+
+    grid = _rl_grid(cuda_device, n_seeds=1, policy_ids=(2, 3, 4))
+    fleet = policies.init_fleet(int(grid.geo_idx.max()) + 1,
+                                device=cuda_device)
+    s = grid.build(policies.scenario_estimators(
+        fleet, torch.as_tensor(grid.geo_idx, device=cuda_device), 1))
+    bins = torch.as_tensor(make_bins(53), dtype=torch.float32,
+                           device=cuda_device)
+    params = rl_policy.init_params(prng.PRNGKey(2), device=cuda_device)
+    kw = dict(naive=True, pred_mode="greedy", params=params, rl_mode=rl_mode)
+    s, _ = events.sim_step(s, bins, **kw)     # builds the kernel library
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for pairs in (events.SPEC_HOOK_PAIRS,) * 4 + (None,) * 4:
+            s, _ = events.sim_step(s, bins, hook_pairs=pairs, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert int(s.steps.max()) == 9
+    assert bool((s.rl_act[s.policy == 4] >= 0).any())
+
+
 @pytest.mark.cuda
 def test_naive_and_fault_steps_add_no_host_sync(cuda_device):
     """A few steps of the naive-and-faults program, the capacity faults

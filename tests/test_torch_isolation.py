@@ -58,7 +58,9 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.obs.registry, repro_torch.obs.serve_obs, "
             "repro_torch.parallel.fleet, repro_torch.runtime.pool, "
             "repro_torch.runtime.checkpoint, repro_torch.serve.asa, "
-            "repro_torch.serve.chaos, repro_torch.serve.loop;"
+            "repro_torch.serve.chaos, repro_torch.serve.loop, "
+            "repro_torch.rl, repro_torch.rl.features, repro_torch.rl.policy, "
+            "repro_torch.rl.rollout, repro_torch.rl.train;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')];"
             "assert not bad, bad")
@@ -70,8 +72,11 @@ def test_import_leaves_jax_unloaded():
 def test_entry_points_default_to_cuda():
     from repro_torch.configs import ARCHS
     from repro_torch.launch import serve
+    from repro_torch.core import prng
     from repro_torch.models import rwkv6, transformer
     from repro_torch.obs import trace
+    from repro_torch.rl import policy as rl_policy
+    from repro_torch.rl import train as rl_train
     from repro_torch.serve import asa as serve_asa
     from repro_torch.serve import loop
     from repro_torch.xsim import families, grid, policies, state
@@ -92,6 +97,7 @@ def test_entry_points_default_to_cuda():
         assert frozen().trace.head.is_cuda
         assert serve_asa.init_table(4).key.is_cuda
         assert loop.ASAServer(loop.ServeConfig(n_slots=4))._table.t.is_cuda
+        assert rl_policy.init_params(prng.PRNGKey(0)).w1.is_cuda
         return
     for call in (lambda: policies.init_fleet(2),
                  lambda: grid.make_grid(cfg, n_seeds=1),
@@ -108,7 +114,11 @@ def test_entry_points_default_to_cuda():
                  lambda: transformer.init_kv_caches(lm, 1, 4),
                  lambda: serve_asa.init_table(4),
                  lambda: loop.ASAServer(loop.ServeConfig(n_slots=4)),
-                 lambda: loop.ServeSupervisor(loop.ServeConfig(n_slots=4))):
+                 lambda: loop.ServeSupervisor(loop.ServeConfig(n_slots=4)),
+                 lambda: rl_policy.init_params(prng.PRNGKey(0)),
+                 lambda: rl_train.warmed_fleet(rl_train.TrainConfig(), 0),
+                 lambda: rl_train.train(rl_train.TrainConfig(iters=1)),
+                 lambda: rl_train.evaluate(None)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     g = grid.make_grid(cfg, n_seeds=1, policy_ids=(1,), device="cpu")

@@ -217,12 +217,21 @@ def test_own_grid_sampler_matches_reference(reference_grid):
 
 
 def test_unported_programs_raise(reference_grid):
-    """The learned policy (item 7) still raises."""
+    """The learned policy's programs refuse what the reference refuses: a
+    grid with policy id 4 and no ``params``, and an unknown ``rl_mode``
+    (at ``run_grid`` and at ``sweep``)."""
+    from repro_torch.core import prng
+    from repro_torch.rl import policy as rl_policy
+
     cfg, _, st = reference_grid
     base = convert.scenario_state(jax.tree.map(np.asarray, st))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tevents.sweep(base, n_steps=4, device="cpu", params={})
+    params = rl_policy.init_params(prng.PRNGKey(0), device="cpu")
+    with pytest.raises(ValueError, match="rl_mode"):
+        tevents.sweep(base, n_steps=4, device="cpu", params=params,
+                      rl_mode="bogus")
     rl = tgrid.make_grid(tgrid.XSimConfig(**CFG_KW), policy_ids=(4,),
                          n_seeds=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="params"):
         tgrid.run_grid(rl, device="cpu")
+    with pytest.raises(ValueError, match="rl_mode"):
+        tgrid.run_grid(rl, params=params, rl_mode="bogus", device="cpu")
