@@ -9,8 +9,9 @@ checkout, holds each kernel against its plain PyTorch version on the
 card, drives the port's main paths (the fleet simulator's Table-1 sweep,
 untraced and traced, model serving of a dense and an MoE transformer and
 of RWKV-6, the paper's Table-1 and Table-2 runners, the ASA decision
-service and the learned submission policy's training), and checks the
-results. Phases:
+service and the learned submission policy's training, the sharded
+paths over blocks on the card and the ASA campaign scheduler), and
+checks the results. Phases:
 
 1. the card (``nvidia-smi`` name and power limit) and the kernel build;
 2. each kernel against its plain version at the shapes its path uses
@@ -93,7 +94,7 @@ results. Phases:
 11. that naive-and-faults program at full size: phase 4's geometry under
    the ``faulty`` family, policies 2-3 (72 scenarios of 2313 slots), one
    timed run with the same checks and the counts of misses, cancels,
-   kills and hook-drain iterations, then a profiled window of 16 steps;
+   kills and hook-drain iterations;
 12. the paper's tables on the card: (a) the QueueSim differentials of the
    reference's cross-validation tests (6 BigJob, 9 Per-Stage, 12 ASA and
    ASA-Naive, 6 pilot cases and the cancel/resubmit check), each a port
@@ -156,13 +157,29 @@ results. Phases:
    held to the reference's contract: the trained head's reward above the
    init head's, its twt no worse than Per-Stage's and within 15% of
    ASA's, no OH for ASA and Per-Stage; the reward curve, the entropies
-   and the wall seconds printed.
+   and the wall seconds printed;
+16. the sharded paths and the campaign: (a) phase 10's ``faulty`` run
+   (its grid, warmed fleet and ``pred_seed``) through
+   ``run_grid(n_shards=1)`` and over a ``ScenariosMesh`` of 5 blocks on
+   the card (288 scenarios padded to 290), each bitwise phase 10's final
+   state and metrics,
+   ``sharded_sweep_summary``'s counters equal to ``sweep_summary``'s,
+   every launch ``fused`` (and over every card where the host has more
+   than one); (b) phase 15(a)'s rollout over 2 blocks, bitwise with
+   ``rl_obs``/``rl_act`` and the trajectory; (c) phase 14's stream through
+   ``step_once`` on a server of ``ServeConfig(n_shards=1)`` and on one over
+   4 blocks: decisions, slots and every table replica bitwise, the
+   sharded server restored from its checkpoint bitwise, decisions/s
+   printed; (d) ``examples/campaign_schedule.py``'s five stages and four
+   strategies on the port (estimator seed 1, sims 41 and 42), the
+   estimator on the card against the same campaign on the CPU: every
+   outcome equal; the example's table printed.
 
 Matrix products of the plain versions run in full float32 where their
 inputs are float32: TF32 is switched off for matmuls and cuDNN.
 
 The second-to-last line is a JSON object with one entry per ported
-kernel (``freed_scan``'s launches summed over phases 3, 4 and 10-15, by
+kernel (``freed_scan``'s launches summed over phases 3, 4 and 10-16, by
 path beside); the last line is ``{"ok": true, "device": {...}}``. Any
 failure raises and ends the script with a non-zero exit code; without a CUDA
 device it exits non-zero before printing any result.
@@ -1661,11 +1678,13 @@ def check_naive_faults_run(tag: str, family: str, grid, final,
                 restarts=restarts)
 
 
-def table1_families(grid_mod, families, policies, backfill, dev) -> dict:
+def table1_families(grid_mod, families, policies, backfill, dev
+                    ) -> tuple[dict, dict]:
     """Phase 10: ``benchmarks/run.py``'s xsim leg with ASA-Naive (policies
     0-3) under every robustness family, kernel path against plain path,
     bitwise; every launch ``fused``. Returns the kernel paths' launches
-    by family."""
+    by family, and the ``faulty`` run (grid, warmed fleet, final state
+    and metrics of its kernel path) that phase 16(a) shards."""
     cfg = grid_mod.XSimConfig(n_warm=24, n_backlog=16, n_arrivals=24,
                               max_stages=9, t0=3600.0)
     launches = {}
@@ -1712,7 +1731,10 @@ def table1_families(grid_mod, families, policies, backfill, dev) -> dict:
                       keys=("twt_s", "makespan_s", "core_hours", "oh_hours",
                             "misses", "restarts"))
         launches[family] = kern_launches
-    return launches
+        if family == "faulty":
+            faulty = dict(grid=grid, fleet=fleet, final=fin_k, metrics=m_k,
+                          pred_seed=7)
+    return launches, faulty
 
 
 def counting_drain(events_mod, counts: dict):
@@ -1744,8 +1766,9 @@ def counting_drain(events_mod, counts: dict):
 def full_faulty(grid_mod, families, policies, backfill, events_mod,
                 dev) -> int:
     """Phase 11: the naive-and-faults program at full size (phase 4's
-    geometry, the ``faulty`` family, policies 2 and 3); one timed run,
-    then a 16-step profiled window. Returns the run's scan launches."""
+    geometry, the ``faulty`` family, policies 2 and 3); one timed run
+    with its checks and counts, no profiled window. Returns the run's
+    scan launches."""
     cfg = grid_mod.XSimConfig(n_warm=512, n_backlog=768, n_arrivals=1024,
                               max_stages=9)
     grid = families.family_grid(cfg, "faulty", shrink=1.0,
@@ -1754,9 +1777,6 @@ def full_faulty(grid_mod, families, policies, backfill, events_mod,
     check(grid.n == 36 * FAULTY_SEEDS and grid.cfg.max_jobs == 2313,
           f"full-size faulty grid is {grid.n} x {grid.cfg.max_jobs}")
     fleet = policies.init_fleet(int(grid.geo_idx.max()) + 1, device=dev)
-    s0 = grid.build(policies.scenario_estimators(
-        fleet, torch.as_tensor(grid.geo_idx, device=dev), 1))
-
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     drain = {k: zero.clone() for k in ("drain_iterations",
                                        "drain_lane_iterations", "cancels")}
@@ -1791,10 +1811,6 @@ def full_faulty(grid_mod, families, policies, backfill, events_mod,
     strategy_rows(grid, m, tag="full_faulty",
                   keys=("twt_s", "makespan_s", "core_hours", "oh_hours",
                         "misses", "restarts"))
-    # as run_grid runs it: two chunks, each tried with the cut drain
-    device_profile("profile_faulty", lambda: events_mod.simulate(
-        s0, n_steps=16, pred_mode="greedy", naive=True, faults=True), 16,
-        "full-size faulty steps", ("freed_scan",))
     return launches
 
 
@@ -2703,8 +2719,10 @@ def serve_exports(traffic: dict, server) -> None:
           f"scrape_json_series={len(snap)}")
 
 
-def serve_service(grid_mod, families, policies, backfill, dev) -> int:
-    """Phase 14, (a)-(f); returns the load generator's scan launches."""
+def serve_service(grid_mod, families, policies, backfill, dev
+                  ) -> tuple[int, list]:
+    """Phase 14, (a)-(f); returns the load generator's scan launches and
+    the request stream (phase 16(c) replays it)."""
     import tempfile
 
     traffic = build_traffic(grid_mod, families, policies, backfill, dev)
@@ -2715,7 +2733,7 @@ def serve_service(grid_mod, families, policies, backfill, dev) -> int:
         serve_crash_recovery(cfg, traffic["events"], tenants, want, dev)
     serve_card_vs_cpu(traffic["events"], dev)
     serve_exports(traffic, server)
-    return traffic["launches"]
+    return traffic["launches"], traffic["events"]
 
 
 # the learned policy (phase 15): (a) rl.train.TrainConfig()'s geometry, one
@@ -2795,14 +2813,15 @@ def rl_card_vs_cpu(events_mod, policy_mod, s0, fin_k, params, grid) -> None:
           "rl/card_vs_cpu: observations differ in lanes that agree")
 
 
-def rl_full_recipe(backfill, events_mod, dev) -> int:
+def rl_full_recipe(backfill, events_mod, dev) -> tuple[int, dict]:
     """Phase 15(a): ``rl.train.TrainConfig()``'s geometry (B=144, N=73):
     a warmed fleet, one sampled rollout through the kernel and through
     the plain scan, bitwise with the buffers; the card against the CPU
     route; one REINFORCE step on the card against the CPU; 16 profiled RL
     steps; the seconds of a rollout, a step and an iteration, and from
     them the estimated seconds of the 30-iteration recipe. Returns the
-    kernel rollout's scan launches."""
+    kernel rollout's scan launches, and the rollout (grid, fleet, params,
+    final state, trajectory) that phase 16(b) shards."""
     from repro_torch.core import prng
     from repro_torch.obs import metrics as obs_metrics
     from repro_torch.rl import policy as rl_policy
@@ -2913,7 +2932,8 @@ def rl_full_recipe(backfill, events_mod, dev) -> int:
         s0, n_steps=RL_PROFILE_STEPS, pred_mode=grid.cfg.pred_mode,
         naive=True, params=params, rl_mode="sample"), RL_PROFILE_STEPS,
         "RL steps (B=144, N=73)", ("freed_scan",))
-    return launches
+    return launches, dict(grid=grid, fleet=fleet, params=params,
+                          final=fin_k, traj=traj, oh_weight=cfg.oh_weight)
 
 
 def rl_acceptance(backfill, dev) -> int:
@@ -2973,6 +2993,254 @@ def rl_acceptance(backfill, dev) -> int:
           and all(t["drain_frac"] == 1.0 for t in res.telemetry),
           "rl/train: a training rollout left a lane undrained")
     return launches
+
+
+# phase 16: the sharded paths and the campaign. (a) phase 10's faulty run
+# again over SHARD_BLOCKS blocks on the card (288 scenarios pad to 290);
+# (b) phase 15(a)'s rollout over 2 blocks; (c) phase 14's stream through
+# a server over SERVE_SHARD_BLOCKS blocks (256 queries split evenly);
+# (d) examples/campaign_schedule.py's campaign (copied: the smoke imports
+# nothing of the reference), its seeds: estimator 1, sims 41 and 42
+SHARD_BLOCKS, ROLLOUT_SHARD_BLOCKS, SERVE_SHARD_BLOCKS = 5, 2, 4
+CAMPAIGN_STAGES = (("data-prep", 160, 1800.0, "-"),
+                   ("pretrain", 640, 7200.0, "qwen3-moe-235b-a22b"),
+                   ("anneal", 320, 3600.0, "qwen3-moe-235b-a22b"),
+                   ("sft", 320, 2400.0, "deepseek-7b"),
+                   ("eval", 160, 1200.0, "-"))
+CAMPAIGN_SEEDS = dict(est=1, warm=41, sim=42)
+
+
+def metrics_equal(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def sharded_sweeps(faulty: dict, backfill, dev) -> int:
+    """Phase 16(a): phase 10's ``faulty`` run (its grid, warmed fleet and
+    ``pred_seed``) through ``run_grid(n_shards=1)`` and over a mesh of
+    ``SHARD_BLOCKS`` blocks on the card: final states and metrics bitwise
+    phase 10's, ``sharded_sweep_summary``'s counters equal to
+    ``sweep_summary``'s; over every card too where the host has more than
+    one. Returns the sharded runs' scan launches (all ``fused``)."""
+    from repro_torch.launch.mesh import ScenariosMesh, make_scenarios_mesh
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.xsim import grid as grid_mod
+
+    grid, want = faulty["grid"], faulty["final"]
+    meshes = {"n_shards=1": dict(n_shards=1),
+              f"blocks={SHARD_BLOCKS}": dict(
+                  mesh=ScenariosMesh([dev] * SHARD_BLOCKS))}
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        meshes[f"cards={n_cards}"] = dict(mesh=make_scenarios_mesh(None))
+    else:
+        print(f"sharded/multi_card: not run (torch.cuda.device_count() == "
+              f"{n_cards}): every block of this phase lies on one card")
+    reset_scan_counts(backfill)
+    for tag, kw in meshes.items():
+        t0 = time.perf_counter()
+        fin, m = grid_mod.run_grid(grid, faulty["fleet"],
+                                   pred_seed=faulty["pred_seed"], device=dev,
+                                   **kw)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        check(states_equal(fin, want) and metrics_equal(m, faulty["metrics"]),
+              f"sharded/{tag}: the sharded sweep differs from phase 10's")
+        print(f"sharded/{tag}: B={grid.n} N={grid.cfg.max_jobs} "
+              f"run_s={run_s:.6f} bitwise_equal=True")
+    launches = backfill.KERNEL_LAUNCHES["freed_scan"]
+    designs = dict(backfill.DESIGN_LAUNCHES)
+    check(launches > 0 and designs["fused"] == launches,
+          f"sharded: scan launches {launches}, by design {designs}")
+    n_steps = grid.cfg.n_steps
+    one = obs_metrics.sweep_summary(want, n_steps=n_steps)
+    for tag, kw in meshes.items():
+        mesh = kw.get("mesh") or make_scenarios_mesh(1, device=dev)
+        got = obs_metrics.sharded_sweep_summary(want, mesh, n_steps=n_steps)
+        check(got.keys() == one.keys(), f"sharded/{tag}: summary keys")
+        for k, v in one.items():
+            if v.dtype.is_floating_point:
+                check(bool(torch.allclose(got[k], v, rtol=1e-6, atol=0.0)),
+                      f"sharded/{tag}: summary {k} {got[k]} against {v}")
+            else:
+                check(torch.equal(got[k], v),
+                      f"sharded/{tag}: summary counter {k} differs")
+    print(f"sharded: freed_scan_launches={launches} by_design={designs} "
+          f"summary_counters_equal=True padded_to="
+          f"{-(-grid.n // SHARD_BLOCKS) * SHARD_BLOCKS}")
+    return launches
+
+
+def sharded_rollout(rl_run: dict, backfill, dev) -> int:
+    """Phase 16(b): phase 15(a)'s rollout over ``ROLLOUT_SHARD_BLOCKS``
+    blocks on the card: bitwise in every field, ``rl_obs``/``rl_act``
+    included, and the trajectory too. Returns its scan launches."""
+    from repro_torch.launch.mesh import ScenariosMesh
+    from repro_torch.rl import rollout
+
+    reset_scan_counts(backfill)
+    t0 = time.perf_counter()
+    fin, _m, traj = rollout.collect(
+        rl_run["grid"], rl_run["params"], rl_run["fleet"], pred_seed=1,
+        rl_mode="sample", oh_weight=rl_run["oh_weight"],
+        mesh=ScenariosMesh([dev] * ROLLOUT_SHARD_BLOCKS), device=dev)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = backfill.KERNEL_LAUNCHES["freed_scan"]
+    designs = dict(backfill.DESIGN_LAUNCHES)
+    check(launches > 0 and designs["fused"] == launches,
+          f"sharded_rollout: launches {launches}, by design {designs}")
+    check(states_equal(fin, rl_run["final"])
+          and all(torch.equal(a, b) for a, b in zip(traj, rl_run["traj"])),
+          "sharded_rollout: the sharded rollout differs from phase 15(a)'s")
+    print(f"sharded_rollout: B={rl_run['grid'].n} "
+          f"blocks={ROLLOUT_SHARD_BLOCKS} rollout_s={run_s:.6f} "
+          f"bitwise_equal=True freed_scan_launches={launches} "
+          f"by_design={designs}")
+    return launches
+
+
+def _replay_in_step(server, events) -> tuple[list, float]:
+    """The stream through ``step_once`` alone, a batch's worth of submits
+    at a time: the batches are a function of the stream, so two servers
+    fed it alike form the same batches. Returns the decisions and the
+    wall seconds."""
+    out, t0 = [], time.perf_counter()
+    for lo in range(0, len(events), SERVE_BATCH):
+        futs = [server.submit(t, w) for _s, t, w in events[lo:lo
+                                                           + SERVE_BATCH]]
+        while not all(f.done() for f in futs):
+            server.step_once(wait_s=0)
+        out += [(d.tenant, d.lead_s, d.expected_s, d.entropy)
+                for d in (f.result() for f in futs)]
+    return out, time.perf_counter() - t0
+
+
+def sharded_service(events, dev) -> None:
+    """Phase 16(c): phase 14's stream through a server of
+    ``ServeConfig(n_shards=1)`` and one over ``SERVE_SHARD_BLOCKS`` blocks
+    on the card: decisions, slots and tables (posteriors and keys, every
+    replica) bitwise equal; the sharded server restored from its
+    checkpoint, its replicas bitwise the live one's."""
+    import tempfile
+
+    from repro_torch.launch.mesh import ScenariosMesh
+    from repro_torch.serve import asa as serve_asa
+    from repro_torch.serve.loop import ASAServer, ServeConfig
+
+    mesh = ScenariosMesh([dev] * SERVE_SHARD_BLOCKS)
+    with tempfile.TemporaryDirectory() as ckpt:
+        one = ASAServer(ServeConfig(n_slots=SERVE_SLOTS,
+                                    batch_size=SERVE_BATCH, n_shards=1),
+                        device=dev)
+        cfg = ServeConfig(n_slots=SERVE_SLOTS, batch_size=SERVE_BATCH,
+                          checkpoint_dir=ckpt)
+        sharded = ASAServer(cfg, mesh=mesh, device=dev)
+        want, one_s = _replay_in_step(one, events)
+        got, sharded_s = _replay_in_step(sharded, events)
+        check(got == want, "sharded_service: the decisions differ")
+        check(one._slot_of == sharded._slot_of,
+              "sharded_service: the tenants' slots differ")
+        for rep in (serve_asa.first_replica(one._table),) + sharded._table:
+            for a, b in zip(serve_asa.first_replica(one._table), rep):
+                check(torch.equal(a, b),
+                      "sharded_service: a table replica differs")
+        sharded.save(step=1)
+        restored = ASAServer.restore(cfg, step=1, mesh=mesh, device=dev)
+        for rep in restored._table:
+            for a, b in zip(sharded._table[0], rep):
+                check(torch.equal(a, b),
+                      "sharded_service: the restored table differs")
+    print(f"sharded_service: requests={len(events)} "
+          f"blocks={SERVE_SHARD_BLOCKS} replicas={len(sharded._table)} "
+          f"n_shards_1_s={one_s:.6f} sharded_s={sharded_s:.6f} "
+          f"decisions_per_s_n_shards_1={len(events) / one_s:.3f} "
+          f"decisions_per_s_sharded={len(events) / sharded_s:.3f} "
+          f"bitwise_equal=True restored_bitwise=True")
+
+
+def campaign_on_card(dev) -> None:
+    """Phase 16(d): ``examples/campaign_schedule.py`` on the port, the
+    estimator on the card, against the same ASA campaign with the
+    estimator on the CPU in this process: outcomes equal field by field;
+    the example's table printed."""
+    from repro_torch.runtime.campaign import CampaignScheduler, CampaignStage
+    from repro_torch.sched.centers import UPPMAX
+    from repro_torch.sched.queue_sim import QueueSim
+    from repro_torch.sched.strategies import (ASAEstimator, PILOT_STARTUP_S,
+                                              PILOT_TASK_LATENCY_S)
+
+    stages = [CampaignStage(*st) for st in CAMPAIGN_STAGES]
+
+    def fresh_sim(seed=CAMPAIGN_SEEDS["sim"]):
+        sim = QueueSim(UPPMAX, seed=seed)
+        sim.run_until(3600)
+        return sim
+
+    exec_s = sum(st.duration_s for st in stages)
+    peak = max(st.slices for st in stages)
+    rows = {}
+    for name, run_s in (("big-job", exec_s),
+                        ("pilot", exec_s + PILOT_STARTUP_S
+                         + len(stages) * PILOT_TASK_LATENCY_S)):
+        sim = fresh_sim()
+        job = sim.submit(peak, run_s, user=name)
+        sim.run_until_job_ends(job)
+        rows[name] = (job.end_time - job.submit_time, peak * run_s / 3600.0)
+    sim = fresh_sim()
+    t0 = sim.now
+    for st in stages:
+        j = sim.submit(st.slices, st.duration_s, user="ps")
+        sim.run_until_job_ends(j)
+    rows["per-stage"] = (j.end_time - t0, sum(
+        st.slices * st.duration_s for st in stages) / 3600.0)
+
+    reps, walls = {}, {}
+    for tag, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        t0 = time.perf_counter()
+        est = ASAEstimator(seed=CAMPAIGN_SEEDS["est"], device=where)
+        CampaignScheduler(fresh_sim(CAMPAIGN_SEEDS["warm"]), est).run(stages)
+        reps[tag] = CampaignScheduler(fresh_sim(), est).run(stages)
+        walls[tag] = time.perf_counter() - t0
+    rep = reps["card"]
+    check([dataclasses.asdict(o) for o in rep.outcomes]
+          == [dataclasses.asdict(o) for o in reps["cpu"].outcomes],
+          "campaign: the card's outcomes differ from the CPU's")
+    hidden = (sum(o.real_wait_s for o in rep.outcomes[1:])
+              - sum(o.perceived_wait_s for o in rep.outcomes[1:]))
+    check(rep.makespan_s > 0 and hidden > 0,
+          f"campaign: makespan {rep.makespan_s}, hidden wait {hidden}")
+    print(f"campaign: {'strategy':10s} {'makespan_h':>10s} "
+          f"{'slice_h':>9s} {'hidden_wait_h':>13s}")
+    for name, (mk, sh) in rows.items():
+        print(f"campaign: {name:10s} {mk / 3600:10.2f} {sh:9.0f} "
+              f"{'-':>13s}")
+    print(f"campaign: {'ASA':10s} {rep.makespan_s / 3600:10.2f} "
+          f"{rep.slice_hours:9.0f} {hidden / 3600:13.2f}")
+    for o in rep.outcomes:
+        print(f"campaign/stage: {o.name:10s} "
+              f"predicted={o.predicted_wait_s / 3600:6.2f}h "
+              f"real={o.real_wait_s / 3600:6.2f}h "
+              f"perceived={o.perceived_wait_s / 3600:6.2f}h")
+    print(f"campaign: card_s={walls['card']:.6f} cpu_s={walls['cpu']:.6f} "
+          f"outcomes_equal=True")
+
+
+def sharded_and_campaign(faulty: dict, rl_run: dict, events, backfill,
+                         dev) -> dict:
+    """Phase 16, (a)-(d), each part's seconds printed. Returns the scan's
+    launches by path."""
+    paths, t0 = {}, time.perf_counter()
+    paths["sweep/sharded"] = sharded_sweeps(faulty, backfill, dev)
+    t1 = time.perf_counter()
+    paths["rl/rollout_sharded"] = sharded_rollout(rl_run, backfill, dev)
+    t2 = time.perf_counter()
+    sharded_service(events, dev)
+    t3 = time.perf_counter()
+    campaign_on_card(dev)
+    t4 = time.perf_counter()
+    print(f"phase16/seconds: a={t1 - t0:.3f} b={t2 - t1:.3f} "
+          f"c={t3 - t2:.3f} d={t4 - t3:.3f}")
+    return paths
 
 
 class Phases:
@@ -3085,8 +3353,9 @@ def main() -> None:
     # phase 10: the Table-1 setting with ASA-Naive under every family;
     # phase 11: that program at full size under the faulty family (counts
     # reset inside, per path)
-    for family, n in table1_families(grid_mod, families, policies, backfill,
-                                     dev).items():
+    by_family, faulty = table1_families(grid_mod, families, policies,
+                                        backfill, dev)
+    for family, n in by_family.items():
         scan_paths[f"sweep/table1_naive_{family}"] = n
     phases.done("10_table1_families")
     scan_paths["sweep/full_faulty"] = full_faulty(
@@ -3112,15 +3381,22 @@ def main() -> None:
 
     # phase 14: the ASA decision service on traffic from the port's own
     # sweep (counts reset inside, per path)
-    scan_paths["serve/loadgen"] = serve_service(grid_mod, families,
-                                                policies, backfill, dev)
+    scan_paths["serve/loadgen"], events = serve_service(
+        grid_mod, families, policies, backfill, dev)
     phases.done("14_serve_asa")
 
     # phase 15: the learned submission policy (counts reset inside, per
     # path): the training geometry's rollout, then the acceptance recipe
-    scan_paths["rl/rollout"] = rl_full_recipe(backfill, events_mod, dev)
+    scan_paths["rl/rollout"], rl_run = rl_full_recipe(backfill, events_mod,
+                                                      dev)
     scan_paths["rl/train"] = rl_acceptance(backfill, dev)
     phases.done("15_rl")
+
+    # phase 16: the sharded paths over blocks on the card and the ASA
+    # campaign (counts reset inside, per path)
+    scan_paths.update(sharded_and_campaign(faulty, rl_run, events, backfill,
+                                           dev))
+    phases.done("16_sharded_campaign")
     scan_paths["sweep/full"] = full["launches"]["freed_scan"]
     entry.update(launches=sum(scan_paths.values()),
                  launches_by_path=scan_paths)

@@ -1,0 +1,99 @@
+"""The 1-D ``scenarios`` mesh of the fleet's sharded paths (port of
+``repro.launch.mesh``).
+
+Where the reference builds a ``jax.sharding.Mesh`` and ``shard_map``s the
+scenario (or query) axis over it, the port's mesh is a ``ScenariosMesh``:
+the ``torch.device`` of each block, in mesh order. A sharded path splits
+its batch into that many contiguous blocks, runs each block on its
+device and gathers the results in mesh order.
+
+``make_scenarios_mesh`` builds one over the devices of one type, after
+validating the shard count against that type's inventory. A
+``ScenariosMesh`` may also be built directly from any sequence of
+devices, repeats allowed: several blocks on one device. That is the
+port's counterpart of the reference's ``Mesh`` over CPU devices faked
+with ``XLA_FLAGS=--xla_force_host_platform_device_count=N``; the port's
+CPU tests and the chip smoke's one-card blocks use it.
+
+``make_local_mesh`` and ``make_production_mesh`` (the (data, model)
+meshes of training and the dry run) wait for ROADMAP Queue 1 items 9(c)
+and 10.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from repro_torch.device import DEFAULT_DEVICE
+from repro_torch.parallel.fleet import SCENARIO_AXIS
+
+
+class ScenariosMesh:
+    """A 1-D ``scenarios`` mesh: one device per block, in mesh order."""
+
+    axis_names = (SCENARIO_AXIS,)
+
+    def __init__(self, devices: Sequence[str | torch.device]):
+        self.devices = tuple(torch.device(d) for d in devices)
+        if not self.devices:
+            raise ValueError("ScenariosMesh needs at least one device")
+        self.shape = {SCENARIO_AXIS: len(self.devices)}
+
+    def __repr__(self) -> str:
+        return f"ScenariosMesh({[str(d) for d in self.devices]})"
+
+
+def _inventory(device: str | torch.device) -> tuple[str, int]:
+    kind = torch.device(device).type
+    if kind == "cuda":
+        return kind, torch.cuda.device_count()
+    if kind == "cpu":
+        return kind, 1
+    raise ValueError(f"repro_torch runs on 'cuda' or 'cpu', got {kind}")
+
+
+def shards_arg_error(n_shards: int, flag: str = "--shards", *,
+                     device: str | torch.device = DEFAULT_DEVICE
+                     ) -> str | None:
+    """None when ``n_shards`` fits the inventory of ``device``'s type,
+    else the error message (the one source of the shard-count check)."""
+    kind, n_dev = _inventory(device)
+    if 1 <= n_shards <= n_dev:
+        return None
+    return (f"{flag} {n_shards} outside the visible device inventory "
+            f"(1..{n_dev}, device type {kind}); build a ScenariosMesh from "
+            "a list of devices to place several blocks on one device")
+
+
+def make_scenarios_mesh(n_shards: int | None = None, *,
+                        device: str | torch.device = DEFAULT_DEVICE
+                        ) -> ScenariosMesh:
+    """A ``scenarios`` mesh over the first ``n_shards`` devices of
+    ``device``'s type (``None``: all of them), validated before anything
+    is built."""
+    kind, n_dev = _inventory(device)
+    n = n_dev if n_shards is None else n_shards
+    err = shards_arg_error(n, flag="n_shards", device=device)
+    if err is not None:
+        raise ValueError(err)
+    if kind == "cpu":
+        return ScenariosMesh([torch.device("cpu")])
+    return ScenariosMesh([torch.device("cuda", i) for i in range(n)])
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The (pod, data, model) training mesh: not ported yet."""
+    raise NotImplementedError(
+        "repro_torch.launch.mesh.make_production_mesh: the training and "
+        "dry-run meshes are not ported yet (ROADMAP Queue 1, items 9(c) "
+        "and 10)")
+
+
+def make_local_mesh(model: int = 1):
+    """The (data, model) mesh of this host: not ported yet."""
+    raise NotImplementedError(
+        "repro_torch.launch.mesh.make_local_mesh: the training and "
+        "dry-run meshes are not ported yet (ROADMAP Queue 1, items 9(c) "
+        "and 10)")

@@ -9,8 +9,11 @@ the §4.5 bins. ``sweep_summary`` reduces the batch axis on the state's
 device (the reference ``vmap``s the first and sums). Counter columns are
 integer sums, so they are exact; the two float columns
 (``oh_core_hours``, ``steps_frac``) match the reference's to reduction
-order. ``replay_chain_waits`` reconstructs the ASA chain's perceived
-waits from one scenario's ring on the host.
+order. ``sharded_sweep_summary`` reduces each block of a ``scenarios``
+mesh on its device, the pad rows masked out, and sums the blocks' raw
+sums: its counters equal ``sweep_summary``'s exactly, its float columns
+to reduction order. ``replay_chain_waits`` reconstructs the ASA chain's
+perceived waits from one scenario's ring on the host.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 
 from repro_torch.core.bins import M_DEFAULT, make_bins
 from repro_torch.obs import trace as obtrace
+from repro_torch.parallel import fleet as pfleet
 from repro_torch.xsim.state import (ASA_NAIVE, DONE, QUEUED, RL,
                                     ScenarioState)
 
@@ -112,15 +116,22 @@ def scenario_summary(s: ScenarioState, n_steps: int
     return out
 
 
-def sweep_summary(final: ScenarioState, *, n_steps: int
-                  ) -> dict[str, torch.Tensor]:
-    """Fleet-level summary of a batched final state, reduced over the
-    batch on its device: integer columns are sums, ``drain_frac`` and
-    ``steps_frac`` fractions of the scenarios and of their step budget."""
-    out = {k: v.sum(dim=0, dtype=v.dtype)
-           for k, v in scenario_summary(final, n_steps).items()}
-    dev = final.steps.device
-    b = final.steps.shape[0]
+def _sums(per: dict[str, torch.Tensor], mask: torch.Tensor | None = None
+          ) -> dict[str, torch.Tensor]:
+    """Batch-axis sums of per-scenario columns (rows where ``mask`` is
+    False count as zero)."""
+    if mask is not None:
+        per = {k: torch.where(mask.view((-1,) + (1,) * (v.dim() - 1)), v,
+                              torch.zeros((), dtype=v.dtype,
+                                          device=v.device))
+               for k, v in per.items()}
+    return {k: v.sum(dim=0, dtype=v.dtype) for k, v in per.items()}
+
+
+def _fleet(out: dict[str, torch.Tensor], b: int, n_steps: int
+           ) -> dict[str, torch.Tensor]:
+    """The fleet's columns from the raw sums over ``b`` scenarios."""
+    dev = out["steps"].device
     n = torch.full((), float(b), dtype=torch.float32, device=dev)
     out["n_scenarios"] = torch.full((), b, dtype=torch.int32, device=dev)
     out["step_budget"] = torch.full((), n_steps, dtype=torch.int32,
@@ -130,6 +141,37 @@ def sweep_summary(final: ScenarioState, *, n_steps: int
     out["steps_frac"] = out["steps"].to(torch.float32) \
         / torch.clamp_min(n * n_steps, 1.0)
     return out
+
+
+def sweep_summary(final: ScenarioState, *, n_steps: int
+                  ) -> dict[str, torch.Tensor]:
+    """Fleet-level summary of a batched final state, reduced over the
+    batch on its device: integer columns are sums, ``drain_frac`` and
+    ``steps_frac`` fractions of the scenarios and of their step budget."""
+    return _fleet(_sums(scenario_summary(final, n_steps)),
+                  final.steps.shape[0], n_steps)
+
+
+def sharded_sweep_summary(final: ScenarioState, mesh, *, n_steps: int
+                          ) -> dict[str, torch.Tensor]:
+    """``sweep_summary`` reduced block by block over a ``scenarios`` mesh
+    (``launch.mesh.ScenariosMesh``): each block of the padded batch is
+    summarised and summed on its device with the pad rows (copies of
+    scenario 0, ``parallel.fleet.pad_batch``) masked out, only the
+    blocks' raw sums come back to ``final``'s device, where they are added
+    in mesh order and the fractions are taken once. Counter columns equal
+    ``sweep_summary``'s exactly; float columns to reduction order."""
+    b = pfleet.batch_size(final)
+    padded, mask = pfleet.pad_batch(final, mesh.shape[pfleet.SCENARIO_AXIS])
+    blocks = pfleet.split((padded, mask), mesh.devices)
+    home = final.steps.device
+    out = None
+    for block, m in blocks:
+        local = pfleet.replicate(
+            _sums(scenario_summary(block, n_steps), m), home)
+        out = local if out is None else {k: out[k] + v
+                                         for k, v in local.items()}
+    return _fleet(out, b, n_steps)
 
 
 def replay_chain_waits(s: ScenarioState, lane: int = 0

@@ -1,4 +1,4 @@
-"""repro_torch.parallel — the fleet's batch helpers (port of
-``repro.parallel``). The sharded paths (``shard_spec``/``replicated_spec``
-and the splits over several CUDA devices) wait for ROADMAP Queue 1 item
-8(b)."""
+"""repro_torch.parallel — the fleet's batch helpers and scenario-axis
+specs (``fleet``, port of ``repro.parallel.fleet``) and the spec side of
+the sharding rules (``sharding``). The sharded paths split the scenario
+axis over a ``launch.mesh.ScenariosMesh``."""

@@ -1,5 +1,5 @@
-"""Batch-axis padding for batched states and query batches (port of
-``repro.parallel.fleet``'s ``batch_size``, ``pad_batch`` and ``unpad``).
+"""Scenario-axis (fleet) data parallelism helpers (port of
+``repro.parallel.fleet``).
 
 A batched tree is a tensor, or a tuple (NamedTuples included), list or
 dict of batched trees, every tensor carrying the batch on its leading
@@ -7,15 +7,35 @@ axis; ``None`` leaves pass through. ``pad_batch`` pads the leading axis up
 to a multiple of ``n_shards`` with copies of row 0 (a real, runnable row,
 so pad rows never take another control path) and returns the validity
 mask, a bool tensor on the batch's device. The serving loop pads each
-query batch to its one dispatched shape this way.
+query batch to its one dispatched shape this way, and every sharded path
+(``xsim.events.sharded_sweep``, ``xsim.compare.sharded_batched_metrics``,
+``obs.metrics.sharded_sweep_summary``, ``serve.asa.serve_step(mesh=)``)
+pads its batch to a multiple of the mesh's blocks. The pad rows land on
+the last block; drained lanes step as exact no-ops, so they can lengthen
+that block's sweep but never change its results.
 
-``shard_spec``/``replicated_spec`` (the reference's ``PartitionSpec``s)
-wait for the sharded paths, ROADMAP Queue 1 item 8(b).
+``shard_spec``/``replicated_spec`` are the two ``PartitionSpec``s a fleet
+sweep ever needs: the leading axis over the ``scenarios`` mesh axis, and
+everything replicated (the policy head's weights, the tenant table).
 """
 
 from __future__ import annotations
 
 import torch
+
+from repro_torch.parallel.sharding import PartitionSpec
+
+SCENARIO_AXIS = "scenarios"
+
+
+def shard_spec() -> PartitionSpec:
+    """Leading axis on the ``scenarios`` mesh axis, rest replicated."""
+    return PartitionSpec(SCENARIO_AXIS)
+
+
+def replicated_spec() -> PartitionSpec:
+    """Fully replicated (RL params, the serving table)."""
+    return PartitionSpec()
 
 
 def _leaves(tree) -> list[torch.Tensor]:
@@ -72,3 +92,39 @@ def pad_batch(tree, n_shards: int):
 def unpad(tree, n_real: int):
     """Slice a (possibly padded) batched tree back to ``n_real`` rows."""
     return _tree_map(lambda x: x[:n_real], tree)
+
+
+def split(tree, devices) -> list:
+    """A batched tree whose leading axis divides ``len(devices)`` cut into
+    that many contiguous blocks, block ``i`` moved to ``devices[i]`` (the
+    scatter of the reference's ``shard_spec``)."""
+    b = batch_size(tree)
+    k = len(devices)
+    if b % k:
+        raise ValueError(f"batch of {b} does not split into {k} blocks; "
+                         "pad it first (pad_batch)")
+    per = b // k
+    return [_tree_map(lambda x, i=i, d=d: x[i * per:(i + 1) * per].to(d),
+                      tree) for i, d in enumerate(devices)]
+
+
+def replicate(tree, device: torch.device):
+    """``tree`` on ``device`` (the reference's ``replicated_spec``): its
+    tensors copied there, or the tree as it is where they lie there."""
+    return _tree_map(lambda x: x.to(device), tree)
+
+
+def gather(blocks: list, device: torch.device):
+    """The blocks' trees joined along the leading axis in mesh order, on
+    ``device`` (the gather of the reference's ``shard_spec`` output)."""
+    first = blocks[0]
+    if isinstance(first, torch.Tensor):
+        return torch.cat([x.to(device) for x in blocks])
+    if isinstance(first, dict):
+        return {k: gather([x[k] for x in blocks], device) for k in first}
+    if isinstance(first, tuple) and hasattr(first, "_fields"):
+        return type(first)(*(gather(list(xs), device)
+                             for xs in zip(*blocks)))
+    if isinstance(first, (tuple, list)):
+        return type(first)(gather(list(xs), device) for xs in zip(*blocks))
+    return first

@@ -65,14 +65,13 @@ def collect(grid: ScenarioGrid, params, fleet=None, *, pred_seed: int = 1,
     ``"greedy"`` takes the argmax bin (evaluation). ``pred_seed``
     decorrelates the per-scenario action streams between iterations.
     ``freed_mode`` selects the reservation scan (the default runs the
-    ``freed_scan`` kernel on CUDA). The sharded rollout (``n_shards``,
-    ``mesh``) is not ported yet."""
-    if n_shards is not None or mesh is not None:
-        raise NotImplementedError(
-            "repro_torch.rl: the sharded rollout (n_shards=/mesh=) is not "
-            "ported yet (ROADMAP Queue 1, item 8(b))")
+    ``freed_scan`` kernel on CUDA). ``n_shards``/``mesh`` split the
+    episode batch over a ``scenarios`` mesh (params replicated,
+    trajectories gathered), bitwise the single-device rollout, so
+    training curves do not depend on the device count."""
     with torch.no_grad():
         final, m = run_grid(grid, fleet, pred_seed=pred_seed,
                             freed_mode=freed_mode, params=params,
-                            rl_mode=rl_mode, device=device)
+                            rl_mode=rl_mode, n_shards=n_shards, mesh=mesh,
+                            device=device)
         return final, m, trajectory(final, m, oh_weight)

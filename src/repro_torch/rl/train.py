@@ -55,7 +55,7 @@ class TrainConfig:
     center_names: Sequence[str] = ("hpc2n", "uppmax")
     workflows: Sequence[str] = ("montage", "blast", "statistics")
     shrink: float = 1.0 / 64.0
-    n_shards: int | None = None  # device-parallel rollouts (not ported)
+    n_shards: int | None = None  # sharded rollouts (None: one device)
     family: str = "clean"       # robustness family of every grid the run
     #   touches (xsim.families): training rollouts, estimator warm-up and
     #   the held-out evaluation all see the same capacity-fault regime
@@ -66,10 +66,6 @@ class TrainConfig:
         if self.family not in FAMILIES:
             raise ValueError(f"unknown family {self.family!r}; expected "
                              f"one of {FAMILIES}")
-        if self.n_shards is not None:
-            raise NotImplementedError(
-                "repro_torch.rl: device-parallel rollouts (n_shards=) are "
-                "not ported yet (ROADMAP Queue 1, item 8(b))")
 
 
 @dataclass
@@ -133,7 +129,8 @@ def warmed_fleet(cfg: TrainConfig, grid_seed: int, *,
                             shrink=cfg.shrink, seed=grid_seed, device=dev)
     fleet = xpolicies.init_fleet(int(warm_grid.geo_idx.max()) + 1,
                                  device=dev)
-    return warm_fleet(fleet, warm_grid, rounds=cfg.warm_rounds, device=dev)
+    return warm_fleet(fleet, warm_grid, rounds=cfg.warm_rounds,
+                      n_shards=cfg.n_shards, device=dev)
 
 
 def train(cfg: TrainConfig = TrainConfig(), *,
@@ -157,7 +154,8 @@ def train(cfg: TrainConfig = TrainConfig(), *,
                            seed=cfg.seed * 10_000 + i + 1, device=dev)
         final, _, traj = rollout.collect(grid, params, fleet,
                                          pred_seed=i + 1, rl_mode="sample",
-                                         oh_weight=cfg.oh_weight, device=dev)
+                                         oh_weight=cfg.oh_weight,
+                                         n_shards=cfg.n_shards, device=dev)
         rewards.append(float(torch.mean(traj.reward)))
         telemetry.append(obs_metrics.to_host(obs_metrics.sweep_summary(
             final, n_steps=grid.cfg.n_steps)))
@@ -194,7 +192,8 @@ def evaluate(params: P.PolicyParams, cfg: TrainConfig = TrainConfig(), *,
                        n_seeds=n_seeds, shrink=cfg.shrink, seed=eval_seed,
                        device=dev)
     _, m, traj = rollout.collect(grid, params, fleet, pred_seed=eval_seed,
-                                 rl_mode="greedy", oh_weight=w, device=dev)
+                                 rl_mode="greedy", oh_weight=w,
+                                 n_shards=cfg.n_shards, device=dev)
     reward = traj.reward.cpu().numpy()
     m = {k: v.cpu().numpy() for k, v in m.items()}
 

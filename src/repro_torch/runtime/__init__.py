@@ -1,4 +1,5 @@
 """repro_torch.runtime — own copies of the capacity-fault schedule model
 (``runtime.fault``) and the resource pool (``runtime.pool``), the
-resize schedule (``runtime.elastic``), and the checkpoint codec
+reshard plan and the resize schedule (``runtime.elastic``), the ASA
+campaign scheduler (``runtime.campaign``), and the checkpoint codec
 (``runtime.checkpoint``, the reference's on-disk format)."""

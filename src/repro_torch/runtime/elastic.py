@@ -1,18 +1,72 @@
-"""Live capacity plans as fault schedules (own copy of
-``repro.runtime.elastic.resize_schedule``).
+"""Elastic remeshing plans and live capacity plans (port of
+``repro.runtime.elastic``).
 
-A center's malleable capacity (the malleable-job model of Dynamic
-Fractional Resource Scheduling, arXiv 1106.4985) is a sequence of live
-capacity changes, expressed as a ``runtime.fault.FaultSchedule`` that
-``repro_torch.xsim`` folds into its event steps: graceful shrinks drain,
-preemptive shrinks kill and requeue.
+The paper's per-stage resource changes map to changing a training mesh's
+``data`` extent. ``reshard_plan`` reports, per parameter, the old and new
+``PartitionSpec`` (``parallel.sharding``) and the bytes of the leaf, and
+whether it must move: the number a scheduler needs to estimate a
+resize's cost (and what ASA learns to hide in the queue-wait overlap). It
+reads shapes and dtypes only, so a tree of meta tensors gives the plan
+of a published size without allocating it. ``apply_resize``, which
+places the leaves on the new mesh, waits for ROADMAP Queue 1 item 9(c).
+
+``resize_schedule`` is the center-side view of the same elasticity: a
+sequence of live capacity changes (the malleable-job model of Dynamic
+Fractional Resource Scheduling, arXiv 1106.4985) expressed as a
+``runtime.fault.FaultSchedule`` that ``repro_torch.xsim`` folds into its
+event steps: graceful shrinks drain, preemptive shrinks kill and requeue.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Sequence
 
+from repro_torch.parallel.sharding import (ShardingRules, flatten_with_path,
+                                           path_str)
 from repro_torch.runtime import fault as _fault
+
+
+@dataclass
+class ReshardEntry:
+    path: str
+    old_spec: str
+    new_spec: str
+    bytes_total: int
+    moves: bool
+
+
+def reshard_plan(params, old_rules: ShardingRules,
+                 new_rules: ShardingRules) -> list[ReshardEntry]:
+    """One entry per tensor of ``params`` (a tree of dicts, lists and
+    tuples), in the reference's order."""
+    plan = []
+    for path, leaf in flatten_with_path(params):
+        pstr = path_str(path)
+        shape = tuple(leaf.shape)
+        old = old_rules.spec_for(pstr, shape)
+        new = new_rules.spec_for(pstr, shape)
+        nbytes = leaf.numel() * leaf.dtype.itemsize
+        # a leaf moves if its spec changed OR it is sharded over an axis
+        # whose extent changed (same spec string, different shard shape)
+        axes_used = {a for part in new if part
+                     for a in ((part,) if isinstance(part, str) else part)}
+        size_changed = any(
+            old_rules.mesh.shape.get(a) != new_rules.mesh.shape.get(a)
+            for a in axes_used)
+        plan.append(ReshardEntry(
+            path=pstr, old_spec=str(old), new_spec=str(new),
+            bytes_total=nbytes,
+            moves=(str(old) != str(new)) or size_changed))
+    return plan
+
+
+def apply_resize(tree, new_mesh, new_rules: ShardingRules):
+    """Re-placing every leaf under the new mesh: not ported yet."""
+    raise NotImplementedError(
+        "repro_torch.runtime.elastic.apply_resize: placing a parameter tree "
+        "on a resized (data, model) mesh is not ported yet (ROADMAP Queue "
+        "1, item 9(c))")
 
 
 def resize_schedule(steps: Sequence[tuple[float, float]], *,

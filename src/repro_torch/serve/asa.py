@@ -31,8 +31,17 @@ index ``n``, past the table; here each field is extended by one trash row,
 ``index_copy_`` writes every row (the non-observing ones into the trash
 row) and the first ``n`` rows are the new table. Nothing in
 :func:`serve_step` reads the device from the host: the one device-to-host
-read of a batch is :func:`decisions_to_host`. The sharded update
-(``mesh=``) waits for ROADMAP Queue 1 item 8(b).
+read of a batch is :func:`decisions_to_host`.
+
+The sharded step (``serve_step(mesh=)``, a ``launch.mesh.ScenariosMesh``)
+holds the table as **replicas**, one per distinct device of the mesh
+(:func:`replicate`). The query batch splits into the mesh's blocks; each
+block's rows are updated from its device's replica; every block's target
+slots and updated rows are gathered in mesh order (the reference's tiled
+``all_gather``), and every replica applies the same full-batch scatter,
+so the replicas stay identical and equal the single-device table bit for
+bit. The decisions are read once, from the first replica, by the read
+the single-device step runs.
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ import torch
 from repro_torch.core import asa, prng
 from repro_torch.core.bins import make_bins
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.parallel import fleet as pfleet
 
 
 class ServeStepError(RuntimeError):
@@ -103,11 +113,13 @@ def slot_key(seed: int, admissions: int) -> torch.Tensor:
     return prng.fold_in(prng.PRNGKey(seed ^ 0x5A5A5A5A), admissions)
 
 
-def reset_slot(table: asa.ASAState, slot: int,
-               key: torch.Tensor) -> asa.ASAState:
+def reset_slot(table, slot: int, key: torch.Tensor):
     """Re-initialise one slot (tenant eviction → slot reuse): the row
-    returns to the uniform p_0 = 1/m prior with a fresh PRNG key. The
-    fresh row is built on the CPU and copied without a synchronisation."""
+    returns to the uniform p_0 = 1/m prior with a fresh PRNG key, on the
+    table or on every one of its replicas. The fresh row is built on the
+    CPU and copied without a synchronisation."""
+    if not isinstance(table, asa.ASAState):
+        return tuple(reset_slot(r, slot, key) for r in table)
     m = table.log_p.shape[-1]
     fresh = asa.init(m, key.cpu())
     out = []
@@ -133,31 +145,39 @@ def query_to(q: QueryBatch, mask: torch.Tensor,
                        has_obs=d[2].bool()), d[3].bool())
 
 
-def _update_body(table: asa.ASAState, q: QueryBatch,
-                 mask: torch.Tensor) -> asa.ASAState:
-    """Apply the batch's observations to the table (functional: the input
-    table is left as it is)."""
+def _row_updates(table: asa.ASAState, q: QueryBatch, mask: torch.Tensor
+                 ) -> tuple[torch.Tensor, asa.ASAState]:
+    """The batch's updated rows and their target slots: each query's row
+    gathered and given the tuned §4.5 update where the query carries an
+    observation (learn_wait_if leaves the other lanes, PRNG included, as
+    they were); rows that do not observe target the trash row ``n``."""
     m = table.log_p.shape[-1]
     n = table.log_p.shape[0]
     bins = wait_bins(m, table.log_p.device)
     slot = q.slot.long().clamp(0, n - 1)
-
-    # observations: gather each query's row, apply the tuned §4.5 update
-    # where the query carries one (learn_wait_if leaves the other lanes,
-    # PRNG included, as they were)
     rows = asa.ASAState(*(x[slot] for x in table))
     do = mask & q.has_obs
     upd = asa.learn_wait_if(rows, bins, q.observed_wait, do)
+    return torch.where(do, slot, n), upd
 
-    # scatter the updated rows back; rows that do not observe write the
-    # trash row n, so only real observations touch the table
-    tgt = torch.where(do, slot, n)
+
+def _scatter(table: asa.ASAState, tgt: torch.Tensor,
+             upd: asa.ASAState) -> asa.ASAState:
+    """Write the updated rows back (functional: the input table is left
+    as it is); only real observations touch the table."""
+    n = table.log_p.shape[0]
 
     def scatter(t: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
         ext = torch.cat([t, t[:1]])
         ext.index_copy_(0, tgt, u)
         return ext[:n]
     return asa.ASAState(*(scatter(t, u) for t, u in zip(table, upd)))
+
+
+def _update_body(table: asa.ASAState, q: QueryBatch,
+                 mask: torch.Tensor) -> asa.ASAState:
+    """Apply the batch's observations to the table."""
+    return _scatter(table, *_row_updates(table, q, mask))
 
 
 def _read_decisions(table: asa.ASAState, q: QueryBatch) -> DecisionBatch:
@@ -197,12 +217,48 @@ def decisions_to_host(dec: DecisionBatch
     return host[0], host[1], host[2]
 
 
-def serve_step(table: asa.ASAState, q: QueryBatch, mask: torch.Tensor, *,
-               mesh=None) -> tuple[asa.ASAState, DecisionBatch]:
-    """Dispatch one padded query batch on the table's device. The sharded
-    path (``mesh=``) is not ported yet and raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "repro_torch.serve.asa.serve_step: the sharded update (mesh=) "
-            "is not ported yet (ROADMAP Queue 1, item 8(b))")
-    return decision_step(table, q, mask)
+def _distinct(mesh) -> list[torch.device]:
+    return list(dict.fromkeys(mesh.devices))
+
+
+def replicate(table: asa.ASAState, mesh) -> tuple[asa.ASAState, ...]:
+    """The table's replicas: one on each distinct device of ``mesh``, in
+    the order the mesh first names them (the reference's replicated
+    table). The first is the one decisions are read from and checkpoints
+    are saved from."""
+    return tuple(pfleet.replicate(table, d) for d in _distinct(mesh))
+
+
+def first_replica(table) -> asa.ASAState:
+    """The table itself, or the first of its replicas."""
+    return table if isinstance(table, asa.ASAState) else table[0]
+
+
+def _sharded_update(replicas: tuple[asa.ASAState, ...], q: QueryBatch,
+                    mask: torch.Tensor, mesh) -> tuple[asa.ASAState, ...]:
+    """Each block's rows from its device's replica, gathered in mesh
+    order, then the full-batch scatter on every replica."""
+    devs = _distinct(mesh)
+    parts = [_row_updates(replicas[devs.index(d)], bq, bm)
+             for d, (bq, bm) in zip(mesh.devices,
+                                    pfleet.split((q, mask), mesh.devices))]
+    return tuple(_scatter(r, *pfleet.gather(parts, d))
+                 for r, d in zip(replicas, devs))
+
+
+def serve_step(table, q: QueryBatch, mask: torch.Tensor, *, mesh=None
+               ) -> tuple[asa.ASAState | tuple[asa.ASAState, ...],
+                          DecisionBatch]:
+    """Dispatch one padded query batch on the table's device, or, with a
+    ``scenarios`` mesh, over its blocks (the batch must split evenly:
+    ``loop.ServeConfig`` holds ``batch_size % n_shards == 0``). The
+    sharded step takes the table or its replicas (:func:`replicate`) and
+    returns the replicas; ``q`` and ``mask`` lie on the first replica's
+    device. Both paths answer through the one ``_read_decisions``, so
+    equal tables give equal decisions bit for bit."""
+    if mesh is None:
+        return decision_step(table, q, mask)
+    if isinstance(table, asa.ASAState):
+        table = replicate(table, mesh)
+    table = _sharded_update(table, q, mask, mesh)
+    return table, _read_decisions(table[0], q)

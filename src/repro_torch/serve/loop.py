@@ -50,8 +50,13 @@ boundary, before the device step and at checkpoint cadence.
 ``ASAServer``, ``ServeSupervisor`` and ``ASAServer.restore`` take
 ``device=`` (default ``"cuda"``) and raise without a CUDA device unless
 the caller names the CPU; the loop thread sets the device it serves on.
-The sharded step (``ServeConfig.n_shards``, ``mesh=``) waits for ROADMAP
-Queue 1 item 8(b) and raises.
+``ServeConfig.n_shards`` (a mesh over that many devices of the server's
+device type) or ``mesh=`` (a ``launch.mesh.ScenariosMesh``) select the
+sharded step (``serve.asa.serve_step(mesh=)``): the table is held as
+replicas, one per distinct device of the mesh, each batch splits over the
+mesh's blocks, and the queries are served on the first replica's device.
+Checkpoints are saved from the first replica and restored onto every
+replica; ``ServeSupervisor`` passes the mesh through its restarts.
 
 The registry is not part of the checkpoint: counters describe this
 process's lifetime; a restored server starts them at zero while answering
@@ -76,6 +81,7 @@ import torch
 
 from repro_torch.core import asa as core_asa
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.launch.mesh import make_scenarios_mesh
 from repro_torch.obs.serve_obs import ServeObs
 from repro_torch.parallel import fleet as pfleet
 from repro_torch.runtime import checkpoint
@@ -116,7 +122,7 @@ class ServeConfig:
     n_slots: int = 1024        # fixed tenant-table capacity
     m: int = 53                # wait-bin count (paper §4.3)
     batch_size: int = 256      # queries per step (the padded shape)
-    n_shards: Optional[int] = None  # sharded step: not ported (raises)
+    n_shards: Optional[int] = None  # sharded step over N devices
     batch_wait_s: float = 0.002     # max idle wait for the first request
     checkpoint_dir: Optional[str] = None
     checkpoint_every: int = 0  # batches between async snapshots (0 = off)
@@ -185,21 +191,22 @@ class ASAServer:
                  obs: Optional[ServeObs] = None, chaos=None, *,
                  device: str | torch.device = DEFAULT_DEVICE):
         self.cfg = cfg
-        if mesh is not None or cfg.n_shards is not None:
-            raise NotImplementedError(
-                "repro_torch.serve.loop.ASAServer: the sharded step "
-                "(ServeConfig.n_shards, mesh=) is not ported yet (ROADMAP "
-                "Queue 1, item 8(b))")
-        self._mesh = None
         self._device = resolve_device(device)
         if self._device.type == "cuda" and self._device.index is None:
             # the loop thread sets this device: it needs its index
             self._device = torch.device("cuda", torch.cuda.current_device())
+        if mesh is None and cfg.n_shards is not None:
+            mesh = make_scenarios_mesh(cfg.n_shards, device=self._device)
+        self._mesh = mesh
         self._obs = obs if obs is not None else \
             ServeObs(spans=cfg.obs_spans)
         self._chaos = chaos
         self._table = serve_asa.init_table(cfg.n_slots, cfg.m, cfg.seed,
                                            device=self._device)
+        if mesh is not None:
+            # the replicas; queries are served on the first one's device
+            self._table = serve_asa.replicate(self._table, mesh)
+            self._device = self._table[0].log_p.device
         # host-side tenant bookkeeping: the (n_slots,) id array is part of
         # the checkpointed state; the dict/free-list are derived views.
         # int32 on purpose: the reference's codec restores through jnp,
@@ -778,7 +785,8 @@ class ASAServer:
         dirty = np.zeros(self.cfg.n_slots, bool)
         if self._dirty:
             dirty[list(self._dirty)] = True
-        return {"table": self._table, "tenant_ids": self._tenant_ids,
+        return {"table": serve_asa.first_replica(self._table),
+                "tenant_ids": self._tenant_ids,
                 "admissions": np.int32(self._admissions), "dirty": dirty}
 
     def save(self, step: Optional[int] = None) -> Path:
@@ -837,6 +845,8 @@ class ASAServer:
                                   cfg.checkpoint_dir, step,
                                   device=server._device)
         server._table = tree["table"]
+        if server._mesh is not None:
+            server._table = serve_asa.replicate(server._table, server._mesh)
         server._tenant_ids = tree["tenant_ids"].cpu().numpy().astype(
             np.int32)
         server._slot_of = {int(t): s

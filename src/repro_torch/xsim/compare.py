@@ -4,9 +4,10 @@
 ``metrics`` reduces a finished batch of scenarios to the quantities
 ``sched.runner``'s RunMetrics carries (twt_s, makespan_s, core_hours,
 oh_hours, utilization, …), one ``(B,)`` tensor each.
-``scenario_from_queue_sim`` snapshots a live event-driven QueueSim into a
-host-side job table, so both engines run from the identical machine
-state and the numbers can be compared.
+``sharded_batched_metrics`` computes them block by block over a
+``scenarios`` mesh. ``scenario_from_queue_sim`` snapshots a live
+event-driven QueueSim into a host-side job table, so both engines run
+from the identical machine state and the numbers can be compared.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.parallel import fleet as pfleet
 from repro_torch.xsim.state import (ASA, ASA_NAIVE, DONE, PILOT, QUEUED, RL,
                                     RUNNING, ScenarioState, empty_table)
 
@@ -94,6 +96,23 @@ def batched_metrics(final: ScenarioState) -> dict[str, torch.Tensor]:
     """``metrics`` of a batched final state (the port's states are always
     batched, so this is ``metrics`` itself)."""
     return metrics(final)
+
+
+def sharded_batched_metrics(final: ScenarioState, mesh
+                            ) -> dict[str, torch.Tensor]:
+    """``batched_metrics`` over a ``scenarios`` mesh
+    (``launch.mesh.ScenariosMesh``): each device reduces its own block of
+    final states (padded as ``events.sharded_sweep`` pads them) to the
+    per-scenario columns, and only the ``(B,)`` columns are gathered.
+    Equal to ``batched_metrics`` up to reduction order on the summed
+    columns, which is why ``run_grid``, whose contract is bitwise,
+    computes its metrics on the gathered states instead."""
+    b = pfleet.batch_size(final)
+    padded, _mask = pfleet.pad_batch(final,
+                                     mesh.shape[pfleet.SCENARIO_AXIS])
+    blocks = pfleet.split(padded, mesh.devices)
+    return pfleet.unpad(pfleet.gather([metrics(x) for x in blocks],
+                                      final.status.device), b)
 
 
 def wf_rows(s: ScenarioState, lane: int = 0) -> dict[str, np.ndarray]:

@@ -52,6 +52,9 @@ untraced program launches exactly what it launched before tracing.
 
 ``simulate`` runs the steps in chunks and leaves as soon as every lane is
 out of events. The host synchronises once a chunk, never once a step.
+``sharded_sweep`` runs ``sweep`` on each block of a ``scenarios`` mesh
+(``launch.mesh``), each block with its own chunked drain exit, and
+gathers the blocks bitwise into the single-device result.
 """
 
 from __future__ import annotations
@@ -62,6 +65,7 @@ from repro_torch.core import asa, prng
 from repro_torch.core.bins import make_bins
 from repro_torch.device import DEFAULT_DEVICE, check_device, resolve_device
 from repro_torch.obs import trace as obs_trace
+from repro_torch.parallel import fleet as pfleet
 from repro_torch.runtime.fault import FAULT_DRAIN, FAULT_FAIL, FAULT_GROW
 from repro_torch.sched.strategies import (NAIVE_CANCEL_LATENCY_S,
                                           NAIVE_IDLE_THRESHOLD_S)
@@ -729,3 +733,37 @@ def sweep(batched: ScenarioState, *, n_steps: int,
                     bf_passes=bf_passes, freed_mode=freed_mode,
                     pred_mode=pred_mode, naive=naive, params=params,
                     rl_mode=rl_mode, faults=faults)
+
+
+def sharded_sweep(batched: ScenarioState, *, mesh, n_steps: int,
+                  chunk_steps: int = CHUNK_STEPS,
+                  bf_passes: int = backfill.BF_PASSES,
+                  freed_mode: str = "auto", pred_mode: str | None = None,
+                  naive: bool = False, params=None, rl_mode: str = "sample",
+                  faults: bool = False) -> ScenarioState:
+    """``sweep`` split over the blocks of a ``scenarios`` mesh
+    (``launch.mesh.ScenariosMesh``).
+
+    The batch is padded to a multiple of the mesh's blocks with copies of
+    scenario 0 (a valid row, so the pad lanes run the same program), cut
+    into contiguous blocks, and block ``i`` is moved to the mesh's device
+    ``i`` with a copy of ``params`` (replicated). Each block runs the
+    plain ``sweep`` with its own chunked drain exit (and, in the naive
+    world, its own choice to run a chunk again with the whole drain): a
+    block whose scenarios drain early stops stepping while busier blocks
+    run on, and because drained steps are exact no-ops the blocks,
+    gathered in mesh order onto the batch's device and unpadded, equal
+    the single-device ``sweep`` bit for bit. The blocks run one after
+    another."""
+    n_shards = mesh.shape[pfleet.SCENARIO_AXIS]
+    b = pfleet.batch_size(batched)
+    padded, _mask = pfleet.pad_batch(batched, n_shards)
+    outs = []
+    for dev, block in zip(mesh.devices,
+                          pfleet.split(padded, mesh.devices)):
+        outs.append(sweep(
+            block, n_steps=n_steps, chunk_steps=chunk_steps,
+            bf_passes=bf_passes, freed_mode=freed_mode, pred_mode=pred_mode,
+            naive=naive, params=pfleet.replicate(params, dev),
+            rl_mode=rl_mode, faults=faults, device=dev))
+    return pfleet.unpad(pfleet.gather(outs, batched.status.device), b)

@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.core import asa, prng
 from repro_torch.device import DEFAULT_DEVICE, check_device, resolve_device
+from repro_torch.launch.mesh import make_scenarios_mesh
 from repro_torch.obs import trace as obs_trace
 from repro_torch.runtime.fault import FaultSchedule
 from repro_torch.sched.centers import CENTERS, CenterProfile
@@ -419,6 +420,7 @@ def make_grid(cfg: XSimConfig,
 def run_grid(grid: ScenarioGrid, fleet: asa.ASAState | None = None, *,
              pred_seed: int = 1, bf_passes: int = backfill.BF_PASSES,
              freed_mode: str = "auto", params=None, rl_mode: str = "sample",
+             n_shards: int | None = None, mesh=None,
              device: str | torch.device = DEFAULT_DEVICE
              ) -> tuple[ScenarioState, dict[str, torch.Tensor]]:
     """Build and sweep the whole grid as one batch on ``device``.
@@ -434,8 +436,16 @@ def run_grid(grid: ScenarioGrid, fleet: asa.ASAState | None = None, *,
     sampled (training) or greedy (evaluation) actions for them. The
     program is picked from the grid, statically: the naive
     cancel/resubmit world when any scenario runs ASA-Naive or the learned
-    policy, the fault machinery when the grid has fault slots. Returns
-    (final_states, metrics dict of (B,) tensors)."""
+    policy, the fault machinery when the grid has fault slots.
+
+    ``n_shards``/``mesh`` select the sharded path: the scenario axis is
+    split over the blocks of a ``scenarios`` mesh
+    (``events.sharded_sweep``; ``mesh`` wins when both are given,
+    ``n_shards`` builds one over the first N devices of ``device``'s type
+    with ``launch.mesh.make_scenarios_mesh``). The result is bitwise the
+    single-device sweep's, and the metrics are computed on the gathered
+    states, so they are too. Returns (final_states, metrics dict of (B,)
+    tensors)."""
     dev = resolve_device(device)
     check_device(grid.keys, dev, "the grid")
     pols = grid.policies.cpu().numpy()
@@ -444,18 +454,22 @@ def run_grid(grid: ScenarioGrid, fleet: asa.ASAState | None = None, *,
             "grid contains learned-policy (rl, id 4) scenarios; pass "
             "params= (repro_torch.rl.policy.PolicyParams) to run_grid")
     events.check_rl_mode(rl_mode)
+    if mesh is None and n_shards is not None:
+        mesh = make_scenarios_mesh(n_shards, device=dev)
     if fleet is None:
         fleet = policies.init_fleet(int(grid.geo_idx.max()) + 1, device=dev)
     ests = policies.scenario_estimators(
         fleet, torch.as_tensor(grid.geo_idx, device=dev), pred_seed)
     states = grid.build(ests)
-    final = events.sweep(states, n_steps=grid.cfg.n_steps,
-                         chunk_steps=grid.cfg.chunk_steps,
-                         bf_passes=bf_passes, freed_mode=freed_mode,
-                         pred_mode=grid.cfg.pred_mode,
-                         naive=bool(np.any(np.isin(pols, (ASA_NAIVE, RL)))),
-                         params=params, rl_mode=rl_mode,
-                         faults=grid.has_faults, device=dev)
+    kw = dict(n_steps=grid.cfg.n_steps, chunk_steps=grid.cfg.chunk_steps,
+              bf_passes=bf_passes, freed_mode=freed_mode,
+              pred_mode=grid.cfg.pred_mode,
+              naive=bool(np.any(np.isin(pols, (ASA_NAIVE, RL)))),
+              params=params, rl_mode=rl_mode, faults=grid.has_faults)
+    if mesh is None:
+        final = events.sweep(states, device=dev, **kw)
+    else:
+        final = events.sharded_sweep(states, mesh=mesh, **kw)
     return final, compare.batched_metrics(final)
 
 
@@ -469,14 +483,18 @@ def stage_waits(final: ScenarioState, cfg: XSimConfig
 
 
 def warm_fleet(fleet: asa.ASAState, grid: ScenarioGrid, rounds: int = 2,
-               k: int = 8, seed: int = 100, params=None, *,
+               k: int = 8, seed: int = 100, params=None,
+               n_shards: int | None = None, mesh=None, *,
                device: str | torch.device = DEFAULT_DEVICE) -> asa.ASAState:
     """§4.3 cross-run persistence: sweep, observe first-stage waits (a
     clean per-geometry queue sample), update every geometry's estimator,
     repeat. Returns the warmed fleet. ``params`` is forwarded to
     ``run_grid`` (required only when the grid holds learned-policy
-    scenarios)."""
+    scenarios); ``n_shards``/``mesh`` likewise select its sharded
+    sweep."""
     dev = resolve_device(device)
+    if mesh is None and n_shards is not None:
+        mesh = make_scenarios_mesh(n_shards, device=dev)
     n_geo = fleet.log_p.shape[0]
     # BigJob's and the pilot's row 0 is the peak-cores monolith, not a
     # stage-shaped job: each geometry learns from clean stage-0 samples
@@ -484,7 +502,7 @@ def warm_fleet(fleet: asa.ASAState, grid: ScenarioGrid, rounds: int = 2,
                           for lab in grid.labels])
     for r in range(rounds):
         final, _ = run_grid(grid, fleet, pred_seed=seed + r, params=params,
-                            device=dev)
+                            mesh=mesh, device=dev)
         waits, valid = stage_waits(final, grid.cfg)
         w = np.zeros((n_geo, k), np.float32)
         v = np.zeros((n_geo, k), bool)

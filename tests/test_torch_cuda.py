@@ -1168,3 +1168,58 @@ def test_threaded_server_on_the_card_restarts_and_recovers_bitwise(
     finally:
         sup.stop()
     assert got == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3])
+def test_sharded_sweep_kernel_route_bitwise(cuda_device, k):
+    """``run_grid`` of a faulty ASA-Naive grid (72 scenarios) over a
+    ``scenarios`` mesh of k blocks on the card, through the kernel:
+    bitwise the unsharded kernel run and the plain scan's run, metrics
+    included; every block's launches ``fused``."""
+    from repro_torch import convert
+    from repro_torch.launch.mesh import ScenariosMesh
+    from repro_torch.xsim import families
+    from repro_torch.xsim import grid as grid_mod
+
+    cfg = grid_mod.XSimConfig(**XSIM_CFG)
+    grid = families.family_grid(cfg, "faulty", n_seeds=1, shrink=1 / 64.0,
+                                policy_ids=(0, 1, 2, 3), device=cuda_device)
+    want, m0 = grid_mod.run_grid(grid, pred_seed=7, device=cuda_device)
+    plain, _ = grid_mod.run_grid(grid, pred_seed=7, freed_mode="ref",
+                                 device=cuda_device)
+    before = backfill.KERNEL_LAUNCHES["freed_scan"]
+    fused = backfill.DESIGN_LAUNCHES["fused"]
+    got, mk = grid_mod.run_grid(grid, pred_seed=7, device=cuda_device,
+                                mesh=ScenariosMesh([cuda_device] * k))
+    launched = backfill.KERNEL_LAUNCHES["freed_scan"] - before
+    assert launched > 0
+    assert backfill.DESIGN_LAUNCHES["fused"] - fused == launched
+    g = convert.to_numpy(got)
+    for other in (want, plain):
+        o = convert.to_numpy(other)
+        for f in g:
+            assert torch.equal(torch.from_numpy(g[f]),
+                               torch.from_numpy(o[f])), f
+    for f in m0:
+        assert torch.equal(m0[f], mk[f]), f
+
+
+@pytest.mark.cuda
+def test_sharded_serve_step_on_the_card_bitwise(cuda_device):
+    """The decision step over 2 blocks on the card, 40 batches composed:
+    the table (posteriors and keys) and the decisions bitwise the
+    single-device step's."""
+    from repro_torch.launch.mesh import ScenariosMesh
+    from repro_torch.serve import asa as serve_asa
+
+    mesh = ScenariosMesh([cuda_device] * 2)
+    ref = sh = serve_asa.init_table(1536, device=cuda_device, seed=3)
+    for _live, q, mask in _serve_batches(1536, 256, 40, seed=5):
+        qd, md = serve_asa.query_to(q, mask, cuda_device)
+        ref, dec_r = serve_asa.serve_step(ref, qd, md)
+        sh, dec_s = serve_asa.serve_step(sh, qd, md, mesh=mesh)
+        for a, b in zip(ref, serve_asa.first_replica(sh)):
+            assert torch.equal(a, b)
+        for a, b in zip(dec_r, dec_s):
+            assert torch.equal(a, b)

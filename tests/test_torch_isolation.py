@@ -60,7 +60,9 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.runtime.checkpoint, repro_torch.serve.asa, "
             "repro_torch.serve.chaos, repro_torch.serve.loop, "
             "repro_torch.rl, repro_torch.rl.features, repro_torch.rl.policy, "
-            "repro_torch.rl.rollout, repro_torch.rl.train;"
+            "repro_torch.rl.rollout, repro_torch.rl.train, "
+            "repro_torch.launch.mesh, repro_torch.parallel.sharding, "
+            "repro_torch.runtime.campaign;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')];"
             "assert not bad, bad")
@@ -77,6 +79,10 @@ def test_entry_points_default_to_cuda():
     from repro_torch.obs import trace
     from repro_torch.rl import policy as rl_policy
     from repro_torch.rl import train as rl_train
+    from repro_torch.launch import mesh
+    from repro_torch.runtime import campaign
+    from repro_torch.sched.centers import CENTERS
+    from repro_torch.sched.queue_sim import QueueSim
     from repro_torch.serve import asa as serve_asa
     from repro_torch.serve import loop
     from repro_torch.xsim import families, grid, policies, state
@@ -98,6 +104,9 @@ def test_entry_points_default_to_cuda():
         assert serve_asa.init_table(4).key.is_cuda
         assert loop.ASAServer(loop.ServeConfig(n_slots=4))._table.t.is_cuda
         assert rl_policy.init_params(prng.PRNGKey(0)).w1.is_cuda
+        assert campaign.CampaignScheduler(QueueSim(
+            CENTERS["uppmax"], seed=0)).est.state.log_p.is_cuda
+        assert mesh.make_scenarios_mesh().devices[0].type == "cuda"
         return
     for call in (lambda: policies.init_fleet(2),
                  lambda: grid.make_grid(cfg, n_seeds=1),
@@ -118,9 +127,14 @@ def test_entry_points_default_to_cuda():
                  lambda: rl_policy.init_params(prng.PRNGKey(0)),
                  lambda: rl_train.warmed_fleet(rl_train.TrainConfig(), 0),
                  lambda: rl_train.train(rl_train.TrainConfig(iters=1)),
-                 lambda: rl_train.evaluate(None)):
+                 lambda: rl_train.evaluate(None),
+                 lambda: campaign.CampaignScheduler(
+                     QueueSim(CENTERS["uppmax"], seed=0))):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
+    # the default mesh is over the CUDA devices: none here
+    with pytest.raises(ValueError, match="device"):
+        mesh.make_scenarios_mesh()
     g = grid.make_grid(cfg, n_seeds=1, policy_ids=(1,), device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         grid.run_grid(g)

@@ -129,10 +129,14 @@ def test_serve_step_leaves_its_input_table_alone():
 
 
 def test_serve_step_mesh_raises_naming_the_roadmap_item():
+    """The sharded step is ported (tests/test_torch_serve_sharded.py); it
+    raises on a batch its mesh's blocks do not split, naming the pad."""
+    from repro_torch.launch.mesh import ScenariosMesh
+
     table = tserve.init_table(4, device=CPU)
     qp, mask = tfleet.pad_batch(_tq([0], [0.0], [False]), 4)
-    with pytest.raises(NotImplementedError, match=r"8\(b\)"):
-        tserve.serve_step(table, qp, mask, mesh=object())
+    with pytest.raises(ValueError, match="pad_batch"):
+        tserve.serve_step(table, qp, mask, mesh=ScenariosMesh([CPU] * 3))
 
 
 def test_init_table_defaults_to_cuda():

@@ -131,10 +131,14 @@ def test_entry_points_default_to_cuda(tmp_path):
 
 
 def test_sharded_config_raises_naming_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match=r"8\(b\)"):
+    """The sharded server is ported (tests/test_torch_serve_sharded.py):
+    it raises on a shard count past the device inventory (the CPU counts
+    one device) and on a batch the shards do not split."""
+    with pytest.raises(ValueError, match="device"):
         _server(_cfg(n_shards=2))
-    with pytest.raises(NotImplementedError, match=r"8\(b\)"):
-        _server(_cfg(), mesh=object())
+    with pytest.raises(ValueError, match="divisible"):
+        _cfg(n_shards=3)
+    assert _server(_cfg(n_shards=1))._mesh.shape == {"scenarios": 1}
 
 
 def test_fresh_tenant_answers_prior_map():
