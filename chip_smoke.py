@@ -10,8 +10,8 @@ card, drives the port's main paths (the fleet simulator's Table-1 sweep,
 untraced and traced, model serving of a dense and an MoE transformer and
 of RWKV-6, the paper's Table-1 and Table-2 runners, the ASA decision
 service and the learned submission policy's training, the sharded
-paths over blocks on the card and the ASA campaign scheduler), and
-checks the results. Phases:
+paths over blocks on the card and the ASA campaign scheduler, and
+training with checkpoint/restart), and checks the results. Phases:
 
 1. the card (``nvidia-smi`` name and power limit) and the kernel build;
 2. each kernel against its plain version at the shapes its path uses
@@ -120,7 +120,8 @@ checks the results. Phases:
    full-size grid traced, one timed run: the state without its ring
    bitwise phase 4's, the same scan launches, ``sweep_summary`` on the
    card equal to the same summary on the CPU (its peak memory printed),
-   ``trace_meta``; then 16 profiled steps untraced and traced;
+   ``trace_meta``; then 4 profiled steps untraced and traced (16 until
+   phase 17 came);
 14. the ASA decision service (``serve.loop.ASAServer``) at the setting of
    ``benchmarks/serve_latency.py``: (a) its load generator on the port, a
    traced ``clean`` sweep of ASA at 1/64 size with 57 seeds a cell (1026
@@ -149,9 +150,10 @@ checks the results. Phases:
    actions, every launch ``fused``, every workflow done under the step
    budget; the same rollout on the CPU route from the card-built state
    (lanes that part at a near-tie counted and printed with their gaps);
-   one ``reinforce_step`` on the card against the CPU; 16 profiled RL
-   steps; the seconds of a rollout, a REINFORCE step and an iteration,
-   and the estimated seconds of the 30-iteration recipe; (b)
+   one ``reinforce_step`` on the card against the CPU; 4 profiled RL
+   steps (16 until phase 17 came); the seconds of a rollout, a
+   REINFORCE step and an iteration, and the estimated seconds of the
+   30-iteration recipe; (b)
    ``benchmarks/rl_train.py``'s ``SMOKE`` recipe (3 iterations, tiny
    tables) trained and evaluated on the card at its held-out seed 1234,
    held to the reference's contract: the trained head's reward above the
@@ -173,14 +175,30 @@ checks the results. Phases:
    printed; (d) ``examples/campaign_schedule.py``'s five stages and four
    strategies on the port (estimator seed 1, sims 41 and 42), the
    estimator on the card against the same campaign on the CPU: every
-   outcome equal; the example's table printed.
+   outcome equal; the example's table printed;
+17. training (``repro_torch.launch.train``): (a) qwen2-0.5b at its
+   published size (24 layers, d896, vocab 151936; float32 parameters, m
+   and v, bfloat16 activations), batch 4, sequence 1024: 3 steps
+   checkpointed at step 2 (``save_async``, the reference's format), a run
+   of 5 steps resumed from it, and an uninterrupted 5-step run: every
+   loss bitwise equal; the runs' seconds, the checkpoint's bytes and the
+   peak memory; (b) for qwen2 (published size), moonshot-v1-16b-a3b
+   (published width, 2 layers) and rwkv6-3b (published width, 4 layers):
+   training steps on the card (qwen2's timed, seconds a step after the
+   first, and one profiled step: idle share), then one batch's loss under
+   ``no_grad`` through every kernel of the family (flash attention on the
+   tensor cores; the grouped matmul; ``wkv6``) against the plain route,
+   within half a bfloat16 step, the launches counted; (c) a
+   ``make_train_step(use_flash=True)`` step on the card raises (the
+   kernel has no backward) and writes nothing.
 
 Matrix products of the plain versions run in full float32 where their
 inputs are float32: TF32 is switched off for matmuls and cuDNN.
 
 The second-to-last line is a JSON object with one entry per ported
 kernel (``freed_scan``'s launches summed over phases 3, 4 and 10-16, by
-path beside); the last line is ``{"ok": true, "device": {...}}``. Any
+path beside; the model kernels' over phases 5, 6, 8 and 17(b)); the last
+line is ``{"ok": true, "device": {...}}``. Any
 failure raises and ends the script with a non-zero exit code; without a CUDA
 device it exits non-zero before printing any result.
 """
@@ -2204,14 +2222,19 @@ def traced_table1_faulty(grid_mod, families, policies, backfill,
     return launches
 
 
+# phase 13(b)'s two profiled windows (untraced and traced), steps each:
+# cut from 16 to 4 for the smoke's time when phase 17 came
+TRACED_PROFILE_STEPS = 4
+
+
 def traced_full_size(grid_mod, policies, backfill, events_mod, full: dict,
                      dev) -> int:
     """Phase 13(b): phase 4's full-size grid, traced at the default
     capacity, one timed run against phase 4's untraced run (the state
     bitwise once the ring is removed, the same scan launches), the
     summary on the card against the same summary on the CPU, its peak
-    memory, ``trace_meta``; then 16 profiled steps, untraced and traced.
-    Returns the run's scan launches."""
+    memory, ``trace_meta``; then ``TRACED_PROFILE_STEPS`` profiled steps,
+    untraced and traced. Returns the run's scan launches."""
     from repro_torch.obs import export as obs_export
     from repro_torch.obs import metrics as obs_metrics
 
@@ -2279,10 +2302,14 @@ def traced_full_size(grid_mod, policies, backfill, events_mod, full: dict,
     print(f"{tag}/trace_meta: {json.dumps(obs_export.trace_meta(final))}")
     s0 = grid.build(policies.scenario_estimators(
         full["fleet"], torch.as_tensor(grid.geo_idx, device=dev), 1))
+    t0 = time.perf_counter()
     for what, state in (("untraced", full["state"]), ("traced", s0)):
         device_profile(f"profile_{what}", lambda st=state: events_mod.simulate(
-            st, n_steps=16, chunk_steps=0, pred_mode="greedy"), 16,
+            st, n_steps=TRACED_PROFILE_STEPS, chunk_steps=0,
+            pred_mode="greedy"), TRACED_PROFILE_STEPS,
             f"full-size {what} steps", ("freed_scan",))
+    print(f"{tag}/profiles: steps={TRACED_PROFILE_STEPS} "
+          f"seconds={time.perf_counter() - t0:.3f}")
     return launches
 
 
@@ -2744,7 +2771,9 @@ RL_SMOKE = dict(iters=3, n_seeds=8, lr=0.5,
                 sim=dict(n_warm=16, n_backlog=12, n_arrivals=16,
                          max_stages=9, t0=1800.0))
 RL_EVAL_SEED = 1234
-RL_PROFILE_STEPS = 16
+# phase 15(a)'s profiled RL steps: cut from 16 to 4 for the smoke's time
+# when phase 17 came
+RL_PROFILE_STEPS = 4
 # lanes of the card-vs-CPU rollout that may part at a near-tie (the MAP
 # feature of a posterior at a near-tie, or an action's Gumbel top two)
 RL_MAX_PARTED = 0.1
@@ -2817,9 +2846,10 @@ def rl_full_recipe(backfill, events_mod, dev) -> tuple[int, dict]:
     """Phase 15(a): ``rl.train.TrainConfig()``'s geometry (B=144, N=73):
     a warmed fleet, one sampled rollout through the kernel and through
     the plain scan, bitwise with the buffers; the card against the CPU
-    route; one REINFORCE step on the card against the CPU; 16 profiled RL
-    steps; the seconds of a rollout, a step and an iteration, and from
-    them the estimated seconds of the 30-iteration recipe. Returns the
+    route; one REINFORCE step on the card against the CPU;
+    ``RL_PROFILE_STEPS`` profiled RL steps; the seconds of a rollout, a
+    step and an iteration, and from them the estimated seconds of the
+    30-iteration recipe. Returns the
     kernel rollout's scan launches, and the rollout (grid, fleet, params,
     final state, trajectory) that phase 16(b) shards."""
     from repro_torch.core import prng
@@ -2928,10 +2958,13 @@ def rl_full_recipe(backfill, events_mod, dev) -> tuple[int, dict]:
           f"{warm_s + cfg.iters * iter_s:.3f} (warm_fleet_s + {cfg.iters} "
           f"iterations)")
     rl_card_vs_cpu(events_mod, rl_policy, s0, fin_k, params, grid)
+    t0 = time.perf_counter()
     device_profile("profile_rl", lambda: events_mod.simulate(
         s0, n_steps=RL_PROFILE_STEPS, pred_mode=grid.cfg.pred_mode,
         naive=True, params=params, rl_mode="sample"), RL_PROFILE_STEPS,
         "RL steps (B=144, N=73)", ("freed_scan",))
+    print(f"profile_rl/window: steps={RL_PROFILE_STEPS} "
+          f"seconds={time.perf_counter() - t0:.3f}")
     return launches, dict(grid=grid, fleet=fleet, params=params,
                           final=fin_k, traj=traj, oh_weight=cfg.oh_weight)
 
@@ -3243,6 +3276,246 @@ def sharded_and_campaign(faulty: dict, rl_run: dict, events, backfill,
     return paths
 
 
+# phase 17: training on the card. (a) repro_torch.launch.train.train at
+# qwen2-0.5b's published size (24 layers, d896, vocab 151936, tied
+# embeddings; float32 parameters, m and v, bfloat16 activations), batch 4,
+# sequence 1024: 3 steps checkpointed at step 2, a second process-local run
+# of 5 steps that resumes from it, and an uninterrupted 5-step run: every
+# loss of the resumed run equal to the uninterrupted run's, bit for bit
+# (the cut: the resumed run writes no checkpoint of its own, a 6 GB
+# save). (b) At trained parameters, one batch's loss under no_grad through
+# every kernel (flash attention, the grouped matmul, wkv6, on the tensor
+# cores) against the plain route, for each family: TRAIN_CASES (arch,
+# depth, batch; None keeps the published depth), each case trained first
+# (qwen2: 2 untimed steps, 3 timed ones and a profiled step; the others 2
+# steps). The limit is half a bfloat16 step of the loss (2^-9 relative):
+# the routes differ only where they round a bfloat16 activation at other
+# places (flash attention keeps p in float32 where sdpa rounds the
+# weights; the kernels sum in other orders), which moves the float32 mean
+# of the log-probabilities by far less than one rounding step of it, as
+# tests/test_torch_launch_train.py holds the two packages; a wrong mask,
+# head, expert or decay moves it by the loss's own scale. (c) A
+# make_train_step(use_flash=True) step on the card raises (the kernel has
+# no backward) and writes no parameter.
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ = "qwen2-0.5b", 4, 1024
+TRAIN_CASES = (("qwen2-0.5b", None, 4), ("moonshot-v1-16b-a3b", 2, 2),
+               ("rwkv6-3b", 4, 2))
+TRAIN_KERNEL_REL = 2.0 ** -9
+
+
+def _kernel_counters():
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.moe_gmm import ops as gmm_ops
+    from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
+    return {"flash_attention": flash_ops, "grouped_matmul": gmm_ops,
+            "wkv6": wkv_ops}
+
+
+def _reset_kernel_counts() -> None:
+    for mod in _kernel_counters().values():
+        for cnt in (mod.KERNEL_LAUNCHES, mod.DESIGN_LAUNCHES):
+            for k in cnt:
+                cnt[k] = 0
+
+
+def train_restart(dev) -> None:
+    """Phase 17(a): ``launch.train.train`` at published size, restarted
+    from its checkpoint, against the uninterrupted run."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import train as launch_train
+    from repro_torch.runtime import checkpoint as ckpt
+
+    tag = "train/restart"
+    run = dict(reduced=False, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+               log_every=1, device=str(dev))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        free = shutil.disk_usage(tmp).free
+        times = {}
+        t0 = time.perf_counter()
+        r1 = launch_train.train(TRAIN_ARCH, steps=3, ckpt_dir=tmp,
+                                ckpt_every=2, **run)
+        times["first"] = time.perf_counter() - t0
+        check(ckpt.latest_step(tmp) == 2,
+              f"{tag}: no checkpoint of step 2 in {tmp}")
+        ckpt_bytes = sum(f.stat().st_size
+                         for f in Path(tmp, "step_2").iterdir())
+        t0 = time.perf_counter()
+        r2 = launch_train.train(TRAIN_ARCH, steps=5, ckpt_dir=tmp,
+                                ckpt_every=100, **run)
+        times["resumed"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        r3 = launch_train.train(TRAIN_ARCH, steps=5, ckpt_dir=None, **run)
+        times["uninterrupted"] = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    losses = [v for _, v in r3["losses"]]
+    check(all(math.isfinite(v) for v in losses), f"{tag}: losses {losses}")
+    ln_v = math.log(151_936)
+    check(0.2 * ln_v < losses[0] < 3 * ln_v,
+          f"{tag}: first loss {losses[0]} far from ln(vocab) {ln_v:.3f}")
+    check(r1["losses"] == r3["losses"][:3],
+          f"{tag}: the checkpointed run's losses {r1['losses']} differ "
+          f"from the uninterrupted run's {r3['losses'][:3]}")
+    check(r2["losses"] == r3["losses"][2:],
+          f"{tag}: the resumed run's losses {r2['losses']} differ from "
+          f"the uninterrupted run's {r3['losses'][2:]}")
+    print(f"{tag}: arch={TRAIN_ARCH} batch={TRAIN_BATCH} seq={TRAIN_SEQ} "
+          f"losses={losses} resumed_equal=True first_s={times['first']:.3f} "
+          f"resumed_s={times['resumed']:.3f} "
+          f"uninterrupted_s={times['uninterrupted']:.3f} "
+          f"checkpoint_bytes={ckpt_bytes} disk_free_bytes={free} "
+          f"peak_mem_bytes={peak}")
+
+
+def kernel_route_loss(arch: str, layers, batch: int, dev) -> dict:
+    """Phase 17(b), one case: train, then one batch's loss through every
+    kernel of the family against the plain route. Returns the kernel
+    route's launches by kernel."""
+    from repro_torch.configs import ARCHS, ShapeSpec
+    from repro_torch.train import optimizer as OPT
+    from repro_torch.train import step as TS
+    from repro_torch.train.data import make_batch_fn
+
+    cfg = ARCHS[arch]
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    tag = f"train/{cfg.family}"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = OPT.tree_map(lambda p: p.float(),
+                          TS.init_params(cfg, seed=0, device=dev))
+    opt = OPT.init(params)
+    n_params = sum(p.numel() for p in OPT.leaves(params))
+    batch_fn = make_batch_fn(cfg, ShapeSpec("smoke", TRAIN_SEQ, batch,
+                                            "train"), seed=0, device=dev)
+    t0 = time.perf_counter()
+    train_batch = batch_fn(0)
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    eval_batch = batch_fn(1)
+    step = TS.make_train_step(cfg, remat="none")
+    state = {"params": params, "opt": opt}
+
+    def one_step():
+        state["params"], state["opt"], m = step(state["params"],
+                                                state["opt"], train_batch)
+        return m
+
+    for _ in range(2):
+        m = one_step()
+    timed = []
+    if arch == TRAIN_ARCH:
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = one_step()
+            torch.cuda.synchronize()
+            timed.append(time.perf_counter() - t0)
+        device_profile(f"{tag}/profile", one_step, 1,
+                       f"{arch} training steps (batch {batch}, seq "
+                       f"{TRAIN_SEQ})", ())
+    peak = torch.cuda.max_memory_allocated()
+    check(math.isfinite(float(m["loss"])), f"{tag}: loss {m['loss']}")
+    params = state["params"]
+    with torch.no_grad():
+        _reset_kernel_counts()
+        got = float(TS.model_loss(params, eval_batch, cfg, remat="none",
+                                  use_flash=True, use_moe_kernel=True,
+                                  use_kernel=True))
+        launches = {n: sum(mod.KERNEL_LAUNCHES.values())
+                    for n, mod in _kernel_counters().items()}
+        designs = {n: dict(mod.DESIGN_LAUNCHES)
+                   for n, mod in _kernel_counters().items()}
+        want = float(TS.model_loss(params, eval_batch, cfg, remat="none"))
+        plain_launches = sum(sum(mod.KERNEL_LAUNCHES.values())
+                             for mod in _kernel_counters().values())
+    rel = abs(got - want) / abs(want)
+    L = cfg.n_layers
+    expect = ({"flash_attention": L, "grouped_matmul": 0, "wkv6": 0}
+              if cfg.family == "dense" else
+              {"flash_attention": L, "grouped_matmul": 3 * L, "wkv6": 0}
+              if cfg.family == "moe" else
+              {"flash_attention": 0, "grouped_matmul": 0, "wkv6": L})
+    check(launches == expect, f"{tag}: kernel launches {launches}, "
+          f"expected {expect}")
+    check(plain_launches == sum(expect.values()),
+          f"{tag}: the plain route launched a kernel")
+    tensor_cores = {"flash_attention": "wgmma", "grouped_matmul": "wgmma",
+                    "wkv6": "mma"}
+    for name, n in expect.items():
+        check(designs[name].get(tensor_cores[name], 0) == n,
+              f"{tag}: {name} designs {designs[name]}, expected {n} on "
+              f"the tensor cores")
+    check(math.isfinite(got) and rel <= TRAIN_KERNEL_REL,
+          f"{tag}: kernel-route loss {got!r} against the plain route's "
+          f"{want!r}: relative difference {rel:.3e} > {TRAIN_KERNEL_REL}")
+    steps = int(state["opt"].step)
+    line = (f"{tag}: arch={arch} layers={L} d_model={cfg.d_model} "
+            f"params={n_params} batch={batch} seq={TRAIN_SEQ} "
+            f"trained_steps={steps} train_loss={float(m['loss']):.6f} "
+            f"kernel_loss={got!r} plain_loss={want!r} rel_diff={rel:.3e} "
+            f"launches={launches} data_s={data_s:.3f} peak_mem_bytes={peak}")
+    if timed:
+        per_step = sum(timed) / len(timed)
+        line += (f" step_s={[round(t, 6) for t in timed]} "
+                 f"s_per_step={per_step:.6f} "
+                 f"tokens_per_s={batch * TRAIN_SEQ / per_step:.1f}")
+    print(line)
+    if arch == TRAIN_ARCH:
+        refuse_kernel_training(cfg, state, train_batch)
+    return launches
+
+
+def refuse_kernel_training(cfg, state: dict, batch: dict) -> None:
+    """Phase 17(c): a step through the kernels raises and writes nothing."""
+    from repro_torch.train import optimizer as OPT
+    from repro_torch.train import step as TS
+
+    leaves = OPT.leaves(state["params"]) + OPT.leaves(state["opt"].m)
+    versions = [x._version for x in leaves]
+    step0 = int(state["opt"].step)
+    try:
+        TS.make_train_step(cfg, use_flash=True, remat="none")(
+            state["params"], state["opt"], batch)
+    except RuntimeError as e:
+        check("no backward" in str(e), f"train/refuse: raised {e!r}")
+    else:
+        fail("train/refuse: a training step through the flash kernel did "
+             "not raise")
+    check([x._version for x in leaves] == versions
+          and int(state["opt"].step) == step0,
+          "train/refuse: the refused step wrote a parameter or a moment")
+    print("train/refuse: make_train_step(use_flash=True) on the card raised "
+          "RuntimeError (no backward); no parameter or moment written")
+
+
+def training_on_card(dev) -> dict:
+    """Phase 17, (a)-(c), each part's seconds printed. Returns the kernel
+    route's launches by kernel and path."""
+    t0 = time.perf_counter()
+    train_restart(dev)
+    t1 = time.perf_counter()
+    from repro_torch.configs import ARCHS
+
+    paths = {}
+    for arch, layers, batch in TRAIN_CASES:
+        launches = kernel_route_loss(arch, layers, batch, dev)
+        fam = ARCHS[arch].family
+        for name, n in launches.items():
+            if n:
+                paths.setdefault(name, {})[f"train/{fam}_kernel_loss"] = n
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    print(f"phase17/seconds: a={t1 - t0:.3f} b_c={t2 - t1:.3f}")
+    return paths
+
+
 class Phases:
     """Prints each phase's seconds, from the end of the previous one."""
 
@@ -3397,6 +3670,10 @@ def main() -> None:
     scan_paths.update(sharded_and_campaign(faulty, rl_run, events, backfill,
                                            dev))
     phases.done("16_sharded_campaign")
+
+    # phase 17: training on the card (counts reset inside, per path)
+    train_paths = training_on_card(dev)
+    phases.done("17_train")
     scan_paths["sweep/full"] = full["launches"]["freed_scan"]
     entry.update(launches=sum(scan_paths.values()),
                  launches_by_path=scan_paths)
@@ -3413,6 +3690,8 @@ def main() -> None:
     check(by_path["wkv6"]["serve/ssm"] == ssm_layers,
           f"RWKV-6 serving did not launch wkv6 once per layer of its "
           f"prefill ({ssm_layers}): {by_path}")
+    for name, paths in train_paths.items():
+        by_path[name].update(paths)
 
     entries = [entry]
     # each kernel's numbers at its first serve path's own shape

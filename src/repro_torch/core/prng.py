@@ -89,27 +89,32 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     return torch.stack([b1, b2], dim=-1)
 
 
-def bits(key: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
+def bits(key: torch.Tensor, shape: tuple[int, ...], offset: int = 0
+         ) -> torch.Tensor:
     """``jax.random.bits`` (32-bit): uint32 values as int64, shape
-    ``key.shape[:-1] + shape``."""
+    ``key.shape[:-1] + shape``. With ``offset``, the elements at flat
+    indices ``offset ..`` of a larger draw from the same key (a block of
+    rows of it)."""
     shape = tuple(shape)
     n = math.prod(shape)
-    if n >= 2 ** 32:
+    if offset + n >= 2 ** 32:
         raise NotImplementedError("more than 2**32 draws from one key")
-    lo = torch.arange(n, dtype=torch.int64, device=key.device).reshape(shape)
+    lo = torch.arange(offset, offset + n, dtype=torch.int64,
+                      device=key.device).reshape(shape)
     b1, b2 = _hash_counters(key, lo)
     return b1 ^ b2
 
 
 def uniform(key: torch.Tensor, shape: tuple[int, ...] = (),
-            minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
+            minval: float = 0.0, maxval: float = 1.0, offset: int = 0
+            ) -> torch.Tensor:
     """``jax.random.uniform`` in float32, bit for bit: 23 random mantissa
     bits under exponent 0 give [1, 2), then ``f·(hi − lo) + lo``.
 
     XLA contracts that multiply-add into one fused multiply-add, so it is
     evaluated here in float64 (the float32 product is exact there) and
-    rounded once to float32."""
-    b = bits(key, shape)
+    rounded once to float32. ``offset`` as in ``bits``."""
+    b = bits(key, shape, offset)
     f = ((b >> 9) | _ONE_F32_BITS).to(torch.int32).view(torch.float32) - 1.0
     # fills, not copies from host memory, which would synchronise
     lo = torch.full((), minval, dtype=torch.float32, device=key.device)
@@ -136,14 +141,39 @@ def exponential(key: torch.Tensor, shape: tuple[int, ...] = ()
     return -torch.log1p(-uniform(key, shape))
 
 
-def gumbel(key: torch.Tensor, shape: tuple[int, ...] = ()) -> torch.Tensor:
-    """``jax.random.gumbel`` (the default low-range mode)."""
-    return -torch.log(-torch.log(uniform(key, shape, _TINY, 1.0)))
+def gumbel(key: torch.Tensor, shape: tuple[int, ...] = (), offset: int = 0
+           ) -> torch.Tensor:
+    """``jax.random.gumbel`` (the default low-range mode); ``offset`` as in
+    ``bits``."""
+    return -torch.log(-torch.log(uniform(key, shape, _TINY, 1.0, offset)))
 
 
-def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+# elements of Gumbel noise drawn at once by ``categorical(shape=)``
+_GUMBEL_BLOCK = 1 << 24
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor,
+                shape: tuple[int, ...] | None = None) -> torch.Tensor:
     """``jax.random.categorical`` over the last axis (Gumbel-argmax; the
-    first index wins a tie). ``key`` is ``(..., 2)`` with leading dims
-    equal to ``logits.shape[:-1]``; returns int64 indices."""
-    g = gumbel(key, (logits.shape[-1],))
-    return torch.argmax(g + logits, dim=-1)
+    first index wins a tie); returns int64 indices.
+
+    Without ``shape``, ``key`` is ``(..., 2)`` with leading dims equal to
+    ``logits.shape[:-1]``: one key a row. With ``shape``, ``key`` is one
+    ``(2,)`` key and ``logits`` one ``(V,)`` row, and the draw is the
+    reference's ``categorical(key, logits, shape=shape)``: one Gumbel array
+    ``gumbel(key, shape + (V,))``, by flat index, made here a block of rows
+    at a time (about 2**24 elements) so that the whole array is never held
+    at once."""
+    if shape is None:
+        g = gumbel(key, (logits.shape[-1],))
+        return torch.argmax(g + logits, dim=-1)
+    shape = tuple(shape)
+    V = logits.shape[-1]
+    n = math.prod(shape)
+    rows = max(1, _GUMBEL_BLOCK // V)
+    out = torch.empty(n, dtype=torch.int64, device=logits.device)
+    for r0 in range(0, n, rows):
+        r1 = min(n, r0 + rows)
+        g = gumbel(key, (r1 - r0, V), offset=r0 * V)
+        out[r0:r1] = torch.argmax(g + logits, dim=-1)
+    return out.reshape(shape)

@@ -6,6 +6,11 @@ shared library under ``_build/`` beside this file (listed in
 ``.gitignore``), keyed by a hash of the source and the flags, and loaded
 with ``ctypes``. The build uses the sources in the package and nothing
 else. A failed build raises; nothing falls back to a plain version.
+
+A kernel launched through ``ctypes`` writes into a tensor that autograd
+knows nothing of, and none of the kernels has a backward (neither has
+the TPU kernel it replaces). ``refuse_autograd`` is each wrapper's guard
+against a gradient that would silently be missing.
 """
 
 from __future__ import annotations
@@ -18,6 +23,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().with_name("_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -25,6 +32,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 BUILD_INFO: dict[str, dict] = {}   # name -> {"seconds", "cached", "log"}
+
+
+def refuse_autograd(name: str, tensors) -> None:
+    """Raise where autograd would record ``name``'s launch: grad mode on
+    and an input that requires grad."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the hand-written CUDA kernel has no backward (nor has "
+            f"the TPU kernel it replaces), so autograd would get no gradient "
+            f"through it; call it under torch.no_grad() or on tensors that "
+            f"do not require grad, and train through the plain route")
 
 
 def nvcc_path() -> str:

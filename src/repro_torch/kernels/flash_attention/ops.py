@@ -3,9 +3,12 @@ version on CPU tensors (port of ``repro.kernels.flash_attention.ops``).
 
 ``flash_attention(q, k, v, causal=, window=)`` takes q (B, Sq, H, hd) and
 k, v (B, Sk, H, hd) with the heads already GQA-expanded by the caller, as
-the TPU kernel does. On CUDA tensors it launches ``csrc/flash_attention.cu``
-(built with ``nvcc`` at first use) or raises: there is no fallback. On CPU
-tensors it runs ``ref.attention_ref``.
+the TPU kernel does. On CUDA tensors it launches
+``csrc/flash_attention.cu`` (built with ``nvcc`` at first use) or raises:
+there is no fallback. On CPU tensors it runs ``ref.attention_ref``. On
+CUDA tensors it refuses autograd (``cuda_build.refuse_autograd``): the
+kernel has no backward, so a training loss takes the plain version, which
+is differentiable, as the reference's training does off the TPU.
 
 The kernel has two designs, and which one runs is a pure function of type
 and head dim, ``flash_design(dtype, hd)``:
@@ -76,6 +79,7 @@ def _launch(q, k, v, *, causal: bool, window: int,
     ts = (q, k, v)
     if not all(t.is_cuda for t in ts):
         raise ValueError("flash_attention's kernel runs on CUDA tensors only")
+    cuda_build.refuse_autograd("flash_attention", ts)
     if len({t.device for t in ts}) != 1:
         raise ValueError("flash_attention inputs lie on different devices")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \

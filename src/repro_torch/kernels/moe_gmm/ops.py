@@ -5,9 +5,12 @@ tensors, the plain version on CPU tensors (port of
 ``grouped_matmul(x, w)`` is the expert-wise (E, C, D) @ (E, D, F). On CUDA
 tensors it launches ``csrc/moe_gmm.cu`` (built with ``nvcc`` at first use)
 or raises: there is no fallback. On CPU tensors it runs
-``ref.grouped_matmul_ref``. ``grouped_ffn`` composes gate, up and down
-through it; the activation and ``g * u`` stay plain torch, as they sit
-outside the Pallas call in the reference.
+``ref.grouped_matmul_ref``. On CUDA tensors it refuses autograd
+(``cuda_build.refuse_autograd``): the kernel has no backward, so a
+training loss takes the plain version, which is differentiable, as the
+reference's training does off the TPU. ``grouped_ffn`` composes gate, up
+and down through it; the activation and ``g * u`` stay plain torch, as
+they sit outside the Pallas call in the reference.
 
 The kernel has two designs, and which one runs is a pure function of type
 and shape, ``gmm_design(dtype, d, f)``:
@@ -72,6 +75,7 @@ def grouped_matmul_simt(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def _launch(x, w, *, simt: bool) -> torch.Tensor:
     if not (x.is_cuda and w.is_cuda):
         raise ValueError("grouped_matmul's kernel runs on CUDA tensors only")
+    cuda_build.refuse_autograd("grouped_matmul", (x, w))
     if x.device != w.device:
         raise ValueError("grouped_matmul inputs lie on different devices")
     if x.dim() != 3 or w.dim() != 3 or w.shape[:2] != (x.shape[0],

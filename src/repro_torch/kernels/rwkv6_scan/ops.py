@@ -2,14 +2,17 @@
 plain chunked version on CPU tensors (port of
 ``repro.kernels.rwkv6_scan.ops``).
 
-``wkv6(r, k, v, w, u, chunk=, state0=)`` takes r, k, v, w (B, S, H, K)
-and u (H, K), with ``chunk = min(chunk, S)`` dividing S, and returns (out
-(B, S, H, K) in r's type, final state (B, H, K, K) float32). On CUDA
-tensors it launches ``csrc/wkv6.cu`` (built with ``nvcc`` at first use) or
-raises: there is no fallback. On CPU tensors it runs
-``ref.wkv_chunked_ref``. The kernel starts from ``state0`` itself (zeros
-when it is None), which is what the reference's wrapper computes by
-folding state0 in by linearity after a zero-state kernel call.
+``wkv6(r, k, v, w, u, chunk=, state0=)`` takes r, k, v, w (B, S, H, K) and
+u (H, K), with ``chunk = min(chunk, S)`` dividing S, and returns (out (B,
+S, H, K) in r's type, final state (B, H, K, K) float32). On CUDA tensors
+it launches ``csrc/wkv6.cu`` (built with ``nvcc`` at first use) or raises:
+there is no fallback. On CPU tensors it runs ``ref.wkv_chunked_ref``. On
+CUDA tensors it refuses autograd (``cuda_build.refuse_autograd``): the
+kernel has no backward, so a training loss takes the plain version, which
+is differentiable, as the reference's training does off the TPU. The
+kernel starts from ``state0`` itself (zeros when it is None), which is
+what the reference's wrapper computes by folding state0 in by linearity
+after a zero-state kernel call.
 
 The kernel has two designs, and which one runs is a pure function of
 type, head dim and chunk length, ``wkv6_design(dtype, K, chunk)``:
@@ -96,6 +99,7 @@ def _launch(r, k, v, w, u, *, chunk: int, state0, simt: bool):
     ts = (r, k, v, w, u) + (() if state0 is None else (state0,))
     if not all(t.is_cuda for t in ts):
         raise ValueError("wkv6's kernel runs on CUDA tensors only")
+    cuda_build.refuse_autograd("wkv6", ts)
     if len({t.device for t in ts}) != 1:
         raise ValueError("wkv6 inputs lie on different devices")
     if r.dim() != 4 or any(t.shape != r.shape for t in (k, v, w)):

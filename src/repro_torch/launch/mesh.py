@@ -15,18 +15,20 @@ port's counterpart of the reference's ``Mesh`` over CPU devices faked
 with ``XLA_FLAGS=--xla_force_host_platform_device_count=N``; the port's
 CPU tests and the chip smoke's one-card blocks use it.
 
-``make_local_mesh`` and ``make_production_mesh`` (the (data, model)
-meshes of training and the dry run) wait for ROADMAP Queue 1 items 9(c)
-and 10.
+``make_local_mesh`` builds the (data, model) mesh of training over the
+host's devices (a ``DeviceMesh``); ``parallel.sharding`` places parameter
+trees on it. ``make_production_mesh`` (the 16×16 and 2×16×16 meshes of
+the dry run) waits for ROADMAP Queue 1 item 10.
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 
-from repro_torch.device import DEFAULT_DEVICE
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.parallel.fleet import SCENARIO_AXIS
 
 
@@ -83,17 +85,44 @@ def make_scenarios_mesh(n_shards: int | None = None, *,
     return ScenariosMesh([torch.device("cuda", i) for i in range(n)])
 
 
+class DeviceMesh:
+    """A mesh of devices with named axes: ``devices`` is an array of
+    ``torch.device`` of the mesh's shape, ``shape`` maps each axis name to
+    its extent (as a ``jax.sharding.Mesh``'s does) and ``device`` is the
+    first device, where a leaf that no axis splits is placed."""
+
+    def __init__(self, devices, axis_names: Sequence[str]):
+        self.devices = np.asarray(devices, dtype=object)
+        self.axis_names = tuple(axis_names)
+        if self.devices.ndim != len(self.axis_names) or not self.devices.size:
+            raise ValueError(f"a mesh of shape {self.devices.shape} cannot "
+                             f"carry axes {self.axis_names}")
+        self.shape = dict(zip(self.axis_names, self.devices.shape))
+        self.device = self.devices.flat[0]
+
+    def __repr__(self) -> str:
+        devs = [str(d) for d in self.devices.flat]
+        return f"DeviceMesh({self.shape}, {devs})"
+
+
 def make_production_mesh(*, multi_pod: bool = False):
-    """The (pod, data, model) training mesh: not ported yet."""
+    """The (pod, data, model) mesh of the dry run: not ported yet."""
     raise NotImplementedError(
-        "repro_torch.launch.mesh.make_production_mesh: the training and "
-        "dry-run meshes are not ported yet (ROADMAP Queue 1, items 9(c) "
-        "and 10)")
+        "repro_torch.launch.mesh.make_production_mesh: the dry-run meshes "
+        "are not ported yet (ROADMAP Queue 1, item 10)")
 
 
-def make_local_mesh(model: int = 1):
-    """The (data, model) mesh of this host: not ported yet."""
-    raise NotImplementedError(
-        "repro_torch.launch.mesh.make_local_mesh: the training and "
-        "dry-run meshes are not ported yet (ROADMAP Queue 1, items 9(c) "
-        "and 10)")
+def make_local_mesh(model: int = 1, *,
+                    device: str | torch.device = DEFAULT_DEVICE
+                    ) -> DeviceMesh:
+    """The (data, model) mesh of this host's devices of ``device``'s type
+    (every CUDA device, or the one CPU), shaped ``(n // model, model)``."""
+    kind, n = _inventory(resolve_device(device))
+    if model < 1 or n % model:
+        raise ValueError(f"model={model} does not divide the {n} visible "
+                         f"{kind} device(s)")
+    devs = ([torch.device("cpu")] if kind == "cpu"
+            else [torch.device("cuda", i) for i in range(n)])
+    grid = np.empty(n, dtype=object)
+    grid[:] = devs
+    return DeviceMesh(grid.reshape(n // model, model), ("data", "model"))

@@ -7,12 +7,16 @@ with the unembedding.
 Parameters are nested dicts laid out as the reference's: per-layer
 leaves are STACKED on a leading L axis under ``"layers"``, and a Python
 loop over layers takes the place of ``maybe_scan`` (``layer(stacked,
-i)`` is a dict of views).
+i)`` is a dict of views). ``remat_layer`` wraps a training forward's
+layer body in the reference's activation-checkpoint policies.
 """
 
 from __future__ import annotations
 
+from functools import partial
+
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -85,6 +89,47 @@ def fill_specs(specs: dict, cfg: ModelConfig, *, seed: int,
             t.fill_(leaf.fill)
         flat[path] = t
     return unflatten(flat)
+
+
+# The weight products of a layer: what the reference's "dots" policy
+# (``checkpoint_dots_with_no_batch_dims``) saves. Every ``x @ w`` of the
+# port's layers (projections, MLPs, the router, RWKV-6's mixes and decay
+# LoRA) reaches the dispatcher as ``aten.mm`` on a folded view; the
+# products with batch dims (attention's scores and values, the MoE's
+# expert einsums, the WKV scan's einsums) reach it as ``aten.bmm`` and
+# are recomputed, as the reference recomputes its dot_generals with batch
+# dims.
+NO_BATCH_DOTS = frozenset({torch.ops.aten.mm.default,
+                           torch.ops.aten.addmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in NO_BATCH_DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_layer(body, remat: str):
+    """``body(lp, x) -> x`` under an activation-checkpoint policy, as the
+    reference's ``remat``: "none" keeps every activation; "full" saves the
+    layer's inputs only and recomputes the layer in the backward
+    (``torch.utils.checkpoint``, non-reentrant); "dots" also saves the
+    outputs of the weight products (``NO_BATCH_DOTS``) and recomputes the
+    rest (selective checkpointing). No policy changes a value: the
+    recomputation runs the same operations on the same inputs. Without
+    autograd the body runs as it is."""
+    if remat == "none":
+        return body
+    if remat not in ("full", "dots"):
+        raise ValueError(f"remat must be none, full or dots, got {remat!r}")
+    kw = ({"context_fn": partial(ckpt.create_selective_checkpoint_contexts,
+                                 _dots_policy)} if remat == "dots" else {})
+
+    def run(lp, x):
+        if not torch.is_grad_enabled():
+            return body(lp, x)
+        return ckpt.checkpoint(body, lp, x, use_reentrant=False, **kw)
+
+    return run
 
 
 def layer(layers: dict, i: int) -> dict:

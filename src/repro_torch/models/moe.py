@@ -21,6 +21,7 @@ einsums. Routing follows the reference exactly:
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.moe_gmm import ops as gmm_ops
@@ -112,3 +113,14 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig,
     for j in range(1, k):
         out = out + contrib[per_tok[:, j]]
     return out.reshape(B, S, D)
+
+
+def aux_load_balance_loss(logits: torch.Tensor, expert_idx: torch.Tensor,
+                          n_experts: int, top_k: int) -> torch.Tensor:
+    """Switch-style auxiliary loss: logits (N, E) router logits,
+    expert_idx (N, k) the picks."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    me = torch.mean(probs, dim=0)
+    one_hot = F.one_hot(expert_idx.long(), n_experts).float().sum(dim=1)
+    ce = torch.mean(one_hot, dim=0) / top_k
+    return n_experts * torch.sum(me * ce)

@@ -199,14 +199,20 @@ def _block(lp, x, cfg: ModelConfig, *, use_kernel: bool, tm_shift=None,
     return x + h, (tm_new, cm_new, wkv_new)
 
 
-def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig
-            ) -> torch.Tensor:
-    """Teacher-forced forward from a zero state -> logits (B, S, V),
-    through the plain chunked scan, as the reference's default."""
+def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
+            remat: str = "none", use_kernel: bool = False) -> torch.Tensor:
+    """Teacher-forced forward from a zero state -> logits (B, S, V). The
+    default is the plain chunked scan, as the reference's; ``use_kernel``
+    runs ``ops.wkv6`` (the CUDA kernel on CUDA tensors, which has no
+    backward). remat: none | full | dots (``lm.remat_layer``)."""
     x = L.embed(params["embed"], tokens, lm.act_dtype(cfg))
+
+    def body(lp, x):
+        return _block(lp, x, cfg, use_kernel=use_kernel)[0]
+
+    body = lm.remat_layer(body, remat)
     for i in range(cfg.n_layers):
-        x, _ = _block(lm.layer(params["layers"], i), x, cfg,
-                      use_kernel=False)
+        x = body(lm.layer(params["layers"], i), x)
     return lm.unembed(params, x, cfg)
 
 

@@ -9,23 +9,33 @@ dict of views; the helpers every family shares are in ``models.lm``).
 ``torch.Generator`` on the device and ``convert.lm_params`` from a
 reference tree.
 
-``prefill`` and ``decode_step`` take ``use_flash``/``use_moe_kernel``
-(named as in the reference's ``_layer_apply``) and pass them to
-``layers.attention`` and ``moe.apply_moe``: on CUDA tensors those run the
-hand-written kernels. ``decode_step`` writes the KV cache IN PLACE at the
+``forward``, ``prefill`` and ``decode_step`` take ``use_flash``/
+``use_moe_kernel`` (named as in the reference's ``_layer_apply``) and pass
+them to ``layers.attention`` and ``moe.apply_moe``: on CUDA tensors those
+run the hand-written kernels, which have no backward (their wrappers
+refuse autograd there), so a training loss takes the plain route, as the
+reference's does. ``decode_step`` writes the KV cache IN PLACE at the
 write index; the reference returns an updated copy.
+
+The losses: ``loss_fn`` (log-softmax of the float32 logits) and
+``vocab_parallel_xent`` (the cross-entropy from the final hidden state
+without a gather over the vocabulary), with ``unembed_matrix``.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models.lm import (act_dtype, fill_specs, flatten, layer,
-                                   padded_vocab, stacked, unembed)
+                                   padded_vocab, remat_layer, stacked,
+                                   unembed)
 
 
 def _layer_specs(cfg: ModelConfig) -> dict:
@@ -97,16 +107,36 @@ def _embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     return x
 
 
-def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig
-            ) -> torch.Tensor:
-    """Teacher-forced forward -> logits (B, S, V_padded), through the plain
-    route (``sdpa`` and einsum expert FFNs), as the reference's default."""
+def _unported_prefix() -> NotImplementedError:
+    return NotImplementedError(
+        "repro_torch.models.transformer: the VLM prefix (prefix_embeds) is "
+        "not ported yet (ROADMAP Queue 1, item 9(c))")
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
+            prefix_embeds: Optional[torch.Tensor] = None,
+            use_flash: bool = False, remat: str = "none",
+            return_hidden: bool = False,
+            use_moe_kernel: bool = False) -> torch.Tensor:
+    """Training/eval forward -> logits (B, S, V_padded), or with
+    ``return_hidden`` the final-normed hidden state (B, S, D). The default
+    is the plain route (``sdpa`` and einsum expert FFNs), as the
+    reference's. remat: none | full | dots, the activation-checkpoint
+    policy on each layer (``lm.remat_layer``)."""
+    if prefix_embeds is not None:
+        raise _unported_prefix()
     x = _embed(params, tokens, cfg)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
+
+    def body(lp, x):
+        return _block(lp, x, cfg, positions=positions, use_flash=use_flash,
+                      use_moe_kernel=use_moe_kernel)[0]
+
+    body = remat_layer(body, remat)
     for i in range(cfg.n_layers):
-        x, _ = _block(layer(params["layers"], i), x, cfg,
-                      positions=positions, use_flash=False,
-                      use_moe_kernel=False)
+        x = body(layer(params["layers"], i), x)
+    if return_hidden:
+        return L.apply_norm(params["final_norm"], x, cfg.norm_eps, cfg.norm)
     return unembed(params, x, cfg)
 
 
@@ -151,3 +181,46 @@ def init_kv_caches(cfg: ModelConfig, batch: int, max_seq: int, *,
     shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.hd)
     return {"k": torch.zeros(shape, dtype=act_dtype(cfg), device=dev),
             "v": torch.zeros(shape, dtype=act_dtype(cfg), device=dev)}
+
+
+def loss_fn(params: dict, tokens: torch.Tensor, labels: torch.Tensor,
+            cfg: ModelConfig, *, prefix_embeds=None, use_flash: bool = False,
+            remat: str = "dots", use_moe_kernel: bool = False
+            ) -> torch.Tensor:
+    """Mean next-token cross-entropy over (B, S), from the float32
+    log-softmax of the logits."""
+    if prefix_embeds is not None:
+        raise _unported_prefix()
+    logits = forward(params, tokens, cfg, use_flash=use_flash, remat=remat,
+                     use_moe_kernel=use_moe_kernel)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(logp, -1, labels[..., None].long())[..., 0]
+    return -torch.mean(ll)
+
+
+def unembed_matrix(params: dict, cfg: ModelConfig, dtype) -> torch.Tensor:
+    """The (D, V_padded) unembedding: the tied table transposed, or
+    ``lm_head``."""
+    if cfg.tie_embeddings:
+        return params["embed"]["table"].to(dtype).T
+    return params["lm_head"].to(dtype)
+
+
+def vocab_parallel_xent(hidden: torch.Tensor, params: dict,
+                        labels: torch.Tensor, cfg: ModelConfig
+                        ) -> torch.Tensor:
+    """Cross-entropy without gathering over the vocabulary axis: the
+    reductions (max, sum-exp, the label's logit by a one-hot einsum) run
+    over it, and the vocab padding is masked additively, as the
+    reference's (whose vocab axis is sharded over ``model``)."""
+    w = unembed_matrix(params, cfg, hidden.dtype)        # (D, Vp)
+    logits = (hidden @ w).float()                        # (B, S, Vp)
+    pv, v = logits.shape[-1], cfg.vocab_size
+    if pv != v:
+        pad = torch.arange(pv, device=logits.device) >= v
+        logits = logits + pad.float() * -1e30
+    m = torch.amax(logits, dim=-1, keepdim=True)
+    lse = torch.log(torch.sum(torch.exp(logits - m), dim=-1)) + m[..., 0]
+    onehot = F.one_hot(labels.long(), pv).float()
+    label_logit = torch.einsum("bsv,bsv->bs", logits, onehot)
+    return torch.mean(lse - label_logit)

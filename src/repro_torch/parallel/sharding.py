@@ -16,16 +16,25 @@ The rules are name-pattern driven over the parameter tree's paths, with a
 size-checked fallback. A mesh here is anything with ``axis_names`` and a
 ``shape`` dict (axis name → extent); the specs are the port's own
 ``PartitionSpec``, which prints, compares and iterates as the
-reference's. Placing a tree's leaves on a mesh (``tree_shardings``) waits
-for ROADMAP Queue 1 item 9(c), where the port's training lays parameters
-over a (data, model) mesh.
+reference's.
+
+Placement: ``tree_shardings`` pairs each leaf's spec with the mesh
+(``NamedSharding``) and ``device_put`` places a tensor by it. Where every
+mesh axis that the spec names has extent 1 (a one-device mesh: one card,
+or the CPU), the leaf moves whole to the mesh's device
+(``launch.mesh.DeviceMesh.device``). A spec that splits a leaf over an
+axis of extent > 1 needs parameters split across cards, which the port's
+single-process model code cannot run yet: it raises, naming ROADMAP
+Queue 1 item 11.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
+import torch
 
 
 class PartitionSpec(tuple):
@@ -46,6 +55,44 @@ class PartitionSpec(tuple):
 
 
 P = PartitionSpec
+
+
+@dataclass(frozen=True)
+class NamedSharding:
+    """A leaf's ``PartitionSpec`` on a mesh."""
+    mesh: object
+    spec: PartitionSpec
+
+
+def device_put(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
+    """``x`` placed by ``sharding``: moved whole to the mesh's device when
+    no axis of extent > 1 splits it; raises otherwise."""
+    named = [a for part in sharding.spec if part
+             for a in ((part,) if isinstance(part, str) else part)]
+    split = [a for a in named if sharding.mesh.shape[a] > 1]
+    if split:
+        raise NotImplementedError(
+            f"repro_torch.parallel.sharding.device_put: a leaf of shape "
+            f"{tuple(x.shape)} split by {sharding.spec} over mesh axes "
+            f"{ {a: sharding.mesh.shape[a] for a in split} } needs "
+            f"parameters split across cards, which is not ported yet "
+            f"(ROADMAP Queue 1, item 11)")
+    return x.to(sharding.mesh.device)
+
+
+def place(tree, shardings):
+    """``device_put`` of every leaf of ``tree`` by the matching leaf of
+    ``shardings`` (a tree of the same containers, as ``tree_shardings``
+    returns it)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: place(v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(place(v, s) for v, s in zip(tree, shardings)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(place(v, s) for v, s in zip(tree, shardings))
+    return device_put(tree, shardings)
 
 
 def fsdp_axes(mesh):
@@ -210,11 +257,11 @@ class ShardingRules:
                                              tuple(leaf.shape)), params)
 
     def tree_shardings(self, params):
-        """Placing the leaves on a mesh: not ported yet."""
-        raise NotImplementedError(
-            "repro_torch.parallel.sharding.ShardingRules.tree_shardings: "
-            "placing a parameter tree on a (data, model) mesh is not ported "
-            "yet (ROADMAP Queue 1, item 9(c))")
+        """``NamedSharding`` tree matching ``params`` (see ``device_put``)."""
+        return _map_with_path(
+            lambda path, leaf: NamedSharding(
+                self.mesh, self.spec_for(path_str(path), tuple(leaf.shape))),
+            params)
 
     # ---------------- activation/batch shardings
     def batch_spec(self, batch_size: int, ndim: int) -> PartitionSpec:

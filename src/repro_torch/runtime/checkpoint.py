@@ -15,7 +15,10 @@ sequence index as its number), so the ASA server's table leaves are
 ``table_.log_p`` … ``table_.key``. The port holds PRNG keys as int64
 tensors of uint32 values; an int64 leaf is stored as uint32 (the values
 are checked to fit), and a uint32 leaf restores as int64, as
-``convert.tensor`` carries them.
+``convert.tensor`` carries them. A bfloat16 leaf is stored as its raw
+2-byte words with the manifest dtype ``"bfloat16"``, as the reference
+(through ``ml_dtypes``) writes it, and restores as a bfloat16 tensor
+(numpy needs no ``ml_dtypes`` for it).
 
 Compression is zstd when the ``zstandard`` package is installed and the
 stdlib's ``zlib`` otherwise; the manifest records the codec, and a zstd
@@ -28,6 +31,9 @@ checkpoint read where ``zstandard`` is missing raises.
   Saves of one step into one directory are serialised within the process
   (a lock per target directory): two of them would otherwise share the
   temporary directory, and one could clear or rename it under the other.
+* **Parallel codec**: the leaves are compressed and written, and read
+  and decompressed, by a pool of threads (the codecs release the GIL),
+  one leaf a task; the bytes are those of a sequential save.
 * **Async save**: :func:`save_async` copies the tree to the host in the
   caller's thread (the device reads queued together, one synchronisation,
   host arrays copied so later mutation cannot reach the snapshot) and
@@ -42,9 +48,11 @@ checkpoint read where ``zstandard`` is missing raises.
 from __future__ import annotations
 
 import json
+import os
 import shutil
 import threading
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -68,10 +76,20 @@ class CheckpointCorruptError(RuntimeError):
 
 def _compressor(level: int):
     if zstandard is not None:
-        cctx = zstandard.ZstdCompressor(level=level)
-        return "zstd", cctx.compress
+        # a compressor a call: one instance is not safe across threads
+        return "zstd", lambda data: zstandard.ZstdCompressor(
+            level=level).compress(data)
     # zstd accepts levels up to 22; zlib tops out at 9
     return "zlib", lambda data: zlib.compress(data, min(level, 9))
+
+
+def _pool_map(fn, items: list) -> list:
+    """``[fn(x) for x in items]`` on a pool of threads, in order."""
+    workers = min(len(items), os.cpu_count() or 1, 8)
+    if workers <= 1:
+        return [fn(x) for x in items]
+    with ThreadPoolExecutor(max_workers=workers) as ex:
+        return list(ex.map(fn, items))
 
 
 def _decompress(codec: str, payload: bytes) -> bytes:
@@ -124,17 +142,24 @@ def _rebuild(tree, leaves):
     return type(tree)(_rebuild(v, leaves) for v in tree)
 
 
-def _disk_array(leaf) -> np.ndarray:
-    """A host leaf as the array the reference's format stores."""
+BF16 = "bfloat16"
+
+
+def _disk_array(leaf) -> tuple[np.ndarray, str]:
+    """A host leaf as the array the reference's format stores, and its
+    manifest dtype (a bfloat16 tensor as its raw 2-byte words)."""
     if isinstance(leaf, torch.Tensor):
-        leaf = leaf.detach().cpu().numpy()
+        leaf = leaf.detach().cpu()
+        if leaf.dtype == torch.bfloat16:
+            return leaf.view(torch.int16).numpy(), BF16
+        leaf = leaf.numpy()
     arr = np.asarray(leaf)
     if arr.dtype == np.int64:
         if arr.size and (arr.min() < 0 or arr.max() > M32):
             raise ValueError("checkpoint: an int64 leaf holds values "
                              "outside uint32 (only PRNG keys are int64)")
         arr = arr.astype(np.uint32)
-    return arr
+    return arr, str(arr.dtype)
 
 
 def _host_copy(tree):
@@ -183,19 +208,22 @@ def save(tree, directory: str | Path, step: int, *, level: int = 3) -> Path:
                     stale.unlink()
         tmp.mkdir(parents=True, exist_ok=True)
         codec_name, compress = _compressor(level)
-        manifest = {"step": step, "codec": codec_name, "leaves": []}
-        for name, leaf in _leaf_paths(tree):
-            arr = _disk_array(leaf)
+
+        def write(item) -> dict:
+            name, leaf = item
+            arr, dtype = _disk_array(leaf)
             payload = compress(np.ascontiguousarray(arr).tobytes())
             (tmp / f"{name}.bin").write_bytes(payload)
-            manifest["leaves"].append({
-                "name": name, "shape": list(arr.shape),
-                "dtype": str(arr.dtype),
+            return {
+                "name": name, "shape": list(arr.shape), "dtype": dtype,
                 # CRC of the compressed payload as written: what
                 # verify_step/restore re-hash straight off disk
                 "crc32": zlib.crc32(payload) & M32,
                 "nbytes": len(payload),
-            })
+            }
+
+        manifest = {"step": step, "codec": codec_name,
+                    "leaves": _pool_map(write, _leaf_paths(tree))}
         # atomic publish: manifest written into tmp, then dir renamed
         (tmp / "manifest.json").write_text(json.dumps(manifest))
         if final.exists():
@@ -320,8 +348,8 @@ def restore(example_tree, directory: str | Path, step: int, *,
             f"step {step}: unreadable manifest: {e}") from e
     codec_name = manifest.get("codec", "zstd")  # pre-codec: zstd
     by_name = {m["name"]: m for m in manifest["leaves"]}
-    out = []
-    for name, _leaf in _leaf_paths(example_tree):
+
+    def read(name: str) -> torch.Tensor:
         meta = by_name[name]
         try:
             payload = (directory / f"{name}.bin").read_bytes()
@@ -337,10 +365,17 @@ def restore(example_tree, directory: str | Path, step: int, *,
                     f"{int(want):#010x}, disk {got:#010x}); use "
                     f"latest_step(verified=True) to fall back to the "
                     f"newest verified step")
-        raw = _decompress(codec_name, payload)
+        raw = bytearray(_decompress(codec_name, payload))
+        if meta["dtype"] == BF16:
+            if not raw:
+                return torch.empty(meta["shape"], dtype=torch.bfloat16)
+            return torch.frombuffer(raw, dtype=torch.bfloat16).reshape(
+                meta["shape"])
         arr = np.frombuffer(raw, dtype=np.dtype(meta["dtype"])).reshape(
             meta["shape"])
         if arr.dtype == np.uint32:
             arr = arr.astype(np.int64)
-        out.append(torch.from_numpy(arr.copy()).to(dev))
-    return _rebuild(example_tree, iter(out))
+        return torch.from_numpy(arr)
+
+    host = _pool_map(read, [n for n, _ in _leaf_paths(example_tree)])
+    return _rebuild(example_tree, iter(t.to(dev) for t in host))

@@ -7,8 +7,10 @@ The paper's per-stage resource changes map to changing a training mesh's
 whether it must move: the number a scheduler needs to estimate a
 resize's cost (and what ASA learns to hide in the queue-wait overlap). It
 reads shapes and dtypes only, so a tree of meta tensors gives the plan
-of a published size without allocating it. ``apply_resize``, which
-places the leaves on the new mesh, waits for ROADMAP Queue 1 item 9(c).
+of a published size without allocating it. ``apply_resize`` places the
+leaves on the new mesh (``parallel.sharding.device_put``: whole on a
+mesh whose axes do not split them; a split across cards raises, naming
+ROADMAP Queue 1 item 11).
 
 ``resize_schedule`` is the center-side view of the same elasticity: a
 sequence of live capacity changes (the malleable-job model of Dynamic
@@ -23,7 +25,7 @@ from dataclasses import dataclass
 from typing import Sequence
 
 from repro_torch.parallel.sharding import (ShardingRules, flatten_with_path,
-                                           path_str)
+                                           path_str, place)
 from repro_torch.runtime import fault as _fault
 
 
@@ -62,11 +64,8 @@ def reshard_plan(params, old_rules: ShardingRules,
 
 
 def apply_resize(tree, new_mesh, new_rules: ShardingRules):
-    """Re-placing every leaf under the new mesh: not ported yet."""
-    raise NotImplementedError(
-        "repro_torch.runtime.elastic.apply_resize: placing a parameter tree "
-        "on a resized (data, model) mesh is not ported yet (ROADMAP Queue "
-        "1, item 9(c))")
+    """Re-place every leaf under the new mesh's shardings."""
+    return place(tree, new_rules.tree_shardings(tree))
 
 
 def resize_schedule(steps: Sequence[tuple[float, float]], *,

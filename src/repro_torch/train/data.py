@@ -1,0 +1,62 @@
+"""Deterministic synthetic token pipeline (port of ``repro.train.data``).
+
+Batches are a mixture of Zipfian unigrams and short-range Markov
+structure (so the loss actually decreases), and their contents are a pure
+function of (seed, step): exactly reproducible across restarts. They are
+drawn from the port's threefry stream (``core.prng``), which is
+``jax.random``'s, so the tokens and labels are bitwise the reference's for
+the same (seed, step). The draws run on the batch's device: at qwen2's
+vocabulary, batch 4 and sequence 1024 the categorical's Gumbel noise
+alone is 4 × 1025 × 151936 floats, drawn a block of rows at a time.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig, ShapeSpec
+from repro_torch.core import prng
+from repro_torch.device import resolve_device
+
+
+def zipf_logits(vocab: int, alpha: float = 1.1) -> np.ndarray:
+    ranks = np.arange(1, vocab + 1, dtype=np.float64)
+    p = 1.0 / ranks ** alpha
+    return np.log(p / p.sum()).astype(np.float32)
+
+
+def _gen(seed: int, step: int, *, batch: int, seq: int, vocab: int,
+         device: torch.device):
+    """-> (tokens, labels), each (batch, seq) int32 on ``device``."""
+    key = prng.fold_in(prng.PRNGKey(seed, device), step)
+    logits = torch.from_numpy(zipf_logits(vocab)).to(device)
+    base = prng.categorical(key, logits, shape=(batch, seq + 1))
+    # short-range structure: token_{t+1} correlates with token_t
+    k2 = prng.fold_in(key, 1)
+    copy_mask = prng.uniform(k2, (batch, seq + 1)) < 0.3   # bernoulli(0.3)
+    shifted = torch.roll(base, 1, dims=1)
+    toks = torch.where(copy_mask, (shifted + 1) % vocab, base)
+    return (toks[:, :-1].to(torch.int32).contiguous(),
+            toks[:, 1:].to(torch.int32).contiguous())
+
+
+def make_batch_fn(cfg: ModelConfig, shape: ShapeSpec, *, seed: int = 0,
+                  batch_override: int | None = None,
+                  device: str | torch.device = "cuda"):
+    """``batch_fn(step) -> {"tokens", "labels"}`` on ``device``. The
+    ``audio`` and ``vlm`` families' extra inputs are not ported."""
+    if cfg.family in ("audio", "vlm"):
+        raise NotImplementedError(
+            f"repro_torch.train.data: the {cfg.family!r} family's inputs "
+            f"({cfg.name}) are not ported yet (ROADMAP Queue 1, item 9(c))")
+    dev = resolve_device(device)
+    B = batch_override or shape.global_batch
+    S = shape.seq_len
+
+    def batch_fn(step: int) -> dict:
+        toks, labels = _gen(seed, step, batch=B, seq=S,
+                            vocab=cfg.vocab_size, device=dev)
+        return {"tokens": toks, "labels": labels}
+
+    return batch_fn

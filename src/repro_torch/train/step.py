@@ -1,0 +1,131 @@
+"""Family-dispatched loss and train step (port of ``repro.train.step``).
+
+``make_train_step(cfg)`` returns ``(params, opt_state, batch) -> (params,
+opt_state, metrics)``; the gradients come from torch autograd through the
+plain route (``sdpa``, einsum expert FFNs, the plain chunked WKV scan),
+which is the reference's training route: its kernels have no backward,
+and on CUDA tensors the port's kernel wrappers refuse autograd, so
+``use_flash=True`` there raises instead of training. Microbatch
+accumulation (``accum``) is a Python loop with float32 gradient sums
+where the reference has a ``lax.scan``. The step reads nothing back to
+the host.
+
+Parameters may be stored in float32, as the reference's are, or in the
+activation type, as the port's ``init_lm`` makes them for serving: the
+loss casts each leaf to the type the layers use it in
+(``params_at_use``), as the reference's ``.astype(x.dtype)`` at use, and
+AdamW updates in float32 and stores back in the leaf's own type.
+"""
+
+from __future__ import annotations
+
+from functools import partial
+from typing import Callable
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import lm, lm_module
+from repro_torch.train import optimizer as OPT
+
+
+def _unported(fam: str, cfg: ModelConfig) -> NotImplementedError:
+    return NotImplementedError(
+        f"repro_torch.train.step: training the {fam!r} family ({cfg.name}) "
+        f"is not ported yet (ROADMAP Queue 1, item 9(c))")
+
+
+def params_at_use(params: dict, cfg: ModelConfig) -> dict:
+    """Each leaf in the type the layers use it in: float32 for the leaves
+    the reference keeps in float32 (norm scales and biases, RWKV-6's mix
+    factors, decay, bonus and group-norm scale), the activation type for
+    every other. The cast is differentiable and a no-op for a leaf that
+    already has its type."""
+    specs = lm_module(cfg).flat_specs(cfg)
+    act = lm.act_dtype(cfg)
+    return lm.unflatten({
+        path: x.to(torch.float32 if specs[path].f32 else act)
+        for path, x in lm.flatten(params).items()})
+
+
+def model_loss(params, batch: dict, cfg: ModelConfig, *, remat: str = "dots",
+               use_flash: bool = False, use_moe_kernel: bool = False,
+               use_kernel: bool = False,
+               vocab_parallel: bool = False) -> torch.Tensor:
+    """The mean next-token cross-entropy of ``batch`` ({"tokens",
+    "labels"}). ``use_flash``/``use_moe_kernel`` reach the transformer's
+    attention and expert FFNs, ``use_kernel`` RWKV-6's WKV scan: the
+    kernels on CUDA tensors (no autograd there), their plain versions on
+    CPU tensors."""
+    fam = cfg.family
+    if fam not in ("dense", "moe", "ssm"):
+        raise _unported(fam, cfg)
+    p = params_at_use(params, cfg)
+    if fam == "ssm":
+        from repro_torch.models import rwkv6 as R
+        logits = R.forward(p, batch["tokens"], cfg, remat=remat,
+                           use_kernel=use_kernel)
+        return _xent(logits, batch["labels"], cfg)
+    from repro_torch.models import transformer as T
+    if vocab_parallel:
+        hidden = T.forward(p, batch["tokens"], cfg, use_flash=use_flash,
+                           remat=remat, return_hidden=True,
+                           use_moe_kernel=use_moe_kernel)
+        return T.vocab_parallel_xent(hidden, p, batch["labels"], cfg)
+    return T.loss_fn(p, batch["tokens"], batch["labels"], cfg,
+                     use_flash=use_flash, remat=remat,
+                     use_moe_kernel=use_moe_kernel)
+
+
+def _xent(logits, labels, cfg) -> torch.Tensor:
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(logp, -1, labels[..., None].long())[..., 0]
+    return -torch.mean(ll)
+
+
+def init_params(cfg: ModelConfig, *, seed: int = 0,
+                device: str | torch.device = "cuda") -> dict:
+    """The family's ``init_lm`` (``models.lm_module``): random parameters
+    from a ``torch.Generator`` seeded with ``seed``, matrices in the
+    activation type."""
+    return lm_module(cfg).init_lm(cfg, seed=seed, device=device)
+
+
+def make_train_step(cfg: ModelConfig, *, accum: int = 1,
+                    remat: str = "dots", use_flash: bool = False,
+                    vocab_parallel: bool = False) -> Callable:
+    loss = partial(model_loss, cfg=cfg, remat=remat, use_flash=use_flash,
+                   vocab_parallel=vocab_parallel)
+
+    def value_and_grad(params, batch):
+        alias = OPT.tree_map(lambda p: p.detach().requires_grad_(), params)
+        xs = OPT.leaves(alias)
+        with torch.enable_grad():
+            l = loss(alias, batch)
+            gs = torch.autograd.grad(l, xs, allow_unused=True)
+        return l.detach(), [torch.zeros_like(x) if g is None else g
+                            for x, g in zip(xs, gs)]
+
+    def train_step(params, opt_state, batch):
+        if accum == 1:
+            l, grads = value_and_grad(params, batch)
+        else:
+            # microbatches: batch dims reshaped (accum, b/accum, ...)
+            mb = {k: v.reshape((accum, v.shape[0] // accum) + v.shape[1:])
+                  for k, v in batch.items()}
+            ps = OPT.leaves(params)
+            l = torch.zeros((), dtype=torch.float32, device=ps[0].device)
+            grads = [torch.zeros(p.shape, dtype=torch.float32,
+                                 device=p.device) for p in ps]
+            for i in range(accum):
+                li, gi = value_and_grad(params,
+                                        {k: v[i] for k, v in mb.items()})
+                l = l + li
+                for acc, g in zip(grads, gi):
+                    acc.add_(g)
+            l = l / accum
+            grads = [g / accum for g in grads]
+        params, opt_state, gnorm = OPT.update(params, grads, opt_state)
+        return params, opt_state, {"loss": l, "grad_norm": gnorm}
+
+    return train_step

@@ -1223,3 +1223,120 @@ def test_sharded_serve_step_on_the_card_bitwise(cuda_device):
             assert torch.equal(a, b)
         for a, b in zip(dec_r, dec_s):
             assert torch.equal(a, b)
+
+
+# ------------------------------------------------------------- training
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_autograd_on_the_card(cuda_device):
+    """A kernel launched through ctypes has no backward: with grad mode on
+    and an input that requires grad, each wrapper raises instead of
+    returning an output autograd knows nothing of; under no_grad it
+    launches."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+
+    def rnd(*shape, dtype=torch.bfloat16, grad=False):
+        x = torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+        return x.requires_grad_(grad)
+
+    q, k, v = (rnd(1, 128, 2, 64, grad=True) for _ in range(3))
+    x, w = rnd(4, 16, 64), rnd(4, 64, 32, grad=True)
+    r, kk, vv = (rnd(1, 64, 2, 64) for _ in range(3))
+    decay = torch.rand((1, 64, 2, 64), generator=g, device=cuda_device)
+    u = rnd(2, 64, dtype=torch.float32, grad=True)
+    calls = (lambda: flash_ops.flash_attention(q, k, v),
+             lambda: gmm_ops.grouped_matmul(x, w),
+             lambda: gmm_ops.grouped_ffn(x, w, rnd(4, 64, 32),
+                                         rnd(4, 32, 64)),
+             lambda: wkv_ops.wkv6(r, kk, vv, 0.5 + 0.4 * decay, u,
+                                  chunk=64))
+    counts = (flash_ops.KERNEL_LAUNCHES, gmm_ops.KERNEL_LAUNCHES,
+              gmm_ops.KERNEL_LAUNCHES, wkv_ops.KERNEL_LAUNCHES)
+    for call, count in zip(calls, counts):
+        before = sum(count.values())
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+        assert sum(count.values()) == before
+        with torch.no_grad():
+            call()
+        assert sum(count.values()) > before
+
+
+def _reduced_f32(arch: str):
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    return dataclasses.replace(ARCHS[arch].reduced(), dtype="float32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "moonshot-v1-16b-a3b",
+                                  "rwkv6-3b"])
+def test_reduced_train_steps_on_the_card_match_the_cpu(cuda_device, arch):
+    """Three float32 training steps on the card against the CPU route:
+    losses within 1e-5 relative, parameters within 4e-5 (twice the sum of
+    the first three learning rates, as tests/test_torch_train.py holds the
+    CPU route against the reference)."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.train import optimizer as OPT
+    from repro_torch.train import step as TS
+    from repro_torch.train.data import make_batch_fn
+
+    cfg = _reduced_f32(arch)
+    base = OPT.tree_map(lambda p: p.float(),
+                        TS.init_params(cfg, seed=2, device="cpu"))
+    batch = make_batch_fn(cfg, ShapeSpec("t", 64, 4, "train"),
+                          device="cpu")(0)
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        p = OPT.tree_map(lambda x: x.to(dev, copy=True), base)
+        o = OPT.init(p)
+        b = {k: x.to(dev) for k, x in batch.items()}
+        step = TS.make_train_step(cfg, remat="none")
+        losses = []
+        for _ in range(3):
+            p, o, m = step(p, o, b)
+            losses.append(float(m["loss"]))
+        runs[str(dev)] = (losses, OPT.leaves(p))
+    (lc, pc), (lg, pg) = runs["cpu"], runs[str(cuda_device)]
+    for a, b in zip(lg, lc):
+        assert abs(a - b) <= 1e-5 * abs(b)
+    for a, b in zip(pg, pc):
+        assert float((a.cpu() - b).abs().max()) <= 4e-5
+
+
+@pytest.mark.cuda
+def test_train_step_through_the_kernels_raises_and_does_not_train(
+        cuda_device):
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.train import optimizer as OPT
+    from repro_torch.train import step as TS
+    from repro_torch.train.data import make_batch_fn
+
+    cfg = ARCHS["qwen2-0.5b"].reduced()
+    p = OPT.tree_map(lambda x: x.float(),
+                     TS.init_params(cfg, seed=0, device=cuda_device))
+    before = OPT.tree_map(lambda x: x.clone(), p)
+    o = OPT.init(p)
+    b = make_batch_fn(cfg, ShapeSpec("t", 64, 2, "train"),
+                      device=cuda_device)(0)
+    with pytest.raises(RuntimeError, match="no backward"):
+        TS.make_train_step(cfg, use_flash=True, remat="none")(p, o, b)
+    assert int(o.step) == 0
+    assert all(torch.equal(x, y) for x, y in
+               zip(OPT.leaves(p), OPT.leaves(before)))
+
+
+@pytest.mark.cuda
+def test_train_restart_on_the_card_is_exact(cuda_device, tmp_path):
+    from repro_torch.launch.train import train
+
+    run = dict(reduced=True, batch=2, seq=64, log_every=1,
+               device=str(cuda_device))
+    r1 = train("qwen2-0.5b", steps=6, **run)
+    ck = str(tmp_path / "ck")
+    train("qwen2-0.5b", steps=4, ckpt_dir=ck, ckpt_every=4, **run)
+    r2 = train("qwen2-0.5b", steps=6, ckpt_dir=ck, ckpt_every=100, **run)
+    assert r2["losses"] == r1["losses"][4:]

@@ -16,7 +16,7 @@
   meta tensors of the same shapes) on the meshes {data:16, model:16},
   {pod:2, data:16, model:16}, {data:8, model:16} and {data:1, model:1}:
   spec strings, ``bytes_total`` and ``moves`` equal to the reference's.
-* What waits for ROADMAP Queue 1 items 9(c) and 10 raises, naming them.
+* What waits for ROADMAP Queue 1 items 10 and 11 raises, naming them.
 """
 
 import dataclasses
@@ -239,15 +239,18 @@ def test_reshard_plan_counts_bfloat16_bytes():
         [("layers/0", 4 * 64 * 32 * 2, False)]
 
 
-# ---------------------------------------------- what waits for 9(c), 10
+# ---------------------------------------------- what waits for 10, 11
 
 
 def test_unported_placements_raise_naming_their_items():
+    """Placing a leaf that the production mesh's axes split needs
+    parameters split across cards (item 11); the production mesh itself
+    waits for the dry run (item 10). The shardings themselves are built."""
     rules = ShardingRules(FakeMesh({"data": 16, "model": 16}))
-    with pytest.raises(NotImplementedError, match=r"9\(c\)"):
-        rules.tree_shardings({})
-    with pytest.raises(NotImplementedError, match=r"9\(c\)"):
-        telastic.apply_resize({}, None, rules)
-    for fn in (tmesh.make_local_mesh, tmesh.make_production_mesh):
-        with pytest.raises(NotImplementedError, match=r"9\(c\) and 10"):
-            fn()
+    params = {"layers": {"mlp": {"w_up": torch.zeros((2, 32, 64))}}}
+    sh = rules.tree_shardings(params)["layers"]["mlp"]["w_up"]
+    assert sh.spec == rules.spec_for("layers/mlp/w_up", (2, 32, 64))
+    with pytest.raises(NotImplementedError, match="item 11"):
+        telastic.apply_resize(params, None, rules)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        tmesh.make_production_mesh()
