@@ -10,8 +10,9 @@ card, drives the port's main paths (the fleet simulator's Table-1 sweep,
 untraced and traced, model serving of a dense and an MoE transformer and
 of RWKV-6, the paper's Table-1 and Table-2 runners, the ASA decision
 service and the learned submission policy's training, the sharded
-paths over blocks on the card and the ASA campaign scheduler, and
-training with checkpoint/restart), and checks the results. Phases:
+paths over blocks on the card and the ASA campaign scheduler,
+training with checkpoint/restart, and serving and training the hybrid
+family), and checks the results. Phases:
 
 1. the card (``nvidia-smi`` name and power limit) and the kernel build;
 2. each kernel against its plain version at the shapes its path uses
@@ -27,7 +28,8 @@ training with checkpoint/restart), and checks the results. Phases:
    CUDA-core design's; ``freed_scan`` in its one-launch design
    (``fused``, every shape the sweeps give it) and in its earlier design
    (``presorted``, by name), each with its CUDA-event mean a call and its
-   device time a call by the profiler;
+   device time a call by the profiler; flash attention also at zamba2's
+   prefill shape (8, 2048, 32, 64), window 4096;
 3. the Table-1 path at the repository's own benchmark setting
    (``benchmarks/run.py``'s xsim leg: 1/64-size centers, policies 0-2,
    warmed fleet), once through the kernel and once through the plain
@@ -106,9 +108,10 @@ training with checkpoint/restart), and checks the results. Phases:
    centers, six scales, three workflows, ASA-Naive and the pilot) with
    the estimators on the card and on the CPU in one process: every run
    equal; the normalized averages beside the paper's row, the wall
-   seconds and the estimator's share; (c) ``run_table2(n_submissions=10)``
-   on the card (the benchmark's 30 cut to 10 for the smoke's time): its 18
-   rows checked and printed;
+   seconds and the estimator's share; (c) ``run_table2(n_submissions=5,
+   n_warmup=5)`` on the card (the benchmark's 30 submissions and the
+   runner's 20 warm-up runs a row cut to 5 each for the smoke's time):
+   its 18 rows checked and printed;
 13. traced sweeps (``obs``): (a) phase 10's ``faulty`` setting traced at
    the default capacity (``XSimConfig.with_trace()``): kernel path
    against plain path bitwise with the event rings, the untraced run's
@@ -177,8 +180,9 @@ training with checkpoint/restart), and checks the results. Phases:
    estimator on the card against the same campaign on the CPU: every
    outcome equal; the example's table printed;
 17. training (``repro_torch.launch.train``): (a) qwen2-0.5b at its
-   published size (24 layers, d896, vocab 151936; float32 parameters, m
-   and v, bfloat16 activations), batch 4, sequence 1024: 3 steps
+   published width (d896, vocab 151936; float32 parameters, m and v,
+   bfloat16 activations), its depth cut to 4 layers (the checkpoint's
+   size: 24 layers made a 5.4 GB save), batch 4, sequence 1024: 3 steps
    checkpointed at step 2 (``save_async``, the reference's format), a run
    of 5 steps resumed from it, and an uninterrupted 5-step run: every
    loss bitwise equal; the runs' seconds, the checkpoint's bytes and the
@@ -190,14 +194,37 @@ training with checkpoint/restart), and checks the results. Phases:
    tensor cores; the grouped matmul; ``wkv6``) against the plain route,
    within half a bfloat16 step, the launches counted; (c) a
    ``make_train_step(use_flash=True)`` step on the card raises (the
-   kernel has no backward) and writes nothing.
+   kernel has no backward) and writes nothing;
+18. the hybrid family (``zamba2-1.2b``: 38 Mamba2 layers, d2048, 64 SSD
+   heads of 64, a shared attention block of 32 heads every 6 layers,
+   vocab 32000): (a) served at its published size in bfloat16 (batch 8,
+   prompt 2048, 32 new tokens) through ``launch.serve.serve``, whose
+   block prefill runs the flash kernel in each of the 6 shared-block
+   invocations, all on the tensor cores (``wgmma``); times, peak memory,
+   a profiled prefill and decode (launches a decode step); (b) against
+   the twin route: the bfloat16 logits reported, each shared-attention
+   call held on the kernel route's own q, k, v and each shared block's
+   output on its own input, and the logits and greedy tokens held end
+   to end in float32 at full depth (flash on the CUDA cores); (c) the
+   block prefill against the reference's token-by-token serving route,
+   in float32, depth cut to 12 layers (two shared invocations at the
+   published period), a ragged prompt (500 = 3 × 128 + 116): logits,
+   conv carries, SSD states and KV rings within limits, greedy tokens
+   equal; (d) training at published size (float32 parameters, batch 2,
+   sequence 1024): seconds a step after the first, peak memory, data
+   seconds a batch, the loss through the flash kernel against the plain
+   route, a step through the kernel refused; (e) the threefry counter
+   past flat index 2^32: ``prng.bits`` and a block of
+   ``categorical(shape=)`` rows straddling it, on the card against the
+   CPU route, bitwise.
 
 Matrix products of the plain versions run in full float32 where their
 inputs are float32: TF32 is switched off for matmuls and cuDNN.
 
 The second-to-last line is a JSON object with one entry per ported
 kernel (``freed_scan``'s launches summed over phases 3, 4 and 10-16, by
-path beside; the model kernels' over phases 5, 6, 8 and 17(b)); the last
+path beside; the model kernels' over phases 5, 6, 8, 17(b), 18(a) and
+18(d)); the last
 line is ``{"ok": true, "device": {...}}``. Any
 failure raises and ends the script with a non-zero exit code; without a CUDA
 device it exits non-zero before printing any result.
@@ -261,15 +288,20 @@ FLASH_REL = {torch.float32: (1e-5, 3e-6), torch.bfloat16: (8e-3, 4e-4)}
 GMM_REL = {torch.float32: (1e-5, 2e-6), torch.bfloat16: (5e-3, 1e-3)}
 
 # phase 2 flash shapes (B, S, H, hd, window, dtype), all causal: the serve
-# shapes of phases 5 (qwen2) and 6 (moonshot), a ragged S, a window, f32
+# shapes of phases 5 (qwen2), 6 (moonshot) and 18 (zamba2's shared
+# attention: window 4096, which a 2048-token prompt does not reach, so
+# SDPA's causal call computes the same function), a ragged S, a window,
+# f32
 FLASH_SHAPES = ((8, 2048, 14, 64, 0, torch.bfloat16),
                 (4, 1024, 16, 128, 0, torch.bfloat16),
+                (8, 2048, 32, 64, 4096, torch.bfloat16),
                 (2, 1000, 4, 64, 0, torch.bfloat16),
                 (2, 1000, 4, 128, 256, torch.float32),
                 (2, 1024, 16, 128, 0, torch.float32))
 # ... the two serve shapes, where the CUDA-core design is held and timed
 # beside the tensor-core one
 FLASH_SERVE_KEYS = ("8x2048x14x64", "4x1024x16x128")
+FLASH_HYBRID_KEY = "8x2048x32x64w4096"
 # phase 2 gmm shapes (E, C, D, F, dtype): moonshot's gate/up and down
 # projections at prefill (C = capacity of 4096 tokens) and decode (C = 8),
 # and a ragged f32 one
@@ -318,10 +350,11 @@ WKV_STATE_REL = (1e-6, 1e-7)
 WKV_SEQ_REL = (3e-5, 6e-6)
 WKV_ATOL = (2e-4, 2e-5)
 
-# phases 5, 6 and 8: arch, batch, prompt, new tokens
+# phases 5, 6, 8 and 18(a): arch, batch, prompt, new tokens
 SERVE = {"dense": ("qwen2-0.5b", 8, 2048, 32),
          "moe": ("moonshot-v1-16b-a3b", 4, 1024, 16),
-         "ssm": ("rwkv6-3b", 8, 2048, 32)}
+         "ssm": ("rwkv6-3b", 8, 2048, 32),
+         "hybrid": ("zamba2-1.2b", 8, 2048, 32)}
 # Route comparisons of phases 5 and 6, all in bfloat16. "twin": the same
 # route with each kernel swapped for its plain version (only float32
 # summation order differs, so outputs differ by single bfloat16 steps).
@@ -436,7 +469,12 @@ QS_REL, QS_ABS = 0.02, 5.0
 # (b) and (c): run_table1 at full size, with ASA-Naive and the pilot, and
 # run_table2 at the repository benchmark's own setting
 # (benchmarks/table2_accuracy.py) but for its submissions a row
-TABLE2_SUBMISSIONS = 10   # cut from the benchmark's 30 (the smoke's time)
+# cut from the benchmark's 30 (the smoke's time): to 10 when phase 15
+# came, to 5 when phase 18 did; and each row's warm-up runs from
+# run_table2's 20 to 5 (the warm-ups, probe jobs the host's QueueSim runs
+# to their start, took about two thirds of the table's time)
+TABLE2_SUBMISSIONS = 5
+TABLE2_WARMUP = 5
 
 FULL_CUTS = (
     "background arrivals stop after 1024 slots (about 4.8 h of HPC2N "
@@ -711,7 +749,7 @@ def flash_vs_plain(dev) -> dict:
         plain_ms = cuda_ms(lambda: ref.attention_ref(q, k, v, causal=True,
                                                      window=window), reps=10)
         lib_ms = None
-        if not window:
+        if not window or window >= s:
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True), reps=10)
@@ -1194,8 +1232,9 @@ def ssm_float32_full_depth(dev) -> None:
 
 def profile_serve(tag: str, params, prompts, cfg, steps: int = 4) -> None:
     """Where the kernel route's time goes: one profiled prefill, then
-    ``steps`` profiled decode steps (RWKV-6's carry the prefill's state
-    on, in place, from one call of the window to the next)."""
+    ``steps`` profiled decode steps (RWKV-6's and Zamba2's carry the
+    prefill's state on, in place, from one call of the window to the
+    next)."""
     from repro_torch.models.transformer import init_kv_caches
     from repro_torch.serve.step import (greedy_sample, make_decode_step,
                                         make_prefill_step)
@@ -1203,15 +1242,18 @@ def profile_serve(tag: str, params, prompts, cfg, steps: int = 4) -> None:
     prefill = make_prefill_step(cfg, use_kernels=True)
     decode = make_decode_step(cfg, use_kernels=True)
     ssm = cfg.family == "ssm"
+    hybrid = cfg.family == "hybrid"
     names = (("wkv6_kernel", "wkv6_state_kernel", "wkv6_out_kernel") if ssm
              else
              ("flash_wgmma_kernel", "flash_kernel", "gmm_wgmma_kernel",
               "gmm_kernel"))
-    device_profile(f"{tag}/profile_prefill",
-                   lambda: prefill(params, prompts), 1, "prefill", names)
     b, s = prompts.shape
-    logits, pf = prefill(params, prompts)
-    if not ssm:
+    pf_kw = dict(max_seq=s + steps) if hybrid else {}
+    device_profile(f"{tag}/profile_prefill",
+                   lambda: prefill(params, prompts, **pf_kw), 1, "prefill",
+                   names)
+    logits, pf = prefill(params, prompts, **pf_kw)
+    if not (ssm or hybrid):
         caches = init_kv_caches(cfg, b, s + steps, device=prompts.device)
         caches["k"][:, :, :s] = pf["k"]
         caches["v"][:, :, :s] = pf["v"]
@@ -1222,6 +1264,7 @@ def profile_serve(tag: str, params, prompts, cfg, steps: int = 4) -> None:
         tok = first
         for i in range(steps):
             out, _ = (decode(params, tok, pf) if ssm
+                      else decode(params, tok, pf, s + i) if hybrid
                       else decode(params, tok, caches, s + i))
             tok = greedy_sample(out)
     device_profile(f"{tag}/profile_decode", run, steps, "decode steps",
@@ -1229,12 +1272,13 @@ def profile_serve(tag: str, params, prompts, cfg, steps: int = 4) -> None:
 
 
 def serve_phase(family: str, dev) -> dict:
-    """Phases 5, 6 and 8: ``launch.serve.serve`` at full size through the
-    kernels (the main path; the counts are reset just before it and read
-    just after), then the same params and prompts through the kernel route
-    again (steady times), the twin route and, for a transformer, the plain
-    route (no kernel may launch in either), compared; for the MoE model
-    layer by layer too; then a profiled prefill and decode."""
+    """Phases 5, 6, 8 and 18(a)-(b): ``launch.serve.serve`` at full size
+    through the kernels (the main path; the counts are reset just before
+    it and read just after), then the same params and prompts through the
+    kernel route again (steady times), the twin route and, but for RWKV-6,
+    the plain route (no kernel may launch in either), compared; for the
+    MoE model and RWKV-6 layer by layer too, for Zamba2 each shared
+    attention call and block; then a profiled prefill and decode."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.moe_gmm import ops as gmm_ops
     from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
@@ -1331,8 +1375,10 @@ def serve_phase(family: str, dev) -> dict:
               f"{want} through mma")
     if family != "ssm":
         # every bfloat16 flash launch of the serve path on the tensor
-        # cores: one a layer, in prefill
-        want = cfg.n_layers
+        # cores: one an attention layer (Zamba2: a shared-block
+        # invocation), in prefill
+        from repro_torch.models import zamba2 as Z
+        want = Z.n_attn(cfg) if family == "hybrid" else cfg.n_layers
         check(flash_designs == {"wgmma": want, "simt": 0}
               and launches["flash_attention"] == want,
               f"{tag}: flash_attention launches by design {flash_designs}, "
@@ -1355,8 +1401,10 @@ def serve_phase(family: str, dev) -> dict:
             f"(tolerance: max {tol_max}, rel_rms {tol_rel})" if checked
             else "(not checked: MoE routing, see the layer check and "
             "phase 7)" if family == "moe" else "(not checked: bfloat16 "
-            "over 32 layers, see the witness, the layer check and the "
-            "float32 run)"))
+            "over 38 layers, see the shared-attention check and the "
+            "float32 run)" if family == "hybrid" else "(not checked: "
+            "bfloat16 over 32 layers, see the witness, the layer check and "
+            "the float32 run)"))
         if checked and not (c["decode_rows"] > 0 and all(
                 c[f"{n}_max"] <= tol_max and c[f"{n}_rel"] <= tol_rel
                 for n in ("prefill", "decode"))):
@@ -1373,6 +1421,8 @@ def serve_phase(family: str, dev) -> dict:
         layer_check(tag, params, prompts, cfg)
     if family == "ssm":
         ssm_layer_check(tag, params, prompts, cfg)
+    if family == "hybrid":
+        hybrid_attention_check(tag, params, prompts, cfg)
     profile_serve(tag, params, prompts, cfg)
     del params, prompts
     torch.cuda.empty_cache()
@@ -2071,13 +2121,16 @@ def table1_on_card(dev) -> None:
 
 
 def table2_on_card(dev) -> None:
-    """Phase 12(c): ``run_table2`` at the repository benchmark's setting
-    with the estimators on the card: 18 rows, ratios in [0, 1], finite
-    waits; printed as ``benchmarks/table2_accuracy.py`` does."""
+    """Phase 12(c): ``run_table2`` at the repository benchmark's setting,
+    its submissions and warm-ups cut (``TABLE2_SUBMISSIONS``,
+    ``TABLE2_WARMUP``), with the estimators on the card: 18 rows, ratios
+    in [0, 1], finite waits; printed as ``benchmarks/table2_accuracy.py``
+    does."""
     from repro_torch.sched import runner
 
     rows = run_timed("tables/table2_cuda", lambda: runner.run_table2(
-        n_submissions=TABLE2_SUBMISSIONS, device=dev))
+        n_submissions=TABLE2_SUBMISSIONS, n_warmup=TABLE2_WARMUP,
+        device=dev))
     check(len(rows) == 18, f"tables/table2: {len(rows)} rows, expected 18")
     for r in rows:
         check(0.0 <= r.hit_ratio <= 1.0 and 0.0 <= r.miss_ratio <= 1.0,
@@ -2091,7 +2144,7 @@ def table2_on_card(dev) -> None:
               f"pwt={r.pwt_h:.2f}h;hit={r.hit_ratio:.2f};"
               f"miss={r.miss_ratio:.2f};oh={r.oh_loss_h:.1f}h")
     print(f"tables/table2: rows={len(rows)} "
-          f"n_submissions={TABLE2_SUBMISSIONS}")
+          f"n_submissions={TABLE2_SUBMISSIONS} n_warmup={TABLE2_WARMUP}")
 
 
 def state_on_cpu(s):
@@ -3277,14 +3330,16 @@ def sharded_and_campaign(faulty: dict, rl_run: dict, events, backfill,
 
 
 # phase 17: training on the card. (a) repro_torch.launch.train.train at
-# qwen2-0.5b's published size (24 layers, d896, vocab 151936, tied
-# embeddings; float32 parameters, m and v, bfloat16 activations), batch 4,
-# sequence 1024: 3 steps checkpointed at step 2, a second process-local run
-# of 5 steps that resumes from it, and an uninterrupted 5-step run: every
-# loss of the resumed run equal to the uninterrupted run's, bit for bit
-# (the cut: the resumed run writes no checkpoint of its own, a 6 GB
-# save). (b) At trained parameters, one batch's loss under no_grad through
-# every kernel (flash attention, the grouped matmul, wkv6, on the tensor
+# qwen2-0.5b's published width (d896, vocab 151936, tied embeddings;
+# float32 parameters, m and v, bfloat16 activations), its depth cut to
+# TRAIN_RESTART_LAYERS, batch 4, sequence 1024: 3 steps checkpointed at
+# step 2, a second process-local run of 5 steps that resumes from it, and
+# an uninterrupted 5-step run: every loss of the resumed run equal to the
+# uninterrupted run's, bit for bit (the cuts: the resumed run writes no
+# checkpoint of its own; the depth, for the checkpoint's zlib save, about
+# 48 s of 5.4 GB at 24 layers, 2.1 GB at 4; (b) trains qwen2 at its
+# published depth). (b) At trained parameters, one batch's loss under
+# no_grad through every kernel (flash attention, the grouped matmul, wkv6, on the tensor
 # cores) against the plain route, for each family: TRAIN_CASES (arch,
 # depth, batch; None keeps the published depth), each case trained first
 # (qwen2: 2 untimed steps, 3 timed ones and a profiled step; the others 2
@@ -3298,6 +3353,7 @@ def sharded_and_campaign(faulty: dict, rl_run: dict, events, backfill,
 # make_train_step(use_flash=True) step on the card raises (the kernel has
 # no backward) and writes no parameter.
 TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ = "qwen2-0.5b", 4, 1024
+TRAIN_RESTART_LAYERS = 4
 TRAIN_CASES = (("qwen2-0.5b", None, 4), ("moonshot-v1-16b-a3b", 2, 2),
                ("rwkv6-3b", 4, 2))
 TRAIN_KERNEL_REL = 2.0 ** -9
@@ -3319,38 +3375,43 @@ def _reset_kernel_counts() -> None:
 
 
 def train_restart(dev) -> None:
-    """Phase 17(a): ``launch.train.train`` at published size, restarted
-    from its checkpoint, against the uninterrupted run."""
+    """Phase 17(a): ``launch.train.train`` at published width, its depth
+    cut to ``TRAIN_RESTART_LAYERS``, restarted from its checkpoint,
+    against the uninterrupted run."""
     import shutil
     import tempfile
 
+    from repro_torch.configs import ARCHS
     from repro_torch.launch import train as launch_train
     from repro_torch.runtime import checkpoint as ckpt
 
     tag = "train/restart"
     run = dict(reduced=False, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                log_every=1, device=str(dev))
+    cut = dict(ARCHS, **{TRAIN_ARCH: dataclasses.replace(
+        ARCHS[TRAIN_ARCH], n_layers=TRAIN_RESTART_LAYERS)})
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
-        free = shutil.disk_usage(tmp).free
-        times = {}
-        t0 = time.perf_counter()
-        r1 = launch_train.train(TRAIN_ARCH, steps=3, ckpt_dir=tmp,
-                                ckpt_every=2, **run)
-        times["first"] = time.perf_counter() - t0
-        check(ckpt.latest_step(tmp) == 2,
-              f"{tag}: no checkpoint of step 2 in {tmp}")
-        ckpt_bytes = sum(f.stat().st_size
-                         for f in Path(tmp, "step_2").iterdir())
-        t0 = time.perf_counter()
-        r2 = launch_train.train(TRAIN_ARCH, steps=5, ckpt_dir=tmp,
-                                ckpt_every=100, **run)
-        times["resumed"] = time.perf_counter() - t0
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        r3 = launch_train.train(TRAIN_ARCH, steps=5, ckpt_dir=None, **run)
-        times["uninterrupted"] = time.perf_counter() - t0
+        with patched((launch_train, "ARCHS", cut)):
+            free = shutil.disk_usage(tmp).free
+            times = {}
+            t0 = time.perf_counter()
+            r1 = launch_train.train(TRAIN_ARCH, steps=3, ckpt_dir=tmp,
+                                    ckpt_every=2, **run)
+            times["first"] = time.perf_counter() - t0
+            check(ckpt.latest_step(tmp) == 2,
+                  f"{tag}: no checkpoint of step 2 in {tmp}")
+            ckpt_bytes = sum(f.stat().st_size
+                             for f in Path(tmp, "step_2").iterdir())
+            t0 = time.perf_counter()
+            r2 = launch_train.train(TRAIN_ARCH, steps=5, ckpt_dir=tmp,
+                                    ckpt_every=100, **run)
+            times["resumed"] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            r3 = launch_train.train(TRAIN_ARCH, steps=5, ckpt_dir=None, **run)
+            times["uninterrupted"] = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3365,7 +3426,8 @@ def train_restart(dev) -> None:
     check(r2["losses"] == r3["losses"][2:],
           f"{tag}: the resumed run's losses {r2['losses']} differ from "
           f"the uninterrupted run's {r3['losses'][2:]}")
-    print(f"{tag}: arch={TRAIN_ARCH} batch={TRAIN_BATCH} seq={TRAIN_SEQ} "
+    print(f"{tag}: arch={TRAIN_ARCH} layers={TRAIN_RESTART_LAYERS} "
+          f"batch={TRAIN_BATCH} seq={TRAIN_SEQ} "
           f"losses={losses} resumed_equal=True first_s={times['first']:.3f} "
           f"resumed_s={times['resumed']:.3f} "
           f"uninterrupted_s={times['uninterrupted']:.3f} "
@@ -3410,13 +3472,14 @@ def kernel_route_loss(arch: str, layers, batch: int, dev) -> dict:
     for _ in range(2):
         m = one_step()
     timed = []
-    if arch == TRAIN_ARCH:
+    if arch in (TRAIN_ARCH, HYBRID_TRAIN[0]):
         for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             m = one_step()
             torch.cuda.synchronize()
             timed.append(time.perf_counter() - t0)
+    if arch == TRAIN_ARCH:
         device_profile(f"{tag}/profile", one_step, 1,
                        f"{arch} training steps (batch {batch}, seq "
                        f"{TRAIN_SEQ})", ())
@@ -3437,8 +3500,12 @@ def kernel_route_loss(arch: str, layers, batch: int, dev) -> dict:
                              for mod in _kernel_counters().values())
     rel = abs(got - want) / abs(want)
     L = cfg.n_layers
+    from repro_torch.models import zamba2 as Z
     expect = ({"flash_attention": L, "grouped_matmul": 0, "wkv6": 0}
               if cfg.family == "dense" else
+              {"flash_attention": Z.n_attn(cfg), "grouped_matmul": 0,
+               "wkv6": 0}
+              if cfg.family == "hybrid" else
               {"flash_attention": L, "grouped_matmul": 3 * L, "wkv6": 0}
               if cfg.family == "moe" else
               {"flash_attention": 0, "grouped_matmul": 0, "wkv6": L})
@@ -3467,7 +3534,7 @@ def kernel_route_loss(arch: str, layers, batch: int, dev) -> dict:
                  f"s_per_step={per_step:.6f} "
                  f"tokens_per_s={batch * TRAIN_SEQ / per_step:.1f}")
     print(line)
-    if arch == TRAIN_ARCH:
+    if arch in (TRAIN_ARCH, HYBRID_TRAIN[0]):
         refuse_kernel_training(cfg, state, train_batch)
     return launches
 
@@ -3491,8 +3558,9 @@ def refuse_kernel_training(cfg, state: dict, batch: dict) -> None:
     check([x._version for x in leaves] == versions
           and int(state["opt"].step) == step0,
           "train/refuse: the refused step wrote a parameter or a moment")
-    print("train/refuse: make_train_step(use_flash=True) on the card raised "
-          "RuntimeError (no backward); no parameter or moment written")
+    print(f"train/refuse: make_train_step(use_flash=True) on the card "
+          f"({cfg.name}) raised RuntimeError (no backward); no parameter or "
+          f"moment written")
 
 
 def training_on_card(dev) -> dict:
@@ -3514,6 +3582,280 @@ def training_on_card(dev) -> dict:
     t2 = time.perf_counter()
     print(f"phase17/seconds: a={t1 - t0:.3f} b_c={t2 - t1:.3f}")
     return paths
+
+
+# phase 18: the hybrid family (zamba2-1.2b). (a) Serving at the published
+# size in bfloat16 is SERVE["hybrid"], through serve_phase. (b) The kernel
+# route against its twin (flash swapped for its plain version): the
+# bfloat16 end-to-end logits reported (38 layers of random weights
+# amplify rounding, as RWKV-6's 32 do in phase 8); each of the 6
+# shared-attention calls of prefill held on the kernel route's own q, k, v
+# against the plain version (FLASH_ATOL, FLASH_REL: the kernel's own
+# limits), and each shared block's output on its own input against the
+# twin's block (LAYER_TOL["twin"], phase 6's kind); and in float32 at full
+# depth (the bfloat16 model's weights unrounded, 7.2 GB; flash on the
+# CUDA cores) the logits and the share of equal greedy tokens, as phase 8
+# holds RWKV-6 (HYBRID_F32_TOL, the same limits as SSM_F32_TOL).
+HYBRID_F32_TOL = (5e-4, 1e-4, 0.85)
+HYBRID_F32_GEN = 8
+# (c) The block prefill against the reference's token-by-token serving
+# route (repro/launch/serve.py's hybrid branch: decode_step over the
+# prompt), in float32 at published width: arch, batch, prompt, new
+# tokens, depth. 12 layers keep the published period of 6 and give two
+# shared-block invocations, each with its own KV ring (4 layers at that
+# period would have none); 500 = 3 × 128 + 116, so a 384-token block and
+# a 116-token tail taken one token at a time. Held: logits (largest |Δ|,
+# rms(Δ)/rms), each part of the state after the prompt (its largest |Δ|
+# over its largest |value|), every greedy token equal. Measured on an
+# H100: logits 7.0e-5 and 1.5e-5, states 1.4e-5 (conv) to 6.7e-5 (the
+# keys): the two routes sum in float32 in other orders (chunked SSD and
+# a 2048-wide block against 500 one-step recurrences), which 12 layers
+# at d2048 amplify past the 8.1e-6 the CPU test reads at d64. The limits
+# are about ten times the readings, the float32 limits of (b).
+HYBRID_E2E = ("zamba2-1.2b", 4, 500, 8, 12)
+HYBRID_E2E_TOL = dict(logits=(5e-4, 1e-4), state=5e-4)
+# (d) Training: arch, depth (None: the published 38), batch; through
+# kernel_route_loss as phase 17(b), seconds a step timed, a step through
+# the kernel refused.
+HYBRID_TRAIN = ("zamba2-1.2b", None, 2)
+# (e) The threefry counter past flat index 2**32: a (40, 250) block of
+# bits from 2**32 - 5000 on, and 8 rows of categorical(shape=) over
+# zamba2's vocabulary from the row that holds index 2**32.
+COUNTER_BITS = ((40, 250), 2 ** 32 - 5000)
+COUNTER_ROWS = (32_000, 8)
+
+
+def hybrid_attention_check(tag: str, params, prompts, cfg) -> None:
+    """Phase 18(b), bfloat16: the kernel route's prefill, each
+    shared-attention call's output against the plain version on the same
+    q, k, v, and each shared block's output against the twin route's block
+    on the same input."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.models import zamba2 as Z
+
+    flash, block = flash_ops.flash_attention, Z._shared_block
+    attn_calls, block_calls = [], []
+
+    def flash_spy(q, k, v, **kw):
+        out = flash(q, k, v, **kw)
+        attn_calls.append((q, k, v, kw, out))
+        return out
+
+    def block_spy(params_, x, cfg_, **kw):
+        out = block(params_, x, cfg_, **kw)
+        block_calls.append((x, kw, out[0]))
+        return out
+
+    with patched((flash_ops, "flash_attention", flash_spy),
+                 (Z, "_shared_block", block_spy)):
+        Z.prefill(params, prompts, cfg, use_kernels=True)
+    n = Z.n_attn(cfg)
+    check(len(attn_calls) == len(block_calls) == n,
+          f"{tag}: {len(attn_calls)} flash calls and {len(block_calls)} "
+          f"shared blocks in prefill, want {n} of each")
+    worst = [0.0, 0.0, 0.0]
+    for q, k, v, kw, out in attn_calls:
+        want = flash_ref.attention_ref(q, k, v, **kw)
+        errs = flash_check(f"{tag} shared attention {tuple(q.shape)}", out,
+                           want, q.dtype)
+        worst = [max(a, b) for a, b in zip(worst, errs)]
+    del attn_calls
+    tol_max, tol_rel = LAYER_TOL["twin"]
+    worst_max = worst_rel = 0.0
+    with plain_kernels():
+        for x, kw, out in block_calls:
+            other = block(params, x, cfg, **kw)[0]
+            d = (out.float() - other.float())
+            worst_max = max(worst_max, float(d.abs().max()
+                                             / other.float().abs().max()))
+            worst_rel = max(worst_rel, float(
+                d.pow(2).mean().sqrt() / other.float().pow(2).mean().sqrt()))
+    print(f"{tag}/shared_attention: {n} flash calls on the kernel route's "
+          f"own q, k, v against the plain version: worst max_abs_err="
+          f"{worst[0]:.6g} worst_row_rel={worst[1]:.6g} rel_rms="
+          f"{worst[2]:.6g} (limits {FLASH_ATOL[torch.bfloat16]}, "
+          f"{FLASH_REL[torch.bfloat16]}); {n} shared blocks against the "
+          f"twin's on the same input: worst max_abs_diff/max_abs="
+          f"{worst_max:.6g} worst rel_rms={worst_rel:.6g} (tolerance "
+          f"{tol_max}, {tol_rel})")
+    check(worst_max <= tol_max and worst_rel <= tol_rel,
+          f"{tag}: a shared block of the kernel route differs from the "
+          f"twin's beyond tolerance")
+
+
+def hybrid_float32_full_depth(dev) -> None:
+    """Phase 18(b), float32 at full width and depth: the kernel route
+    (flash on the CUDA cores) against the twin route."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import zamba2 as Z
+
+    arch, batch, prompt_len, _ = SERVE["hybrid"]
+    cfg = dataclasses.replace(get_arch(arch), dtype="float32")
+    params = Z.init_lm(cfg, seed=0, device=dev)
+    prompts = torch.randint(
+        0, cfg.vocab_size, (batch, prompt_len), device=dev,
+        generator=torch.Generator(device=dev).manual_seed(0))
+    before = dict(flash_ops.DESIGN_LAUNCHES)
+    kern = launch_serve.generate(params, prompts, cfg, HYBRID_F32_GEN,
+                                 use_kernels=True)
+    designs = {d: flash_ops.DESIGN_LAUNCHES[d] - before[d] for d in before}
+    check(designs == {"wgmma": 0, "simt": Z.n_attn(cfg)},
+          f"zamba2 float32 ran flash designs {designs}, want all "
+          f"{Z.n_attn(cfg)} through simt")
+    with plain_kernels():
+        twin = launch_serve.generate(params, prompts, cfg, HYBRID_F32_GEN,
+                                     use_kernels=True)
+    c = _compare(kern, twin, cfg.vocab_size)
+    tol_max, tol_rel, tol_agree = HYBRID_F32_TOL
+    tag = f"serve/hybrid/e2e_float32_L{cfg.n_layers}"
+    print_compare(f"{tag}/kernel_vs_twin", c, batch,
+                  f"(tolerance: max {tol_max}, rel_rms {tol_rel}, "
+                  f"agreement >= {tol_agree})")
+    print(f"{tag}: prefill_ms kernel={kern['prefill_s'] * 1e3:.3f} twin="
+          f"{twin['prefill_s'] * 1e3:.3f}; flash_designs={designs}")
+    del params, prompts, kern, twin
+    torch.cuda.empty_cache()
+    check(c["token_agreement"] >= tol_agree and all(
+        c[f"{n}_max"] <= tol_max and c[f"{n}_rel"] <= tol_rel
+        for n in ("prefill", "decode")),
+        f"{tag}: the kernel route differs from the twin route beyond "
+        f"tolerance")
+
+
+def hybrid_stepwise_generate(params, prompts, cfg, gen: int) -> dict:
+    """The reference's serving route for Zamba2 (``repro/launch/serve.py``,
+    its ``hybrid`` branch): ``decode_step`` over the prompt one token at a
+    time from ``init_decode_state`` (rings of S + gen slots; no kernel),
+    then greedy decode. Returns ``generate``'s keys but the times, and
+    ``state``, a copy of the state after the prompt."""
+    from repro_torch.models import zamba2 as Z
+    from repro_torch.serve.step import greedy_sample
+
+    b, s = prompts.shape
+    state = Z.init_decode_state(cfg, b, s + gen, device=prompts.device)
+    for t in range(s):
+        logits, state = Z.decode_step(params, prompts[:, t:t + 1], state, t,
+                                      cfg)
+    out = dict(prefill_logits=logits, decode_logits=None,
+               state={k: v.clone() for k, v in state.items()})
+    token, generated = greedy_sample(logits), []
+    for i in range(gen):
+        generated.append(token)
+        logits, state = Z.decode_step(params, token, state, s + i, cfg)
+        if i == 0:
+            out["decode_logits"] = logits
+        token = greedy_sample(logits)
+    out["tokens"] = torch.cat(generated, dim=1)
+    return out
+
+
+def hybrid_end_to_end(dev) -> None:
+    """Phase 18(c): the block prefill and decode (``launch.serve.generate``
+    through the kernel) against the token-by-token route, float32, depth
+    cut (``HYBRID_E2E``), a ragged prompt."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import zamba2 as Z
+
+    arch, batch, prompt_len, gen, n_layers = HYBRID_E2E
+    cfg = dataclasses.replace(get_arch(arch), n_layers=n_layers,
+                              dtype="float32")
+    chunk = cfg.ssm.chunk
+    params = Z.init_lm(cfg, seed=0, device=dev)
+    prompts = torch.randint(
+        0, cfg.vocab_size, (batch, prompt_len), device=dev,
+        generator=torch.Generator(device=dev).manual_seed(0))
+    before = flash_ops.KERNEL_LAUNCHES["flash_attention"]
+    t0 = time.perf_counter()
+    res = launch_serve.generate(params, prompts, cfg, gen, use_kernels=True)
+    launches = flash_ops.KERNEL_LAUNCHES["flash_attention"] - before
+    _, state = Z.prefill(params, prompts, cfg, max_seq=prompt_len + gen,
+                         use_kernels=True)
+    t1 = time.perf_counter()
+    ref = hybrid_stepwise_generate(params, prompts, cfg, gen)
+    t2 = time.perf_counter()
+    c = _compare(res, ref, cfg.vocab_size)
+    parts = {}
+    for k in ("conv", "ssm", "attn_k", "attn_v"):
+        want = ref["state"][k].float()
+        parts[k] = float((state[k].float() - want).abs().max()
+                         / want.abs().max())
+    tol = HYBRID_E2E_TOL
+    tag = f"serve/hybrid/e2e_float32_L{n_layers}"
+    print_compare(f"{tag}/kernel_vs_stepwise", c, batch,
+                  f"(tolerance: max {tol['logits'][0]}, rel_rms "
+                  f"{tol['logits'][1]}, tokens equal)")
+    print(f"{tag}: prompt {prompt_len} = {prompt_len // chunk} x {chunk} + "
+          f"{prompt_len % chunk} (block, then one token at a time); "
+          f"shared invocations={Z.n_attn(cfg)} flash launches={launches}; "
+          f"state after the prompt, max_abs_diff/max_abs: "
+          + " ".join(f"{k}={v:.6g}" for k, v in parts.items())
+          + f" (limit {tol['state']}); kernel_route_s={t1 - t0:.3f} "
+          f"stepwise_s={t2 - t1:.3f}")
+    ok = (launches == Z.n_attn(cfg) == 2 and c["token_agreement"] == 1.0
+          and all(v <= tol["state"] for v in parts.values())
+          and all(c[f"{n}_max"] <= tol["logits"][0]
+                  and c[f"{n}_rel"] <= tol["logits"][1]
+                  for n in ("prefill", "decode")))
+    del params, prompts, res, state, ref
+    torch.cuda.empty_cache()
+    check(ok, f"{tag}: the block prefill differs from the token-by-token "
+          f"route beyond tolerance")
+
+
+def counter_past_2_32(dev) -> None:
+    """Phase 18(e): threefry draws straddling flat index 2**32 on the card
+    against the CPU route, bitwise."""
+    from repro_torch.core import prng
+
+    key = prng.PRNGKey(26)
+    shape, offset = COUNTER_BITS
+    got = prng.bits(key.to(dev), shape, offset=offset)
+    want = prng.bits(key, shape, offset=offset)
+    vocab, rows = COUNTER_ROWS
+    r0 = 2 ** 32 // vocab
+    logits = torch.randn(vocab, generator=torch.Generator().manual_seed(26))
+    got_rows = prng.categorical_rows(key.to(dev), logits.to(dev), r0,
+                                     r0 + rows)
+    want_rows = prng.categorical_rows(key, logits, r0, r0 + rows)
+    n = math.prod(shape)
+    print(f"prng/past_2_32: bits {shape} at flat indices {offset} .. "
+          f"{offset + n - 1} bitwise_equal_cpu="
+          f"{torch.equal(got.cpu(), want)}; categorical rows {r0} .. "
+          f"{r0 + rows - 1} over V={vocab} (flat indices {r0 * vocab} .. "
+          f"{(r0 + rows) * vocab - 1}) equal_cpu="
+          f"{torch.equal(got_rows.cpu(), want_rows)} rows={got_rows.tolist()}")
+    check(offset < 2 ** 32 < offset + n and r0 * vocab < 2 ** 32
+          < (r0 + rows) * vocab, "prng/past_2_32: a block misses 2**32")
+    check(torch.equal(got.cpu(), want)
+          and torch.equal(got_rows.cpu(), want_rows),
+          "prng/past_2_32: the card's draws differ from the CPU route's")
+
+
+def hybrid_on_card(dev) -> dict:
+    """Phase 18, (a)-(e), each part's seconds printed. Returns the flash
+    launches by path: serve/hybrid (the main path of (a)) and
+    train/hybrid_kernel_loss (d)."""
+    t0 = time.perf_counter()
+    served = serve_phase("hybrid", dev)
+    t1 = time.perf_counter()
+    hybrid_float32_full_depth(dev)
+    t2 = time.perf_counter()
+    hybrid_end_to_end(dev)
+    t3 = time.perf_counter()
+    arch, layers, batch = HYBRID_TRAIN
+    launches = kernel_route_loss(arch, layers, batch, dev)
+    torch.cuda.empty_cache()
+    t4 = time.perf_counter()
+    counter_past_2_32(dev)
+    t5 = time.perf_counter()
+    print(f"phase18/seconds: a_b_bf16={t1 - t0:.3f} b_f32={t2 - t1:.3f} "
+          f"c={t3 - t2:.3f} d={t4 - t3:.3f} e={t5 - t4:.3f}")
+    return dict(served=served, train=launches)
 
 
 class Phases:
@@ -3674,6 +4016,14 @@ def main() -> None:
     # phase 17: training on the card (counts reset inside, per path)
     train_paths = training_on_card(dev)
     phases.done("17_train")
+
+    # phase 18: the hybrid family, served and trained (counts reset
+    # inside, per path), and the threefry counter past 2**32
+    hybrid = hybrid_on_card(dev)
+    served["hybrid"] = hybrid["served"]
+    train_paths["flash_attention"]["train/hybrid_kernel_loss"] = \
+        hybrid["train"]["flash_attention"]
+    phases.done("18_hybrid")
     scan_paths["sweep/full"] = full["launches"]["freed_scan"]
     entry.update(launches=sum(scan_paths.values()),
                  launches_by_path=scan_paths)
@@ -3685,6 +4035,8 @@ def main() -> None:
           f"serving never launched flash_attention: {by_path}")
     check(by_path["grouped_matmul"]["serve/moe"] > 0,
           f"MoE serving never launched grouped_matmul: {by_path}")
+    check(by_path["flash_attention"]["serve/hybrid"] > 0,
+          f"hybrid serving never launched flash_attention: {by_path}")
     from repro_torch.configs import get_arch
     ssm_layers = get_arch(SERVE["ssm"][0]).n_layers
     check(by_path["wkv6"]["serve/ssm"] == ssm_layers,
@@ -3727,9 +4079,10 @@ def main() -> None:
     flash_entry.update(
         design=flash_rows["8x2048x14x64"]["design"],
         launches_by_design={d: sum(served[f]["flash_designs"][d]
-                                   for f in ("dense", "moe"))
+                                   for f in ("dense", "moe", "hybrid"))
                             for d in ("wgmma", "simt")},
-        moe_shape="4x1024x16x128", moe=flash_rows["4x1024x16x128"])
+        moe_shape="4x1024x16x128", moe=flash_rows["4x1024x16x128"],
+        hybrid_shape=FLASH_HYBRID_KEY, hybrid=flash_rows[FLASH_HYBRID_KEY])
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -105,7 +105,8 @@ def lm_params(tree, cfg, device: str | torch.device = "cpu",
     """The port's language-model parameters from the reference's
     ``init_params(key, cfg)`` tree (nested dicts, numpy or jax leaves,
     per-layer leaves stacked on a leading L axis), for the ``dense`` and
-    ``moe`` transformers and the ``ssm`` family (RWKV-6).
+    ``moe`` transformers, the ``ssm`` family (RWKV-6) and the ``hybrid``
+    family (Zamba2, its ``shared_*`` leaves at the top).
 
     The port keeps the reference's layout (``param_specs`` of the family's
     module, ``models.lm_module``), so each leaf goes to the same path.
@@ -113,9 +114,11 @@ def lm_params(tree, cfg, device: str | torch.device = "cpu",
     ``dtype`` (default: ``cfg.dtype``), the type the reference casts them
     to at use, which is exact and halves the memory of a bfloat16 model;
     the leaves the reference uses in float32 stay float32: norm scales and
-    biases, and RWKV-6's mix factors, decay base and LoRA, bonus and group-
-    norm scale. Raises on a leaf of ``tree`` the port has no place for, on
-    a port leaf missing from ``tree``, and on a shape that differs."""
+    biases, RWKV-6's mix factors, decay base and LoRA, bonus and group-
+    norm scale, and Zamba2's ``A_log``, ``dt_bias``, ``D_skip`` and
+    out-norm scale. Raises on a leaf of ``tree`` the port has no place
+    for, on a port leaf missing from ``tree``, and on a shape that
+    differs."""
     dev = resolve_device(device)
     dtype = dtype or lm.act_dtype(cfg)
     flat = lm.flatten(tree)

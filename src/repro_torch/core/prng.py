@@ -65,19 +65,20 @@ def PRNGKey(seed: int, device: str | torch.device = "cpu") -> torch.Tensor:
                         device=device)
 
 
-def _hash_counters(key: torch.Tensor, lo: torch.Tensor
+def _hash_counters(key: torch.Tensor, idx: torch.Tensor
                    ) -> tuple[torch.Tensor, torch.Tensor]:
-    """threefry2x32(key, (0, lo)) with key ``(..., 2)`` broadcast against
-    the trailing counter dims of ``lo``."""
-    extra = lo.dim()
+    """threefry2x32(key, (idx >> 32, idx & M32)) for non-negative int64
+    indices ``idx``, with key ``(..., 2)`` broadcast against the trailing
+    counter dims of ``idx``."""
+    extra = idx.dim()
     k = key.reshape(key.shape[:-1] + (1,) * extra + (2,))
-    return threefry2x32(k[..., 0], k[..., 1], torch.zeros_like(lo), lo)
+    return threefry2x32(k[..., 0], k[..., 1], idx >> 32, idx & M32)
 
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split``: ``(..., 2)`` → ``(..., num, 2)``."""
-    lo = torch.arange(num, dtype=torch.int64, device=key.device)
-    b1, b2 = _hash_counters(key, lo)
+    i = torch.arange(num, dtype=torch.int64, device=key.device)
+    b1, b2 = _hash_counters(key, i)
     return torch.stack([b1, b2], dim=-1)
 
 
@@ -94,14 +95,18 @@ def bits(key: torch.Tensor, shape: tuple[int, ...], offset: int = 0
     """``jax.random.bits`` (32-bit): uint32 values as int64, shape
     ``key.shape[:-1] + shape``. With ``offset``, the elements at flat
     indices ``offset ..`` of a larger draw from the same key (a block of
-    rows of it)."""
+    rows of it). The flat index is 64-bit, as jax's; the port holds it
+    in int64, so a draw may reach index 2**63 - 1."""
     shape = tuple(shape)
     n = math.prod(shape)
-    if offset + n >= 2 ** 32:
-        raise NotImplementedError("more than 2**32 draws from one key")
-    lo = torch.arange(offset, offset + n, dtype=torch.int64,
-                      device=key.device).reshape(shape)
-    b1, b2 = _hash_counters(key, lo)
+    if offset < 0 or offset + n > 2 ** 63:
+        raise NotImplementedError(
+            f"draws at flat indices {offset} .. {offset + n - 1}: the port's "
+            f"counter is an int64 index, so it stops at 2**63 - 1 (jax's at "
+            f"2**64 - 1)")
+    idx = (torch.arange(n, dtype=torch.int64, device=key.device)
+           + offset).reshape(shape)
+    b1, b2 = _hash_counters(key, idx)
     return b1 ^ b2
 
 
@@ -168,12 +173,20 @@ def categorical(key: torch.Tensor, logits: torch.Tensor,
         g = gumbel(key, (logits.shape[-1],))
         return torch.argmax(g + logits, dim=-1)
     shape = tuple(shape)
-    V = logits.shape[-1]
     n = math.prod(shape)
-    rows = max(1, _GUMBEL_BLOCK // V)
+    rows = max(1, _GUMBEL_BLOCK // logits.shape[-1])
     out = torch.empty(n, dtype=torch.int64, device=logits.device)
     for r0 in range(0, n, rows):
         r1 = min(n, r0 + rows)
-        g = gumbel(key, (r1 - r0, V), offset=r0 * V)
-        out[r0:r1] = torch.argmax(g + logits, dim=-1)
+        out[r0:r1] = categorical_rows(key, logits, r0, r1)
     return out.reshape(shape)
+
+
+def categorical_rows(key: torch.Tensor, logits: torch.Tensor, r0: int,
+                     r1: int) -> torch.Tensor:
+    """Rows ``r0 .. r1 - 1`` (by flat index) of ``categorical(key, logits,
+    shape=)``: the Gumbel noise at flat indices ``r0 · V ..`` of the
+    draw, added to the ``(V,)`` row ``logits``, argmax a row."""
+    V = logits.shape[-1]
+    g = gumbel(key, (r1 - r0, V), offset=r0 * V)
+    return torch.argmax(g + logits, dim=-1)

@@ -1,17 +1,22 @@
 """Batched serving entry point: prefill a batch of prompts, decode greedily
-(port of ``repro.launch.serve``, the ``dense``, ``moe`` and ``ssm``
-families).
+(port of ``repro.launch.serve``, the ``dense``, ``moe``, ``ssm`` and
+``hybrid`` families).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
       --device cuda --batch 8 --prompt-len 2048 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \\
+      --device cuda --batch 8 --prompt-len 2048 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
       --device cuda --batch 8 --prompt-len 2048 --gen 32
 
 On the card ``serve`` runs every hand-written CUDA kernel on its path
 (``use_kernels=True``): for a transformer, prefill attention and every
 MoE expert FFN of prefill and decode go through
 ``csrc/flash_attention.cu`` and ``csrc/moe_gmm.cu``; for RWKV-6, every
-layer's WKV scan of prefill goes through ``csrc/wkv6.cu``. This differs
+layer's WKV scan of prefill goes through ``csrc/wkv6.cu``; for Zamba2,
+every shared-attention invocation of prefill goes through
+``csrc/flash_attention.cu`` (its SSD scan is plain, as the reference's).
+This differs
 from ``repro.launch.serve``, whose default route is XLA's (``sdpa``,
 einsum expert FFNs, the jnp chunked scan): the reference reaches its
 Pallas kernels only behind per-kernel flags and only on a TPU, and this
@@ -28,7 +33,11 @@ kernel and on the card would cost one eager step per prompt token. Here
 and WKV state. The recurrence is the same, so the state after the prompt,
 the logits and the greedy tokens are the reference's up to summation
 order (``tests/test_torch_rwkv6.py`` holds them to it); decode then steps
-one token at a time, as the reference does.
+one token at a time, as the reference does. Zamba2's prompt takes the
+same kind of route (``zamba2.prefill``): the longest prefix that is a
+multiple of ``cfg.ssm.chunk`` and fits the shared attention's KV ring as
+one block, then the rest one token at a time from the carried state
+(``tests/test_torch_zamba2.py``).
 """
 
 from __future__ import annotations
@@ -56,7 +65,8 @@ def generate(params: dict, prompts: torch.Tensor, cfg, gen: int, *,
     """Prefill ``prompts`` (B, S), then decode greedily: ``gen`` decode
     steps, as the reference's loop does (the last step's token is not
     kept). A transformer's prefill keys and values fill a (S + gen)-long
-    KV cache; RWKV-6's decode carries the state its prefill leaves.
+    KV cache; RWKV-6's decode carries the state its prefill leaves, and
+    so does Zamba2's, its rings sized for S + gen tokens.
     ``use_kernels`` runs every hand-written kernel on the path
     (``serve.step``).
 
@@ -66,13 +76,16 @@ def generate(params: dict, prompts: torch.Tensor, cfg, gen: int, *,
     ending in a device synchronise."""
     B, S = prompts.shape
     dev = prompts.device
-    ssm = cfg.family == "ssm"
+    fam = cfg.family
     prefill = make_prefill_step(cfg, use_kernels=use_kernels)
     decode = make_decode_step(cfg, use_kernels=use_kernels)
     _sync(dev)
     t0 = time.perf_counter()
-    logits, pf = prefill(params, prompts)
-    if ssm:
+    if fam == "hybrid":
+        logits, pf = prefill(params, prompts, max_seq=S + gen)
+    else:
+        logits, pf = prefill(params, prompts)
+    if fam in ("ssm", "hybrid"):
         state = pf
     else:
         caches = init_kv_caches(cfg, B, S + gen, device=dev)
@@ -86,8 +99,10 @@ def generate(params: dict, prompts: torch.Tensor, cfg, gen: int, *,
     generated = []
     for i in range(gen):
         generated.append(token)
-        if ssm:
+        if fam == "ssm":
             logits, state = decode(params, token, state)
+        elif fam == "hybrid":
+            logits, state = decode(params, token, state, S + i)
         else:
             logits, caches = decode(params, token, caches, S + i)
         if i == 0:

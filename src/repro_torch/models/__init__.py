@@ -1,6 +1,7 @@
 """The port's model zoo: the decoder-only transformer of the ``dense`` and
-``moe`` families (``transformer``), its layers and its MoE layer, and
-RWKV-6 of the ``ssm`` family (``rwkv6``)."""
+``moe`` families (``transformer``), its layers and its MoE layer, RWKV-6
+of the ``ssm`` family (``rwkv6``) and Zamba2 of the ``hybrid`` family
+(``zamba2``)."""
 
 
 def lm_module(cfg):
@@ -14,6 +15,9 @@ def lm_module(cfg):
     if cfg.family == "ssm":
         from repro_torch.models import rwkv6
         return rwkv6
+    if cfg.family == "hybrid":
+        from repro_torch.models import zamba2
+        return zamba2
     raise NotImplementedError(
         f"repro_torch.models: the {cfg.family!r} family ({cfg.name}) is not "
         f"ported yet (ROADMAP Queue 1, item 9(c))")

@@ -1,15 +1,20 @@
 """Family-dispatched serving steps: prefill and single-token decode (port
 of ``repro.serve.step``).
 
-Ported: the ``dense`` and ``moe`` families (``models.transformer``) and
-the ``ssm`` family (``models.rwkv6``). The other families raise
-``NotImplementedError`` naming their ROADMAP item.
+Ported: the ``dense`` and ``moe`` families (``models.transformer``), the
+``ssm`` family (``models.rwkv6``) and the ``hybrid`` family
+(``models.zamba2``). The other families raise ``NotImplementedError``
+naming their ROADMAP item.
 
 The prefill of every family returns (last-position logits, decode state):
 the KV caches of the prompt for a transformer, the shift and WKV state
-after the prompt for RWKV-6. A transformer's decode takes
-``(params, token, caches, index)``, RWKV-6's ``(params, token, state)``,
-as in the reference.
+after the prompt for RWKV-6, and for Zamba2 the conv carries, SSD states
+and shared-attention KV rings after the prompt (its prefill takes
+``max_seq``, the length the rings are sized for; the reference's hybrid
+prefill returns the logits only and its serve steps the prompt through
+decode). A transformer's and Zamba2's decode take ``(params, token,
+state, index)``, RWKV-6's ``(params, token, state)``, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 
-PORTED = ("dense", "moe", "ssm")
+PORTED = ("dense", "moe", "ssm", "hybrid")
 
 
 def not_ported(cfg: ModelConfig) -> NotImplementedError:
@@ -28,12 +33,20 @@ def not_ported(cfg: ModelConfig) -> NotImplementedError:
 
 
 def make_prefill_step(cfg: ModelConfig, *, use_kernels: bool = False):
-    """``prefill(params, tokens)``. ``use_kernels`` runs every hand-written
-    kernel on the family's prefill: flash attention and the grouped expert
-    matmul for a transformer, the WKV6 scan for RWKV-6 (on CPU tensors
-    their plain versions)."""
+    """``prefill(params, tokens)`` (Zamba2's: ``prefill(params, tokens,
+    max_seq=None)``). ``use_kernels`` runs every hand-written kernel on
+    the family's prefill: flash attention and the grouped expert matmul
+    for a transformer, the WKV6 scan for RWKV-6, flash attention in
+    Zamba2's shared block (on CPU tensors their plain versions)."""
     if cfg.family not in PORTED:
         raise not_ported(cfg)
+    if cfg.family == "hybrid":
+        from repro_torch.models import zamba2 as Z
+
+        def prefill(params, tokens, max_seq=None):
+            return Z.prefill(params, tokens, cfg, max_seq=max_seq,
+                             use_kernels=use_kernels)
+        return prefill
     if cfg.family == "ssm":
         from repro_torch.models import rwkv6 as R
 
@@ -50,10 +63,17 @@ def make_prefill_step(cfg: ModelConfig, *, use_kernels: bool = False):
 
 def make_decode_step(cfg: ModelConfig, *, use_kernels: bool = False):
     """One-token decode. ``use_kernels`` runs a transformer's MoE expert
-    FFNs through the grouped matmul kernel; RWKV-6's decode takes the
-    one-step recurrence, which has no kernel."""
+    FFNs through the grouped matmul kernel; RWKV-6's and Zamba2's decode
+    take the one-step recurrences and plain attention over the cache,
+    which have no kernel."""
     if cfg.family not in PORTED:
         raise not_ported(cfg)
+    if cfg.family == "hybrid":
+        from repro_torch.models import zamba2 as Z
+
+        def decode(params, token, state, index):
+            return Z.decode_step(params, token, state, index, cfg)
+        return decode
     if cfg.family == "ssm":
         from repro_torch.models import rwkv6 as R
 

@@ -2,10 +2,10 @@
 
 ``make_train_step(cfg)`` returns ``(params, opt_state, batch) -> (params,
 opt_state, metrics)``; the gradients come from torch autograd through the
-plain route (``sdpa``, einsum expert FFNs, the plain chunked WKV scan),
-which is the reference's training route: its kernels have no backward,
-and on CUDA tensors the port's kernel wrappers refuse autograd, so
-``use_flash=True`` there raises instead of training. Microbatch
+plain route (``sdpa``, einsum expert FFNs, the plain chunked WKV and SSD
+scans), which is the reference's training route: its kernels have no
+backward, and on CUDA tensors the port's kernel wrappers refuse autograd,
+so ``use_flash=True`` there raises instead of training. Microbatch
 accumulation (``accum``) is a Python loop with float32 gradient sums
 where the reference has a ``lax.scan``. The step reads nothing back to
 the host.
@@ -38,7 +38,8 @@ def _unported(fam: str, cfg: ModelConfig) -> NotImplementedError:
 def params_at_use(params: dict, cfg: ModelConfig) -> dict:
     """Each leaf in the type the layers use it in: float32 for the leaves
     the reference keeps in float32 (norm scales and biases, RWKV-6's mix
-    factors, decay, bonus and group-norm scale), the activation type for
+    factors, decay, bonus and group-norm scale, Zamba2's ``A_log``,
+    ``dt_bias``, ``D_skip`` and out-norm scale), the activation type for
     every other. The cast is differentiable and a no-op for a leaf that
     already has its type."""
     specs = lm_module(cfg).flat_specs(cfg)
@@ -54,13 +55,18 @@ def model_loss(params, batch: dict, cfg: ModelConfig, *, remat: str = "dots",
                vocab_parallel: bool = False) -> torch.Tensor:
     """The mean next-token cross-entropy of ``batch`` ({"tokens",
     "labels"}). ``use_flash``/``use_moe_kernel`` reach the transformer's
-    attention and expert FFNs, ``use_kernel`` RWKV-6's WKV scan: the
-    kernels on CUDA tensors (no autograd there), their plain versions on
-    CPU tensors."""
+    attention and expert FFNs (``use_flash`` also Zamba2's shared
+    attention), ``use_kernel`` RWKV-6's WKV scan: the kernels on CUDA
+    tensors (no autograd there), their plain versions on CPU tensors."""
     fam = cfg.family
-    if fam not in ("dense", "moe", "ssm"):
+    if fam not in ("dense", "moe", "ssm", "hybrid"):
         raise _unported(fam, cfg)
     p = params_at_use(params, cfg)
+    if fam == "hybrid":
+        from repro_torch.models import zamba2 as Z
+        logits = Z.forward(p, batch["tokens"], cfg, remat=remat,
+                           use_flash=use_flash)
+        return _xent(logits, batch["labels"], cfg)
     if fam == "ssm":
         from repro_torch.models import rwkv6 as R
         logits = R.forward(p, batch["tokens"], cfg, remat=remat,

@@ -1272,7 +1272,7 @@ def _reduced_f32(arch: str):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "moonshot-v1-16b-a3b",
-                                  "rwkv6-3b"])
+                                  "rwkv6-3b", "zamba2-1.2b"])
 def test_reduced_train_steps_on_the_card_match_the_cpu(cuda_device, arch):
     """Three float32 training steps on the card against the CPU route:
     losses within 1e-5 relative, parameters within 4e-5 (twice the sum of
@@ -1340,3 +1340,74 @@ def test_train_restart_on_the_card_is_exact(cuda_device, tmp_path):
     train("qwen2-0.5b", steps=4, ckpt_dir=ck, ckpt_every=4, **run)
     r2 = train("qwen2-0.5b", steps=6, ckpt_dir=ck, ckpt_every=100, **run)
     assert r2["losses"] == r1["losses"][4:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hybrid_prefill_through_flash_matches_its_twin_on_the_card(
+        cuda_device, dtype):
+    """The reduced model at 4 layers, a 48-token prompt: the block prefill
+    through the flash kernel (one launch a shared-block invocation)
+    against the same route with flash swapped for its plain version,
+    logits and the state within the flash kernel's own limits (a few
+    float32 or bfloat16 roundings), and the CPU route."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import zamba2 as TZ
+    from repro_torch.train import optimizer as TO
+
+    tcfg = dataclasses.replace(ARCHS["zamba2-1.2b"].reduced(), dtype=dtype,
+                               n_layers=4)
+    params = TZ.init_lm(tcfg, seed=0, device=cuda_device)
+    toks = torch.randint(0, tcfg.vocab_size, (2, 48), device=cuda_device,
+                         generator=torch.Generator(device=cuda_device)
+                         .manual_seed(0))
+    before = flash_ops.KERNEL_LAUNCHES["flash_attention"]
+    got, gs = TZ.prefill(params, toks, tcfg, max_seq=60, use_kernels=True)
+    assert flash_ops.KERNEL_LAUNCHES["flash_attention"] - before == 2
+    kernel = flash_ops.flash_attention
+    flash_ops.flash_attention = flash_ref.attention_ref
+    try:
+        want, ws = TZ.prefill(params, toks, tcfg, max_seq=60,
+                              use_kernels=True)
+    finally:
+        flash_ops.flash_attention = kernel
+    atol = 1e-4 if dtype == "float32" else 6e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    for k in gs:
+        torch.testing.assert_close(gs[k].float(), ws[k].float(),
+                                   atol=atol * 10, rtol=0)
+    cpu = TO.tree_map(lambda x: x.cpu(), params)
+    on_cpu, _ = TZ.prefill(cpu, toks.cpu(), tcfg, max_seq=60)
+    torch.testing.assert_close(got.float().cpu(), on_cpu.float(), atol=atol,
+                               rtol=0)
+
+
+@pytest.mark.cuda
+def test_hybrid_train_step_through_flash_raises_on_the_card(cuda_device):
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.train import optimizer as TO
+    from repro_torch.train import step as TS
+    from repro_torch.train.data import make_batch_fn
+
+    cfg = ARCHS["zamba2-1.2b"].reduced()
+    p = TO.tree_map(lambda x: x.float(),
+                    TS.init_params(cfg, seed=0, device=cuda_device))
+    before = TO.tree_map(lambda x: x.clone(), p)
+    o = TO.init(p)
+    b = make_batch_fn(cfg, ShapeSpec("t", 32, 2, "train"),
+                      device=cuda_device)(0)
+    with pytest.raises(RuntimeError, match="no backward"):
+        TS.make_train_step(cfg, use_flash=True, remat="none")(p, o, b)
+    assert int(o.step) == 0
+    assert all(torch.equal(x, y) for x, y in
+               zip(TO.leaves(p), TO.leaves(before)))
+    # under no_grad the same loss runs through the kernel
+    with torch.no_grad():
+        n0 = flash_ops.KERNEL_LAUNCHES["flash_attention"]
+        loss = TS.model_loss(p, b, cfg, remat="none", use_flash=True)
+        assert flash_ops.KERNEL_LAUNCHES["flash_attention"] - n0 == 1
+        plain = TS.model_loss(p, b, cfg, remat="none")
+    assert abs(float(loss) - float(plain)) <= 2 ** -9 * abs(float(plain))

@@ -1,8 +1,9 @@
 """The port's training driver (``launch.train``), its checkpoints and its
 placement on the host's mesh, on the CPU.
 
-* Kill and restart: a run checkpointed at step 4 and resumed to step 6
-  equals the uninterrupted 6-step run BITWISE, every logged loss (the
+* Kill and restart (qwen2-0.5b and zamba2-1.2b, reduced): a run
+  checkpointed at step 4 and resumed to step 6 equals the uninterrupted
+  6-step run BITWISE, every logged loss (the
   reference's ``tests/test_system.py::test_train_checkpoint_restart_exact``
   holds its own to 1e-3), and ``test_training_reduces_loss`` rerun.
 * Across the packages (reduced qwen2-0.5b, bfloat16 activations): the
@@ -59,19 +60,28 @@ BF16_LOSS_REL = 2.0 ** -9
 RESUMED_PARAM_ATOL = 2 * (1.5e-5 + 1.8e-5)
 
 
-def test_train_checkpoint_restart_exact(tmp_path):
-    """Kill-and-restart equals the uninterrupted run, bit for bit."""
-    r1 = ttrain.train("qwen2-0.5b", steps=6, ckpt_dir=None, device="cpu",
-                      **RUN)
+def _restart_exact(arch: str, tmp_path) -> None:
+    r1 = ttrain.train(arch, steps=6, ckpt_dir=None, device="cpu", **RUN)
     ck = str(tmp_path / "ck")
-    ttrain.train("qwen2-0.5b", steps=4, ckpt_dir=ck, ckpt_every=4,
-                 device="cpu", **RUN)
+    ttrain.train(arch, steps=4, ckpt_dir=ck, ckpt_every=4, device="cpu",
+                 **RUN)
     assert TCKPT.latest_step(ck) == 4
-    r2 = ttrain.train("qwen2-0.5b", steps=6, ckpt_dir=ck, ckpt_every=100,
+    r2 = ttrain.train(arch, steps=6, ckpt_dir=ck, ckpt_every=100,
                       device="cpu", **RUN)
     assert r2["losses"] == r1["losses"][4:]
     assert r2["final_loss"] == r1["final_loss"]
     assert set(r1) == {"losses", "final_loss", "first_loss", "steps"}
+
+
+def test_train_checkpoint_restart_exact(tmp_path):
+    """Kill-and-restart equals the uninterrupted run, bit for bit."""
+    _restart_exact("qwen2-0.5b", tmp_path)
+
+
+def test_hybrid_train_checkpoint_restart_exact(tmp_path):
+    """The same for the ``hybrid`` family (Zamba2: the SSD scan and the
+    shared block under autograd)."""
+    _restart_exact("zamba2-1.2b", tmp_path)
 
 
 def test_training_reduces_loss():

@@ -108,3 +108,121 @@ def test_batched_keys_broadcast():
     for i in range(4):
         np.testing.assert_array_equal(batched[i].numpy(),
                                       prng.uniform(k[i], (7,)).numpy())
+
+
+# ------------------------------------------------ the counter past 2**32
+#
+# jax hashes the 64-bit flat index i of a draw as the counter words
+# (i >> 32, i & 0xffffffff). A draw past index 2**32 is checked without a
+# 2**32-element array: jax's threefry primitive hashes explicit counters,
+# and a PRNG implementation whose ``random_bits`` starts at an offset runs
+# jax's own ``categorical`` over a block of rows of the larger draw.
+
+M32 = 0xFFFFFFFF
+BOUNDARY = 2 ** 32
+
+
+def _jax_bits_at(kd, offset: int, n: int) -> np.ndarray:
+    """jax's 32-bit draws (uint32) at flat indices offset .. offset + n - 1
+    of the stream of key data ``kd`` (uint32 (2,)), from the threefry
+    primitive."""
+    from jax._src import prng as jprng
+    idx = offset + np.arange(n, dtype=np.uint64)
+    hi = jnp.asarray((idx >> np.uint64(32)).astype(np.uint32))
+    lo = jnp.asarray((idx & np.uint64(M32)).astype(np.uint32))
+    b1, b2 = jprng.threefry2x32_p.bind(kd[0], kd[1], hi, lo)
+    return b1 ^ b2
+
+
+def test_threefry_primitive_is_jax_bits_at_hi_zero(keys):
+    """The primitive at counters (0, i) is ``jax.random.bits``: the oracle
+    of the tests below."""
+    jk, _ = keys
+    for kd in np.asarray(jk)[:20]:
+        want = np.asarray(jax.random.bits(jnp.asarray(kd), (37,)),
+                          np.int64)
+        got = np.asarray(_jax_bits_at(jnp.asarray(kd), 0, 37), np.int64)
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("offset", [BOUNDARY, BOUNDARY + 12_345,
+                                    7 * BOUNDARY + 3, 2 ** 40 + 999,
+                                    2 ** 62 + 5])
+def test_bits_past_2_32_against_jax(keys, offset):
+    jk, tk = keys
+    for kd, k in zip(np.asarray(jk)[:10], tk[:10]):
+        got = prng.bits(k, (3, 11), offset=offset).reshape(-1).numpy()
+        want = _jax_bits_at(jnp.asarray(kd), offset, 33)
+        np.testing.assert_array_equal(got, np.asarray(want, np.int64))
+
+
+def test_block_straddling_2_32_exactly(keys):
+    """Indices 2**32 - 40 .. 2**32 + 39 in one block: the part below the
+    boundary is the draw it always was (counter (0, i)), the part above
+    takes the high word 1, and both are jax's."""
+    jk, tk = keys
+    off, n = BOUNDARY - 40, 80
+    for kd, k in zip(np.asarray(jk)[:10], tk[:10]):
+        got = prng.bits(k, (n,), offset=off).numpy()
+        want = _jax_bits_at(jnp.asarray(kd), off, n)
+        np.testing.assert_array_equal(got, np.asarray(want, np.int64))
+        lo = torch.arange(off, BOUNDARY, dtype=torch.int64)
+        b1, b2 = prng.threefry2x32(k[0], k[1], torch.zeros_like(lo), lo)
+        np.testing.assert_array_equal(got[:40], (b1 ^ b2).numpy())
+        assert not np.array_equal(got[40:], prng.bits(k, (40,)).numpy())
+
+
+def _offset_impl(offset: int):
+    """jax's threefry PRNG with ``random_bits`` starting at flat index
+    ``offset``: jax's samplers on it draw a block of a larger draw."""
+    from jax._src import prng as jprng
+    base = jprng.threefry_prng_impl
+
+    def random_bits(key, bit_width, shape):
+        assert bit_width == 32
+        return _jax_bits_at(key, offset, int(np.prod(shape))).reshape(shape)
+    return jprng.PRNGImpl(base.key_shape, base.seed, base.split,
+                          random_bits, base.fold_in, name="threefry_at",
+                          tag="tfa")
+
+
+@pytest.mark.parametrize("vocab,row", [(32_000, BOUNDARY // 32_000 - 2),
+                                       (151_936, BOUNDARY // 151_936),
+                                       (53, 3 * BOUNDARY // 53 + 1)])
+def test_categorical_rows_past_2_32_against_jax(vocab, row):
+    """Rows of ``categorical(shape=)`` at ``offset = row · V`` past (or
+    straddling) flat index 2**32: jax's ``categorical`` on the stream that
+    starts there picks the same index in every row."""
+    rows = 6
+    assert (row + rows) * vocab > BOUNDARY
+    kd = jax.random.key_data(jax.random.PRNGKey(11))
+    logits = np.random.default_rng(vocab).normal(size=vocab).astype(
+        np.float32)
+    key = jax.random.wrap_key_data(kd, impl=_offset_impl(row * vocab))
+    want = np.asarray(jax.random.categorical(key, jnp.asarray(logits),
+                                             shape=(rows,)))
+    got = prng.categorical_rows(prng.PRNGKey(11), torch.as_tensor(logits),
+                                row, row + rows).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_categorical_shape_is_its_row_blocks():
+    """``categorical(shape=)`` is ``categorical_rows`` block by block."""
+    key = prng.PRNGKey(4)
+    logits = torch.as_tensor(np.random.default_rng(2).normal(size=300)
+                             .astype(np.float32))
+    whole = prng.categorical(key, logits, shape=(5, 9))
+    parts = torch.cat([prng.categorical_rows(key, logits, 0, 17),
+                       prng.categorical_rows(key, logits, 17, 45)])
+    np.testing.assert_array_equal(whole.reshape(-1).numpy(), parts.numpy())
+
+
+def test_bits_raises_at_the_int64_limit():
+    key = prng.PRNGKey(0)
+    top = prng.bits(key, (3,), offset=2 ** 63 - 3)   # last index 2**63 - 1
+    assert top.shape == (3,)
+    for offset, shape in ((2 ** 63 - 2, (3,)), (2 ** 63, (1,)), (-1, (2,))):
+        with pytest.raises(NotImplementedError, match="2\\*\\*63"):
+            prng.bits(key, shape, offset=offset)
+    # the old limit is gone: a draw ending at and past 2**32
+    assert prng.bits(key, (2,), offset=BOUNDARY - 1).shape == (2,)

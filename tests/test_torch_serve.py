@@ -174,8 +174,10 @@ def test_port_decode_matches_port_forward(arch):
 
 
 def test_serve_on_cpu_and_unported_families():
-    # rwkv6's 21-token prompt is a 16-token chunk and a 5-token tail
-    for arch, prompt_len in (("moonshot-v1-16b-a3b", 8), ("rwkv6-3b", 21)):
+    # rwkv6's 21-token prompt is a 16-token chunk and a 5-token tail;
+    # zamba2's 40-token one two 16-token chunks and an 8-token tail
+    for arch, prompt_len in (("moonshot-v1-16b-a3b", 8), ("rwkv6-3b", 21),
+                             ("zamba2-1.2b", 40)):
         res = tserve.serve(arch, batch=2, prompt_len=prompt_len, gen=4,
                            device="cpu")
         assert res["tokens"].shape == (2, 4)
@@ -187,7 +189,7 @@ def test_serve_on_cpu_and_unported_families():
         again = tserve.serve(arch, batch=2, prompt_len=prompt_len, gen=4,
                              device="cpu")
         assert torch.equal(res["tokens"], again["tokens"])   # from the seed
-    for arch in ("zamba2-1.2b", "whisper-tiny", "pixtral-12b"):
+    for arch in ("whisper-tiny", "pixtral-12b"):
         cfg = TARCHS[arch].reduced()
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tstep.make_prefill_step(cfg)

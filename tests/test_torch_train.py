@@ -13,13 +13,14 @@
   drawn in many blocks of rows.
 * Losses: ``loss_fn``, ``vocab_parallel_xent`` and
   ``aux_load_balance_loss`` within 1e-5 relative.
-* ``model_loss``'s gradients for the reduced qwen2-0.5b, moonshot and
-  rwkv6-3b in float32, from the reference's parameters perturbed with
-  numpy noise (its init hides errors: RWKV-6's ``bonus_u`` is 0, its mix
-  factors 0.5, every norm scale 1), each leaf within 1e-4 rel_rms
-  (measured: at most 1.2e-6, 1.3e-6 and 1.4e-5).
+* ``model_loss``'s gradients for the reduced qwen2-0.5b, moonshot,
+  rwkv6-3b and zamba2-1.2b in float32, from the reference's parameters
+  perturbed with numpy noise (its init hides errors: RWKV-6's
+  ``bonus_u`` is 0, its mix factors 0.5, every norm scale 1), each leaf
+  within 1e-4 rel_rms (measured: at most 1.2e-6, 1.3e-6, 1.4e-5 and
+  2.6e-6).
 * 3 ``make_train_step`` steps (accum 1 and 2) against the reference's
-  jitted step on the same three models in float32: losses within 1e-5
+  jitted step on the same four models in float32: losses within 1e-5
   relative, parameters within max-abs 4e-5. That is twice the sum of the
   first three learning rates (3e-6, 6e-6, 9e-6): Adam's first steps move
   a weight by about its learning rate whatever the gradient's size, so a
@@ -34,7 +35,7 @@
   ``tests/test_optimizer_data.py`` that are not about sharding rules
   (``tests/test_torch_runtime.py`` holds that one), and
   ``tests/test_models_smoke.py``'s ``test_reduced_train_step`` for the
-  seven ``dense``/``moe``/``ssm`` archs and
+  eight ``dense``/``moe``/``ssm``/``hybrid`` archs and
   ``test_vocab_parallel_xent_matches_naive``.
 """
 
@@ -71,9 +72,9 @@ from repro_torch.train import step as TS
 jax.config.update("jax_threefry_partitionable", True)
 torch.set_num_threads(1)   # small tensors: threads only contend
 
-MODELS = ("qwen2-0.5b", "moonshot-v1-16b-a3b", "rwkv6-3b")
+MODELS = ("qwen2-0.5b", "moonshot-v1-16b-a3b", "rwkv6-3b", "zamba2-1.2b")
 TRAIN_ARCHS = sorted(n for n, c in ARCHS.items()
-                     if c.family in ("dense", "moe", "ssm"))
+                     if c.family in ("dense", "moe", "ssm", "hybrid"))
 CPU = torch.device("cpu")
 
 
@@ -266,9 +267,18 @@ def test_unported_families_raise():
         with pytest.raises(NotImplementedError, match=r"9\(c\)"):
             TD.make_batch_fn(ARCHS[arch].reduced(),
                              ShapeSpec("t", 8, 2, "train"), device="cpu")
+        with pytest.raises(NotImplementedError, match=r"9\(c\)"):
+            TS.model_loss({}, {}, ARCHS[arch].reduced())
+    # the hybrid family trains on the CPU
     cfg = ARCHS["zamba2-1.2b"].reduced()
-    with pytest.raises(NotImplementedError, match=r"9\(c\)"):
-        TS.model_loss({}, {}, cfg)
+    params = TO.tree_map(lambda x: x.float(),
+                         TS.init_params(cfg, seed=0, device="cpu"))
+    batch = TD.make_batch_fn(cfg, ShapeSpec("t", 32, 2, "train"),
+                             device="cpu")(0)
+    opt = TO.init(params)
+    params, opt, m = TS.make_train_step(cfg, remat="none")(params, opt,
+                                                           batch)
+    assert math.isfinite(float(m["loss"])) and int(opt.step) == 1
     jcfg, tcfg, _, tp = _both_params("qwen2-0.5b")
     with pytest.raises(NotImplementedError, match=r"9\(c\)"):
         TT.forward(tp, torch.zeros((1, 4), dtype=torch.int32), tcfg,
