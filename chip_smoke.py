@@ -12,7 +12,7 @@ of RWKV-6, the paper's Table-1 and Table-2 runners, the ASA decision
 service and the learned submission policy's training, the sharded
 paths over blocks on the card and the ASA campaign scheduler,
 training with checkpoint/restart, and serving and training the hybrid
-family), and checks the results. Phases:
+and audio families), and checks the results. Phases:
 
 1. the card (``nvidia-smi`` name and power limit) and the kernel build;
 2. each kernel against its plain version at the shapes its path uses
@@ -216,15 +216,33 @@ family), and checks the results. Phases:
    route, a step through the kernel refused; (e) the threefry counter
    past flat index 2^32: ``prng.bits`` and a block of
    ``categorical(shape=)`` rows straddling it, on the card against the
-   CPU route, bitwise.
+   CPU route, bitwise;
+19. the audio family (``whisper-tiny``: 4 encoder and 4 decoder layers,
+   d384, 6 heads of 64, 1500 frames, vocab 51865): flash attention at
+   its three prefill shapes (the encoder's, the decoder's causal
+   self-attention, its cross attention over the frames) against the
+   plain version, timed beside SDPA; (a) served at its published size in
+   bfloat16 (batch 16, prompt 64, 64 new tokens) through
+   ``launch.serve.serve``, whose prefill runs the flash kernel in every
+   attention (12 launches, all ``wgmma``); times, peak memory, a profiled
+   prefill and decode; (b) against the twin route: the bfloat16 logits
+   reported, each flash call held on its own q, k, v, and the logits and
+   every greedy token held in float32 at full depth (flash on the CUDA
+   cores); (c) training at published size (float32 parameters, batch 4,
+   sequence 1024): seconds a step, peak memory, data seconds a batch,
+   the loss through the flash kernel against the plain route, a step
+   through the kernel refused, and ``launch.train`` restarted from its
+   step-2 checkpoint, bitwise the uninterrupted run; (d) the batches'
+   frames on the card against the CPU route, bitwise, in bfloat16 and
+   float32.
 
 Matrix products of the plain versions run in full float32 where their
 inputs are float32: TF32 is switched off for matmuls and cuDNN.
 
 The second-to-last line is a JSON object with one entry per ported
 kernel (``freed_scan``'s launches summed over phases 3, 4 and 10-16, by
-path beside; the model kernels' over phases 5, 6, 8, 17(b), 18(a) and
-18(d)); the last
+path beside; the model kernels' over phases 5, 6, 8, 17(b), 18(a),
+18(d), 19(a) and 19(c)); the last
 line is ``{"ok": true, "device": {...}}``. Any
 failure raises and ends the script with a non-zero exit code; without a CUDA
 device it exits non-zero before printing any result.
@@ -350,11 +368,12 @@ WKV_STATE_REL = (1e-6, 1e-7)
 WKV_SEQ_REL = (3e-5, 6e-6)
 WKV_ATOL = (2e-4, 2e-5)
 
-# phases 5, 6, 8 and 18(a): arch, batch, prompt, new tokens
+# phases 5, 6, 8, 18(a) and 19(a): arch, batch, prompt, new tokens
 SERVE = {"dense": ("qwen2-0.5b", 8, 2048, 32),
          "moe": ("moonshot-v1-16b-a3b", 4, 1024, 16),
          "ssm": ("rwkv6-3b", 8, 2048, 32),
-         "hybrid": ("zamba2-1.2b", 8, 2048, 32)}
+         "hybrid": ("zamba2-1.2b", 8, 2048, 32),
+         "audio": ("whisper-tiny", 16, 64, 64)}
 # Route comparisons of phases 5 and 6, all in bfloat16. "twin": the same
 # route with each kernel swapped for its plain version (only float32
 # summation order differs, so outputs differ by single bfloat16 steps).
@@ -475,6 +494,9 @@ QS_REL, QS_ABS = 0.02, 5.0
 # to their start, took about two thirds of the table's time)
 TABLE2_SUBMISSIONS = 5
 TABLE2_WARMUP = 5
+# (b)'s CPU leg, the card's runs held against it: one center's 45 runs,
+# cut from both centers' 90 when phase 19 came (the smoke's time)
+TABLE1_CPU_CENTER = "hpc2n"
 
 FULL_CUTS = (
     "background arrivals stop after 1024 slots (about 4.8 h of HPC2N "
@@ -538,16 +560,20 @@ def freed_bound_ms(b: int, n: int) -> tuple[float, str]:
                   b * n * (4 + 4 + 1 + 4))
 
 
-def flash_bound_ms(b, s, h, hd, window, dtype) -> tuple[float, str]:
-    """Least time for causal attention over (b, s, h, hd): read q, k, v
-    once and write o once; 4·hd operations (q·k and p·v) for each visible
-    (query, key) pair."""
+def flash_bound_ms(b, s, h, hd, window, dtype, *, sk: int | None = None,
+                   causal: bool = True) -> tuple[float, str]:
+    """Least time for attention of q (b, s, h, hd) over k, v (b, sk, h,
+    hd; sk = s by default), positions from 0 on both: read q, k, v once
+    and write o once; 4·hd operations (q·k and p·v) for each visible
+    (query, key) pair: all s·sk without a mask, min(q + 1, window, sk)
+    for query q under the causal mask."""
+    sk = s if sk is None else sk
     q = torch.arange(s, dtype=torch.float64)
-    pairs = float((q + 1).clamp(max=window).sum()) if window else \
-        s * (s + 1) / 2
+    pairs = (float((q + 1).clamp(max=min(window or sk, sk)).sum())
+             if causal else float(s * sk))
     size = torch.finfo(dtype).bits // 8
-    return _bound(4.0 * b * h * hd * pairs, 4.0 * b * s * h * hd * size,
-                  dtype)
+    return _bound(4.0 * b * h * hd * pairs,
+                  2.0 * b * h * hd * (s + sk) * size, dtype)
 
 
 def gmm_bound_ms(e, c, d, f, dtype) -> tuple[float, str]:
@@ -1230,11 +1256,13 @@ def ssm_float32_full_depth(dev) -> None:
         f"tolerance")
 
 
-def profile_serve(tag: str, params, prompts, cfg, steps: int = 4) -> None:
+def profile_serve(tag: str, params, prompts, cfg, steps: int = 4,
+                  frames=None) -> None:
     """Where the kernel route's time goes: one profiled prefill, then
     ``steps`` profiled decode steps (RWKV-6's and Zamba2's carry the
     prefill's state on, in place, from one call of the window to the
-    next)."""
+    next). The encoder–decoder's prefill takes ``frames``."""
+    from repro_torch.models import encdec
     from repro_torch.models.transformer import init_kv_caches
     from repro_torch.serve.step import (greedy_sample, make_decode_step,
                                         make_prefill_step)
@@ -1243,6 +1271,7 @@ def profile_serve(tag: str, params, prompts, cfg, steps: int = 4) -> None:
     decode = make_decode_step(cfg, use_kernels=True)
     ssm = cfg.family == "ssm"
     hybrid = cfg.family == "hybrid"
+    extra = (frames,) if cfg.family == "audio" else ()
     names = (("wkv6_kernel", "wkv6_state_kernel", "wkv6_out_kernel") if ssm
              else
              ("flash_wgmma_kernel", "flash_kernel", "gmm_wgmma_kernel",
@@ -1250,10 +1279,15 @@ def profile_serve(tag: str, params, prompts, cfg, steps: int = 4) -> None:
     b, s = prompts.shape
     pf_kw = dict(max_seq=s + steps) if hybrid else {}
     device_profile(f"{tag}/profile_prefill",
-                   lambda: prefill(params, prompts, **pf_kw), 1, "prefill",
-                   names)
-    logits, pf = prefill(params, prompts, **pf_kw)
-    if not (ssm or hybrid):
+                   lambda: prefill(params, prompts, *extra, **pf_kw), 1,
+                   "prefill", names)
+    logits, pf = prefill(params, prompts, *extra, **pf_kw)
+    if extra:
+        caches = encdec.init_kv_caches(cfg, b, s + steps,
+                                       device=prompts.device)
+        caches["xk"], caches["xv"] = pf["xk"], pf["xv"]
+        del pf
+    elif not (ssm or hybrid):
         caches = init_kv_caches(cfg, b, s + steps, device=prompts.device)
         caches["k"][:, :, :s] = pf["k"]
         caches["v"][:, :, :s] = pf["v"]
@@ -1272,13 +1306,15 @@ def profile_serve(tag: str, params, prompts, cfg, steps: int = 4) -> None:
 
 
 def serve_phase(family: str, dev) -> dict:
-    """Phases 5, 6, 8 and 18(a)-(b): ``launch.serve.serve`` at full size
-    through the kernels (the main path; the counts are reset just before
-    it and read just after), then the same params and prompts through the
-    kernel route again (steady times), the twin route and, but for RWKV-6,
-    the plain route (no kernel may launch in either), compared; for the
-    MoE model and RWKV-6 layer by layer too, for Zamba2 each shared
-    attention call and block; then a profiled prefill and decode."""
+    """Phases 5, 6, 8, 18(a)-(b) and 19(a)-(b): ``launch.serve.serve`` at
+    full size through the kernels (the main path; the counts are reset
+    just before it and read just after), then the same params and prompts
+    (and frames) through the kernel route again (steady times), the twin
+    route and, but for RWKV-6, the plain route (no kernel may launch in
+    either), compared; for the MoE model and RWKV-6 layer by layer too,
+    for Zamba2 each shared attention call and block, for the
+    encoder–decoder each attention call; then a profiled prefill and
+    decode."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.moe_gmm import ops as gmm_ops
     from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
@@ -1315,6 +1351,8 @@ def serve_phase(family: str, dev) -> dict:
     wkv_designs = dict(wkv_ops.DESIGN_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     cfg, params, prompts = res["cfg"], res["params"], res["prompts"]
+    frames = res["frames"]
+    extra = {"frames": frames} if family == "audio" else {}
     leaves = flatten(params).values()
     n_params = sum(t.numel() for t in leaves)
     weight_bytes = sum(t.numel() * t.element_size() for t in leaves)
@@ -1334,14 +1372,14 @@ def serve_phase(family: str, dev) -> dict:
           and int(toks.max()) < v, f"{tag}: tokens out of range")
 
     routes = {"kernel": res}
-    routes["kernel_steady"] = launch_serve.generate(params, prompts, cfg,
-                                                    gen, use_kernels=True)
+    routes["kernel_steady"] = launch_serve.generate(
+        params, prompts, cfg, gen, use_kernels=True, **extra)
     check(torch.equal(toks, routes["kernel_steady"]["tokens"]),
           f"{tag}: the kernel route is not repeatable")
     reset()
     with plain_kernels():
         routes["twin"] = launch_serve.generate(params, prompts, cfg, gen,
-                                               use_kernels=True)
+                                               use_kernels=True, **extra)
     if family == "ssm":
         # the witness: the plain scan in chunks of half the length, the
         # same recurrence in another summation order, no kernel
@@ -1350,7 +1388,8 @@ def serve_phase(family: str, dev) -> dict:
         routes["plain_half_chunk"] = launch_serve.generate(params, prompts,
                                                            half, gen)
     else:
-        routes["plain"] = launch_serve.generate(params, prompts, cfg, gen)
+        routes["plain"] = launch_serve.generate(params, prompts, cfg, gen,
+                                                **extra)
     check(not any(read().values()),
           f"{tag}: the twin or plain route launched kernels: {read()}")
 
@@ -1376,9 +1415,12 @@ def serve_phase(family: str, dev) -> dict:
     if family != "ssm":
         # every bfloat16 flash launch of the serve path on the tensor
         # cores: one an attention layer (Zamba2: a shared-block
-        # invocation), in prefill
+        # invocation; the encoder–decoder: each encoder layer's, and each
+        # decoder layer's self and cross attention), in prefill
         from repro_torch.models import zamba2 as Z
-        want = Z.n_attn(cfg) if family == "hybrid" else cfg.n_layers
+        want = (Z.n_attn(cfg) if family == "hybrid"
+                else cfg.encoder.n_layers + 2 * cfg.n_layers
+                if family == "audio" else cfg.n_layers)
         check(flash_designs == {"wgmma": want, "simt": 0}
               and launches["flash_attention"] == want,
               f"{tag}: flash_attention launches by design {flash_designs}, "
@@ -1403,6 +1445,8 @@ def serve_phase(family: str, dev) -> dict:
             "phase 7)" if family == "moe" else "(not checked: bfloat16 "
             "over 38 layers, see the shared-attention check and the "
             "float32 run)" if family == "hybrid" else "(not checked: "
+            "bfloat16, see the attention check and the float32 run)"
+            if family == "audio" else "(not checked: "
             "bfloat16 over 32 layers, see the witness, the layer check and "
             "the float32 run)"))
         if checked and not (c["decode_rows"] > 0 and all(
@@ -1423,8 +1467,10 @@ def serve_phase(family: str, dev) -> dict:
         ssm_layer_check(tag, params, prompts, cfg)
     if family == "hybrid":
         hybrid_attention_check(tag, params, prompts, cfg)
-    profile_serve(tag, params, prompts, cfg)
-    del params, prompts
+    if family == "audio":
+        audio_attention_check(tag, params, prompts, frames, cfg)
+    profile_serve(tag, params, prompts, cfg, frames=frames)
+    del params, prompts, frames
     torch.cuda.empty_cache()
     return dict(launches=launches, designs=designs,
                 flash_designs=flash_designs, wkv_designs=wkv_designs)
@@ -2084,11 +2130,14 @@ def run_timed(tag: str, fn):
 
 def table1_on_card(dev) -> None:
     """Phase 12(b): ``run_table1`` at full size (both centers, their six
-    scales, three workflows; BigJob, Per-Stage, ASA, ASA-Naive, pilot),
-    the estimators on the card and then on the CPU, in one process (the
-    estimator seeds are ``hash()`` of strings): every run's metrics
-    equal. Prints the normalized averages as
-    ``benchmarks/table1_strategies.py`` does, beside the paper's row."""
+    scales, three workflows; BigJob, Per-Stage, ASA, ASA-Naive, pilot)
+    with the estimators on the card, then the runs of
+    ``TABLE1_CPU_CENTER`` again with the estimators on the CPU, in one
+    process (the estimator seeds are ``hash()`` of strings; each (center,
+    scale) has its own estimator and background, so one center's runs do
+    not depend on the other's): every run's metrics equal. Prints the
+    normalized averages as ``benchmarks/table1_strategies.py`` does,
+    beside the paper's row."""
     import dataclasses
 
     from repro_torch.sched import runner
@@ -2096,20 +2145,25 @@ def table1_on_card(dev) -> None:
     kw = dict(seed=0, include_naive=True, include_pilot=True)
     res = run_timed("tables/table1_cuda",
                     lambda: runner.run_table1(**kw, device=dev))
-    cpu = run_timed("tables/table1_cpu",
-                    lambda: runner.run_table1(**kw, device="cpu"))
+    one = {TABLE1_CPU_CENTER: runner.CENTERS[TABLE1_CPU_CENTER]}
+    with patched((runner, "CENTERS", one)):
+        cpu = run_timed("tables/table1_cpu",
+                        lambda: runner.run_table1(**kw, device="cpu"))
     check(len(res.runs) == 2 * 3 * 3 * 5,
           f"tables/table1: {len(res.runs)} runs, expected 90")
-    check(res.rows() == cpu.rows()
-          and [dataclasses.asdict(r) for r in res.runs]
+    same = [r for r in res.runs if r.center == TABLE1_CPU_CENTER]
+    check(len(cpu.runs) == len(same) == 3 * 3 * 5
+          and [dataclasses.asdict(r) for r in same]
           == [dataclasses.asdict(r) for r in cpu.runs],
-          "tables/table1: the card's runs differ from the CPU's")
+          f"tables/table1: the card's {TABLE1_CPU_CENTER} runs differ from "
+          f"the CPU's")
     for r in res.runs:
         check(all(math.isfinite(getattr(r, k)) for k in
                   ("twt_s", "makespan_s", "core_hours", "oh_hours")),
               f"tables/table1: a non-finite metric in {r}")
     naive = [r for r in res.runs if r.strategy == "asa_naive"]
-    print(f"tables/table1: runs={len(res.runs)} rows_equal_cpu=True "
+    print(f"tables/table1: runs={len(res.runs)} runs_equal_cpu="
+          f"{len(cpu.runs)} ({TABLE1_CPU_CENTER}) "
           f"naive_misses={sum(r.misses for r in naive)} "
           f"naive_oh_h={sum(r.oh_hours for r in naive):.6f}")
     for strat, d in sorted(runner.summarize_table1(res).items()):
@@ -3374,10 +3428,13 @@ def _reset_kernel_counts() -> None:
                 cnt[k] = 0
 
 
-def train_restart(dev) -> None:
-    """Phase 17(a): ``launch.train.train`` at published width, its depth
-    cut to ``TRAIN_RESTART_LAYERS``, restarted from its checkpoint,
-    against the uninterrupted run."""
+def train_restart(dev, arch: str = TRAIN_ARCH,
+                  layers: int | None = TRAIN_RESTART_LAYERS,
+                  batch: int = TRAIN_BATCH, tag: str = "train/restart"
+                  ) -> None:
+    """Phase 17(a) (and 19(c)): ``launch.train.train`` at published width,
+    its depth cut to ``layers`` (None: the published depth), restarted
+    from its checkpoint, against the uninterrupted run."""
     import shutil
     import tempfile
 
@@ -3385,18 +3442,19 @@ def train_restart(dev) -> None:
     from repro_torch.launch import train as launch_train
     from repro_torch.runtime import checkpoint as ckpt
 
-    tag = "train/restart"
-    run = dict(reduced=False, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-               log_every=1, device=str(dev))
-    cut = dict(ARCHS, **{TRAIN_ARCH: dataclasses.replace(
-        ARCHS[TRAIN_ARCH], n_layers=TRAIN_RESTART_LAYERS)})
+    run = dict(reduced=False, batch=batch, seq=TRAIN_SEQ, log_every=1,
+               device=str(dev))
+    cfg = ARCHS[arch]
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    cut = dict(ARCHS, **{arch: cfg})
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
         with patched((launch_train, "ARCHS", cut)):
             free = shutil.disk_usage(tmp).free
             times = {}
             t0 = time.perf_counter()
-            r1 = launch_train.train(TRAIN_ARCH, steps=3, ckpt_dir=tmp,
+            r1 = launch_train.train(arch, steps=3, ckpt_dir=tmp,
                                     ckpt_every=2, **run)
             times["first"] = time.perf_counter() - t0
             check(ckpt.latest_step(tmp) == 2,
@@ -3404,20 +3462,20 @@ def train_restart(dev) -> None:
             ckpt_bytes = sum(f.stat().st_size
                              for f in Path(tmp, "step_2").iterdir())
             t0 = time.perf_counter()
-            r2 = launch_train.train(TRAIN_ARCH, steps=5, ckpt_dir=tmp,
+            r2 = launch_train.train(arch, steps=5, ckpt_dir=tmp,
                                     ckpt_every=100, **run)
             times["resumed"] = time.perf_counter() - t0
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            r3 = launch_train.train(TRAIN_ARCH, steps=5, ckpt_dir=None, **run)
+            r3 = launch_train.train(arch, steps=5, ckpt_dir=None, **run)
             times["uninterrupted"] = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     losses = [v for _, v in r3["losses"]]
     check(all(math.isfinite(v) for v in losses), f"{tag}: losses {losses}")
-    ln_v = math.log(151_936)
+    ln_v = math.log(cfg.vocab_size)
     check(0.2 * ln_v < losses[0] < 3 * ln_v,
           f"{tag}: first loss {losses[0]} far from ln(vocab) {ln_v:.3f}")
     check(r1["losses"] == r3["losses"][:3],
@@ -3426,8 +3484,8 @@ def train_restart(dev) -> None:
     check(r2["losses"] == r3["losses"][2:],
           f"{tag}: the resumed run's losses {r2['losses']} differ from "
           f"the uninterrupted run's {r3['losses'][2:]}")
-    print(f"{tag}: arch={TRAIN_ARCH} layers={TRAIN_RESTART_LAYERS} "
-          f"batch={TRAIN_BATCH} seq={TRAIN_SEQ} "
+    print(f"{tag}: arch={arch} layers={cfg.n_layers} "
+          f"batch={batch} seq={TRAIN_SEQ} "
           f"losses={losses} resumed_equal=True first_s={times['first']:.3f} "
           f"resumed_s={times['resumed']:.3f} "
           f"uninterrupted_s={times['uninterrupted']:.3f} "
@@ -3472,7 +3530,7 @@ def kernel_route_loss(arch: str, layers, batch: int, dev) -> dict:
     for _ in range(2):
         m = one_step()
     timed = []
-    if arch in (TRAIN_ARCH, HYBRID_TRAIN[0]):
+    if arch in (TRAIN_ARCH, HYBRID_TRAIN[0], AUDIO_TRAIN[0]):
         for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -3503,6 +3561,9 @@ def kernel_route_loss(arch: str, layers, batch: int, dev) -> dict:
     from repro_torch.models import zamba2 as Z
     expect = ({"flash_attention": L, "grouped_matmul": 0, "wkv6": 0}
               if cfg.family == "dense" else
+              {"flash_attention": cfg.encoder.n_layers + 2 * L,
+               "grouped_matmul": 0, "wkv6": 0}
+              if cfg.family == "audio" else
               {"flash_attention": Z.n_attn(cfg), "grouped_matmul": 0,
                "wkv6": 0}
               if cfg.family == "hybrid" else
@@ -3534,7 +3595,7 @@ def kernel_route_loss(arch: str, layers, batch: int, dev) -> dict:
                  f"s_per_step={per_step:.6f} "
                  f"tokens_per_s={batch * TRAIN_SEQ / per_step:.1f}")
     print(line)
-    if arch in (TRAIN_ARCH, HYBRID_TRAIN[0]):
+    if arch in (TRAIN_ARCH, HYBRID_TRAIN[0], AUDIO_TRAIN[0]):
         refuse_kernel_training(cfg, state, train_batch)
     return launches
 
@@ -3858,6 +3919,215 @@ def hybrid_on_card(dev) -> dict:
     return dict(served=served, train=launches)
 
 
+# phase 19: the audio family (whisper-tiny: 4 encoder and 4 decoder
+# layers, d384, 6 heads of 64, vocab 51865 padded to 51968, 1500 frames,
+# about 49.7 M parameters). (a) Serving at the published size in bfloat16
+# is SERVE["audio"] through serve_phase: every attention of prefill goes
+# through the flash kernel (4 in the encoder without a mask, 4 causal
+# self-attentions over the prompt, 4 cross attentions of the prompt over
+# the 1500 frames: 12 launches, all wgmma). (b) The kernel route against
+# its twin: the bfloat16 logits reported, each of the 12 flash calls held
+# on the kernel route's own q, k, v (FLASH_ATOL, FLASH_REL); and in
+# float32 at full depth (flash on the CUDA cores) the logits within
+# AUDIO_F32_TOL (largest |Δ|, rms(Δ)/rms: the limits of phase 18(b), a
+# few float32 roundings amplified over 8 layers) and every greedy token
+# equal. (c) Training at published size: float32 parameters, batch 4,
+# sequence 1024, remat none, through kernel_route_loss as phase 17(b)
+# (seconds a step, data seconds a batch, the loss through the kernel
+# against the plain route within TRAIN_KERNEL_REL, a step through it
+# refused), and launch.train restarted from its step-2 checkpoint,
+# bitwise the uninterrupted 5-step run, as phase 17(a). (d) The batches'
+# frames (prng.normal at the training batch's shape) on the card against
+# the CPU route, bitwise, in bfloat16 and float32. Row 2d of PERF.md: the
+# flash kernel at the three prefill shapes (FLASH_WHISPER_SHAPES: part,
+# B, Sq, Sk, H, hd, causal), each timed beside the plain version and
+# F.scaled_dot_product_attention on the same q, k, v.
+AUDIO_F32_TOL = (5e-4, 1e-4)
+AUDIO_TRAIN = ("whisper-tiny", None, 4)
+FLASH_WHISPER_SHAPES = (("encoder", 16, 1500, 1500, 6, 64, False),
+                        ("decoder_self", 16, 64, 64, 6, 64, True),
+                        ("cross", 16, 64, 1500, 6, 64, False))
+
+
+def flash_whisper_rows(dev) -> dict:
+    """Row 2d: the flash kernel at whisper-tiny's three prefill shapes in
+    bfloat16 (the tensor-core design) against ``attention_ref`` (FLASH_ATOL,
+    FLASH_REL), timed beside the plain version and
+    ``F.scaled_dot_product_attention`` on the same q, k, v, with its
+    bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    rows = {}
+    for part, b, sq, sk, h, hd, causal in FLASH_WHISPER_SHAPES:
+        q = torch.randn((b, sq, h, hd), generator=gen, device=dev).bfloat16()
+        k, v = (torch.randn((b, sk, h, hd), generator=gen,
+                            device=dev).bfloat16() for _ in range(2))
+        design = ops.flash_design(q.dtype, hd)
+        got = ops.flash_attention(q, k, v, causal=causal)
+        want = ref.attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        key = f"{b}x{sq}x{sk}x{h}x{hd}" + ("c" if causal else "")
+        err, row, rms = flash_check(f"whisper {part} {key} {design}", got,
+                                    want, q.dtype)
+        ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal),
+                     reps=20)
+        plain_ms = cuda_ms(lambda: ref.attention_ref(q, k, v, causal=causal),
+                           reps=10)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal), reps=20)
+        bound, by = flash_bound_ms(b, sq, h, hd, 0, q.dtype, sk=sk,
+                                   causal=causal)
+        rows[key] = dict(part=part, design=design, causal=causal,
+                         max_abs_err=err, rel_row_err=row, rel_rms=rms,
+                         ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound, bound_by=by)
+        print(f"kernel/flash_attention whisper {part} {key}: design="
+              f"{design} max_abs_err={err:.6g} worst_row_rel={row:.6g} "
+              f"rel_rms={rms:.6g} ms={ms:.6f} plain_ms={plain_ms:.6f} "
+              f"library_ms={lib_ms:.6f} bound_ms={bound:.6f} ({by})")
+        del q, k, v, qt, kt, vt, got, want
+    return rows
+
+
+def audio_attention_check(tag: str, params, prompts, frames, cfg) -> None:
+    """Phase 19(b), bfloat16: the kernel route's prefill, each flash call's
+    output against the plain version on the same q, k, v."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.serve.step import make_prefill_step
+
+    flash, calls = flash_ops.flash_attention, []
+
+    def flash_spy(q, k, v, **kw):
+        out = flash(q, k, v, **kw)
+        calls.append((q, k, v, kw, out))
+        return out
+
+    with patched((flash_ops, "flash_attention", flash_spy)):
+        make_prefill_step(cfg, use_kernels=True)(params, prompts, frames)
+    n = cfg.encoder.n_layers + 2 * cfg.n_layers
+    check(len(calls) == n, f"{tag}: {len(calls)} flash calls in prefill, "
+          f"want {n}")
+    worst, kinds = [0.0, 0.0, 0.0], {}
+    for q, k, v, kw, out in calls:
+        want = flash_ref.attention_ref(q, k, v, **kw)
+        kind = f"{q.shape[1]}x{k.shape[1]}" + ("c" if kw["causal"] else "")
+        errs = flash_check(f"{tag} attention {kind}", out, want, q.dtype)
+        worst = [max(a, b) for a, b in zip(worst, errs)]
+        kinds[kind] = kinds.get(kind, 0) + 1
+    del calls
+    print(f"{tag}/attention: {n} flash calls (Sq x Sk: {kinds}) on the "
+          f"kernel route's own q, k, v against the plain version: worst "
+          f"max_abs_err={worst[0]:.6g} worst_row_rel={worst[1]:.6g} "
+          f"rel_rms={worst[2]:.6g} (limits {FLASH_ATOL[torch.bfloat16]}, "
+          f"{FLASH_REL[torch.bfloat16]})")
+
+
+def audio_float32_full_depth(dev) -> None:
+    """Phase 19(b), float32 at full width and depth: the kernel route
+    (flash on the CUDA cores) against the twin route, frames and prompts
+    from a seed."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import encdec
+
+    arch, batch, prompt_len, gen = SERVE["audio"]
+    cfg = dataclasses.replace(get_arch(arch), dtype="float32")
+    params = encdec.init_lm(cfg, seed=0, device=dev)
+    draws = torch.Generator(device=dev).manual_seed(0)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                            device=dev, generator=draws)
+    frames = torch.randn((batch, cfg.encoder.n_frames, cfg.d_model),
+                         device=dev, generator=draws)
+    before = dict(flash_ops.DESIGN_LAUNCHES)
+    kern = launch_serve.generate(params, prompts, cfg, gen, use_kernels=True,
+                                 frames=frames)
+    designs = {d: flash_ops.DESIGN_LAUNCHES[d] - before[d] for d in before}
+    n = cfg.encoder.n_layers + 2 * cfg.n_layers
+    check(designs == {"wgmma": 0, "simt": n},
+          f"whisper float32 ran flash designs {designs}, want all {n} "
+          f"through simt")
+    with plain_kernels():
+        twin = launch_serve.generate(params, prompts, cfg, gen,
+                                     use_kernels=True, frames=frames)
+    c = _compare(kern, twin, cfg.vocab_size)
+    tol_max, tol_rel = AUDIO_F32_TOL
+    tag = f"serve/audio/e2e_float32_L{cfg.encoder.n_layers}+{cfg.n_layers}"
+    print_compare(f"{tag}/kernel_vs_twin", c, batch,
+                  f"(tolerance: max {tol_max}, rel_rms {tol_rel}, tokens "
+                  f"equal)")
+    print(f"{tag}: prefill_ms kernel={kern['prefill_s'] * 1e3:.3f} twin="
+          f"{twin['prefill_s'] * 1e3:.3f}; flash_designs={designs}")
+    del params, prompts, frames, kern, twin
+    torch.cuda.empty_cache()
+    check(c["token_agreement"] == 1.0 and all(
+        c[f"{p}_max"] <= tol_max and c[f"{p}_rel"] <= tol_rel
+        for p in ("prefill", "decode")),
+        f"{tag}: the kernel route differs from the twin route beyond "
+        f"tolerance")
+
+
+def audio_frames_card_vs_cpu(dev) -> None:
+    """Phase 19(d): the training batch's frames on the card (through
+    ``make_batch_fn``) against the same ``prng.normal`` draw on the CPU,
+    bitwise, in bfloat16 and float32."""
+    from repro_torch.configs import ARCHS, ShapeSpec
+    from repro_torch.core import prng
+    from repro_torch.models.lm import act_dtype
+    from repro_torch.train.data import make_batch_fn
+
+    arch, _, batch = AUDIO_TRAIN
+    seed, step = 0, 1
+    for dtype in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(ARCHS[arch], dtype=dtype)
+        t0 = time.perf_counter()
+        got = make_batch_fn(cfg, ShapeSpec("smoke", TRAIN_SEQ, batch,
+                                           "train"), seed=seed,
+                            device=dev)(step)["frames"]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        key = prng.fold_in(prng.PRNGKey(seed ^ 7), step)
+        want = prng.normal(key, tuple(got.shape), dtype=act_dtype(cfg))
+        t2 = time.perf_counter()
+        equal = torch.equal(got.cpu(), want)
+        print(f"prng/audio_frames_{dtype}: {tuple(got.shape)} "
+              f"bitwise_equal_cpu={equal} batch_on_card_s={t1 - t0:.3f} "
+              f"frames_on_cpu_s={t2 - t1:.3f} mean={float(want.mean()):.6f} "
+              f"std={float(want.float().std()):.6f}")
+        check(got.dtype == want.dtype == act_dtype(cfg) and equal,
+              f"prng/audio_frames_{dtype}: the card's frames differ from "
+              f"the CPU route's")
+
+
+def audio_on_card(dev) -> dict:
+    """Phase 19, row 2d and (a)-(d), each part's seconds printed. Returns
+    the flash launches by path (serve/audio, the main path of (a), and
+    train/audio_kernel_loss of (c)) and row 2d."""
+    t0 = time.perf_counter()
+    rows = flash_whisper_rows(dev)
+    t1 = time.perf_counter()
+    served = serve_phase("audio", dev)
+    t2 = time.perf_counter()
+    audio_float32_full_depth(dev)
+    t3 = time.perf_counter()
+    arch, layers, batch = AUDIO_TRAIN
+    launches = kernel_route_loss(arch, layers, batch, dev)
+    torch.cuda.empty_cache()
+    train_restart(dev, arch=arch, layers=layers, batch=batch,
+                  tag="train/audio_restart")
+    torch.cuda.empty_cache()
+    t4 = time.perf_counter()
+    audio_frames_card_vs_cpu(dev)
+    t5 = time.perf_counter()
+    print(f"phase19/seconds: row_2d={t1 - t0:.3f} a_b_bf16={t2 - t1:.3f} "
+          f"b_f32={t3 - t2:.3f} c={t4 - t3:.3f} d={t5 - t4:.3f}")
+    return dict(served=served, train=launches, flash_rows=rows)
+
+
 class Phases:
     """Prints each phase's seconds, from the end of the previous one."""
 
@@ -4024,6 +4294,14 @@ def main() -> None:
     train_paths["flash_attention"]["train/hybrid_kernel_loss"] = \
         hybrid["train"]["flash_attention"]
     phases.done("18_hybrid")
+
+    # phase 19: the audio family, served and trained (counts reset inside,
+    # per path), flash at its three prefill shapes, the frames' draw
+    audio = audio_on_card(dev)
+    served["audio"] = audio["served"]
+    train_paths["flash_attention"]["train/audio_kernel_loss"] = \
+        audio["train"]["flash_attention"]
+    phases.done("19_audio")
     scan_paths["sweep/full"] = full["launches"]["freed_scan"]
     entry.update(launches=sum(scan_paths.values()),
                  launches_by_path=scan_paths)
@@ -4037,6 +4315,9 @@ def main() -> None:
           f"MoE serving never launched grouped_matmul: {by_path}")
     check(by_path["flash_attention"]["serve/hybrid"] > 0,
           f"hybrid serving never launched flash_attention: {by_path}")
+    check(by_path["flash_attention"]["serve/audio"] == 12,
+          f"audio serving did not launch flash_attention 12 times (4 + 4 + "
+          f"4 attentions of its prefill): {by_path}")
     from repro_torch.configs import get_arch
     ssm_layers = get_arch(SERVE["ssm"][0]).n_layers
     check(by_path["wkv6"]["serve/ssm"] == ssm_layers,
@@ -4079,10 +4360,12 @@ def main() -> None:
     flash_entry.update(
         design=flash_rows["8x2048x14x64"]["design"],
         launches_by_design={d: sum(served[f]["flash_designs"][d]
-                                   for f in ("dense", "moe", "hybrid"))
+                                   for f in ("dense", "moe", "hybrid",
+                                             "audio"))
                             for d in ("wgmma", "simt")},
         moe_shape="4x1024x16x128", moe=flash_rows["4x1024x16x128"],
-        hybrid_shape=FLASH_HYBRID_KEY, hybrid=flash_rows[FLASH_HYBRID_KEY])
+        hybrid_shape=FLASH_HYBRID_KEY, hybrid=flash_rows[FLASH_HYBRID_KEY],
+        whisper=audio["flash_rows"])
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import prng
@@ -77,6 +78,59 @@ def sample_action(state: ASAState) -> tuple[ASAState, torch.Tensor]:
     ks = prng.split(state.key)
     a = prng.categorical(ks[..., 1, :], state.log_p)
     return state._replace(key=ks[..., 0, :]), a
+
+
+def gamma_constant(t, value: float = 1.0) -> torch.Tensor:
+    """γ_t = ``value``: a float32 0-d tensor (on ``t``'s device when ``t``
+    is a tensor)."""
+    dev = t.device if isinstance(t, torch.Tensor) else None
+    return torch.full((), value, dtype=torch.float32, device=dev)
+
+
+# Cephes' float32 log: the polynomial on the mantissa in [sqrt(1/2),
+# sqrt(2)) and the exponent's ln 2 split in two parts
+_LOG_P = tuple(np.float32(c) for c in (
+    7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
+    1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
+    3.3333331174e-1))
+_LOG_Q1, _LOG_Q2 = np.float32(-2.12194440e-4), np.float32(0.693359375)
+
+
+def _log_f32(x: float) -> np.float32:
+    """ln x of a positive normal ``x`` in float32 by Cephes' polynomial,
+    each step rounded to float32. For every integer x from 2 to 4096 but
+    five (1340, 1532, 1608, 2725, 2869: one ULP apart) this is the value
+    XLA's CPU backend gives, which for x = 7, 47 and 49 is one ULP above
+    the correctly rounded log that ``torch.log`` gives."""
+    f32 = np.float32
+    bits = int(np.array([x], np.float32).view(np.uint32)[0])
+    e = f32((bits >> 23 & 0xFF) - 126)
+    m = np.array([bits & 0x807FFFFF | 0x3F000000], np.uint32).view(
+        np.float32)[0]                                   # in [0.5, 1)
+    if m < f32(0.707106781186547524):
+        e, z = f32(e - 1), f32(f32(m + m) - 1)
+    else:
+        z = f32(m - 1)
+    z2 = f32(z * z)
+    y = _LOG_P[0]
+    for c in _LOG_P[1:]:
+        y = f32(f32(y * z) + c)
+    y = f32(f32(y * f32(z2 * z)) + f32(e * _LOG_Q1))
+    y = f32(y - f32(z2 * f32(0.5)))
+    return f32(f32(z + y) + f32(e * _LOG_Q2))
+
+
+def gamma_sqrt(t, m: int, scale: float = 1.0) -> torch.Tensor:
+    """Non-increasing γ_t = scale · sqrt(ln m / (t+1)), in float32 —
+    Appendix-A friendly. ln m is the reference's float32 value
+    (``_log_f32``); the quotient, root and product are float32 on
+    ``t``'s device, each correctly rounded as XLA rounds them (the root
+    is taken in float64 and rounded once: torch's float32 ``sqrt`` on the
+    CPU is not correctly rounded)."""
+    t = torch.as_tensor(t).to(torch.float32)
+    log_m = torch.full((), float(_log_f32(float(m))), dtype=torch.float32,
+                       device=t.device)
+    return scale * torch.sqrt((log_m / (t + 1.0)).double()).float()
 
 
 def greedy_action(state: ASAState) -> torch.Tensor:

@@ -20,8 +20,10 @@ uint32 support is partial). Leading key dimensions batch: a ``(B, 2)``
 key gives ``(B, *shape)`` draws, one independent stream per row.
 
 ``uniform`` and ``categorical`` are bitwise equal to the reference for
-the same key. ``normal`` (via ``erfinv``) and ``exponential`` (via
-``log1p``) agree to a few ULP: the transcendental functions of the two
+the same key, ``uniform`` in float32 and bfloat16. ``normal`` takes
+XLA's float32 ``erf_inv`` polynomial (``erfinv_f32``): bitwise in
+bfloat16, within 3 ULP in float32 (measured). ``exponential`` (via
+``log1p``) agrees to a ULP: the transcendental functions of the two
 frameworks round differently in the last bits.
 """
 
@@ -111,14 +113,19 @@ def bits(key: torch.Tensor, shape: tuple[int, ...], offset: int = 0
 
 
 def uniform(key: torch.Tensor, shape: tuple[int, ...] = (),
-            minval: float = 0.0, maxval: float = 1.0, offset: int = 0
-            ) -> torch.Tensor:
-    """``jax.random.uniform`` in float32, bit for bit: 23 random mantissa
-    bits under exponent 0 give [1, 2), then ``f·(hi − lo) + lo``.
+            minval: float = 0.0, maxval: float = 1.0, offset: int = 0,
+            dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``jax.random.uniform`` in float32 or bfloat16, bit for bit.
 
-    XLA contracts that multiply-add into one fused multiply-add, so it is
-    evaluated here in float64 (the float32 product is exact there) and
-    rounded once to float32. ``offset`` as in ``bits``."""
+    float32: 23 random mantissa bits under exponent 0 give [1, 2), then
+    ``f·(hi − lo) + lo``. XLA contracts that multiply-add into one fused
+    multiply-add, so it is evaluated here in float64 (the float32 product
+    is exact there) and rounded once to float32. bfloat16: see
+    ``_uniform_bf16``. ``offset`` as in ``bits``."""
+    if dtype == torch.bfloat16:
+        return _uniform_bf16(key, shape, minval, maxval, offset)
+    if dtype != torch.float32:
+        raise TypeError(f"uniform draws float32 or bfloat16, not {dtype}")
     b = bits(key, shape, offset)
     f = ((b >> 9) | _ONE_F32_BITS).to(torch.int32).view(torch.float32) - 1.0
     # fills, not copies from host memory, which would synchronise
@@ -129,15 +136,78 @@ def uniform(key: torch.Tensor, shape: tuple[int, ...] = (),
     return torch.maximum(lo, u)
 
 
+_ONE_BF16_BITS = 0x3F80  # bit pattern of bfloat16 1.0
+
+
+def _uniform_bf16(key: torch.Tensor, shape: tuple[int, ...], minval: float,
+                  maxval: float, offset: int) -> torch.Tensor:
+    """``jax.random.uniform`` in bfloat16. bfloat16 has 7 mantissa bits,
+    fewer than 8, so jax draws 8-bit words: the low byte of each 32-bit
+    word (``bits1 ^ bits2``), shifted right by one under bfloat16's
+    exponent 0, gives f + 1 in [1, 2); then ``f·(hi − lo) + lo`` and the
+    floor at ``lo``, each step rounded to bfloat16 (hi, lo themselves
+    rounded to bfloat16 first)."""
+    b = bits(key, shape, offset) & 0xFF
+    one = torch.ones((), dtype=torch.bfloat16, device=key.device)
+    f = ((b >> 1) | _ONE_BF16_BITS).to(torch.int16).view(torch.bfloat16) \
+        - one
+    lo = torch.full((), minval, dtype=torch.bfloat16, device=key.device)
+    hi = torch.full((), maxval, dtype=torch.bfloat16, device=key.device)
+    return torch.maximum(lo, f * (hi - lo) + lo)
+
+
+# XLA's float32 erf_inv: M. Giles' single-precision polynomials in
+# w = -log((1 - x)(1 + x)), one for w < 5 (in w - 2.5) and one beyond (in
+# sqrt(w) - 3)
+_ERFINV_W_LT_5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                  -4.39150654e-06, 0.00021858087, -0.00125372503,
+                  -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_W_GE_5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+                  -0.00367342844, 0.00573950773, -0.0076224613,
+                  0.00943887047, 1.00167406, 2.83297682)
+
+
+def erfinv_f32(x: torch.Tensor) -> torch.Tensor:
+    """erfinv of a float32 tensor by XLA's algorithm, within 2 ULP of
+    ``jax.lax.erf_inv`` on every float32 input ``normal`` can give it
+    (``torch.erfinv`` is up to 65 ULP away). The Horner steps are fused
+    multiply-adds as XLA contracts them (float64 product and sum, one
+    rounding); log1p and sqrt are taken in float64 and rounded once, so
+    the CPU and CUDA routes give the same bits."""
+    w = -torch.log1p((-(x * x)).double()).float()
+    lt = w < 5.0
+    z = torch.where(lt, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
+    zd = z.double()
+    c_lt = torch.tensor(_ERFINV_W_LT_5, dtype=torch.float32, device=x.device)
+    c_ge = torch.tensor(_ERFINV_W_GE_5, dtype=torch.float32, device=x.device)
+    p = torch.where(lt, c_lt[0], c_ge[0])
+    for i in range(1, len(_ERFINV_W_LT_5)):
+        c = torch.where(lt, c_lt[i], c_ge[i])
+        p = (p.double() * zd + c.double()).float()
+    return torch.where(x.abs() == 1.0, x * math.inf, p * x)
+
+
 _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+_NORMAL_LO_BF16 = -0.99609375   # nextafter(-1, 0) in bfloat16
 _SQRT2 = float(np.float32(np.sqrt(2)))
 _TINY = float(np.finfo(np.float32).tiny)
 
 
-def normal(key: torch.Tensor, shape: tuple[int, ...] = ()) -> torch.Tensor:
-    """``jax.random.normal``: sqrt(2)·erfinv(u), u uniform on (-1, 1)."""
+def normal(key: torch.Tensor, shape: tuple[int, ...] = (),
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``jax.random.normal``: sqrt(2)·erfinv(u), u uniform on (-1, 1), in
+    float32 or bfloat16. In bfloat16 u is bfloat16's uniform (128
+    values), its erfinv is taken in float32 and rounded to bfloat16, and
+    the product by sqrt(2) rounded to bfloat16 is rounded again: bitwise
+    the reference's."""
+    if dtype == torch.bfloat16:
+        u = uniform(key, shape, _NORMAL_LO_BF16, 1.0, dtype=dtype)
+        sqrt2 = torch.full((), _SQRT2, dtype=dtype, device=key.device)
+        return sqrt2 * erfinv_f32(u.float()).to(dtype)
+    if dtype != torch.float32:
+        raise TypeError(f"normal draws float32 or bfloat16, not {dtype}")
     u = uniform(key, shape, _NORMAL_LO, 1.0)
-    return _SQRT2 * torch.erfinv(u)
+    return _SQRT2 * erfinv_f32(u)
 
 
 def exponential(key: torch.Tensor, shape: tuple[int, ...] = ()

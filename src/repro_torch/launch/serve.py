@@ -1,6 +1,6 @@
 """Batched serving entry point: prefill a batch of prompts, decode greedily
-(port of ``repro.launch.serve``, the ``dense``, ``moe``, ``ssm`` and
-``hybrid`` families).
+(port of ``repro.launch.serve``, the ``dense``, ``moe``, ``ssm``,
+``hybrid`` and ``audio`` families).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
       --device cuda --batch 8 --prompt-len 2048 --gen 32
@@ -8,6 +8,8 @@
       --device cuda --batch 8 --prompt-len 2048 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
       --device cuda --batch 8 --prompt-len 2048 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \\
+      --device cuda --batch 16 --prompt-len 64 --gen 64
 
 On the card ``serve`` runs every hand-written CUDA kernel on its path
 (``use_kernels=True``): for a transformer, prefill attention and every
@@ -15,8 +17,10 @@ MoE expert FFN of prefill and decode go through
 ``csrc/flash_attention.cu`` and ``csrc/moe_gmm.cu``; for RWKV-6, every
 layer's WKV scan of prefill goes through ``csrc/wkv6.cu``; for Zamba2,
 every shared-attention invocation of prefill goes through
-``csrc/flash_attention.cu`` (its SSD scan is plain, as the reference's).
-This differs
+``csrc/flash_attention.cu`` (its SSD scan is plain, as the reference's);
+for the encoder–decoder, every attention of prefill (the encoder's, the
+decoder's self-attention over the prompt and its cross attention over
+the frames) goes through ``csrc/flash_attention.cu``. This differs
 from ``repro.launch.serve``, whose default route is XLA's (``sdpa``,
 einsum expert FFNs, the jnp chunked scan): the reference reaches its
 Pallas kernels only behind per-kernel flags and only on a TPU, and this
@@ -38,6 +42,18 @@ same kind of route (``zamba2.prefill``): the longest prefix that is a
 multiple of ``cfg.ssm.chunk`` and fits the shared attention's KV ring as
 one block, then the rest one token at a time from the carried state
 (``tests/test_torch_zamba2.py``).
+
+The encoder–decoder follows the reference's audio route
+(``repro/launch/serve.py``'s ``audio`` branch): prefill is the decoder
+over the prompt (its last position's logits); decode starts from a
+zero-filled self-attention cache of S + gen positions into which the
+prompt's keys and values are never written, and writes position S + i,
+so each decode step also attends over S zero keys (the decode mask lets
+every position up to the current one in). The reference encodes the
+frames twice (once in prefill, once for the cross K/V of decode); here
+they are encoded once and one set of cross K/V feeds both, the same
+float work (``tests/test_torch_encdec.py`` holds it to the reference's
+two calls).
 """
 
 from __future__ import annotations
@@ -49,7 +65,8 @@ import torch
 
 from repro_torch.configs import ARCHS, get_arch
 from repro_torch.device import resolve_device
-from repro_torch.models import lm_module
+from repro_torch.models import encdec, lm_module
+from repro_torch.models.lm import act_dtype
 from repro_torch.models.transformer import init_kv_caches
 from repro_torch.serve.step import (greedy_sample, make_decode_step,
                                     make_prefill_step)
@@ -61,14 +78,17 @@ def _sync(device: torch.device) -> None:
 
 
 def generate(params: dict, prompts: torch.Tensor, cfg, gen: int, *,
-             use_kernels: bool = False) -> dict:
+             use_kernels: bool = False,
+             frames: torch.Tensor | None = None) -> dict:
     """Prefill ``prompts`` (B, S), then decode greedily: ``gen`` decode
     steps, as the reference's loop does (the last step's token is not
     kept). A transformer's prefill keys and values fill a (S + gen)-long
     KV cache; RWKV-6's decode carries the state its prefill leaves, and
-    so does Zamba2's, its rings sized for S + gen tokens.
-    ``use_kernels`` runs every hand-written kernel on the path
-    (``serve.step``).
+    so does Zamba2's, its rings sized for S + gen tokens. The
+    encoder–decoder takes ``frames`` (B, n_frames, D): its decode starts
+    from an empty (S + gen)-long self-attention cache and the cross K/V
+    of prefill (see the module's docstring). ``use_kernels`` runs every
+    hand-written kernel on the path (``serve.step``).
 
     Returns ``tokens`` (B, gen), ``prefill_logits`` (B, 1, V_padded), the
     first decode step's ``decode_logits`` (None if gen is 0), and the host
@@ -83,10 +103,17 @@ def generate(params: dict, prompts: torch.Tensor, cfg, gen: int, *,
     t0 = time.perf_counter()
     if fam == "hybrid":
         logits, pf = prefill(params, prompts, max_seq=S + gen)
+    elif fam == "audio":
+        if frames is None:
+            raise ValueError("the audio family serves frames: pass frames=")
+        logits, pf = prefill(params, prompts, frames)
     else:
         logits, pf = prefill(params, prompts)
     if fam in ("ssm", "hybrid"):
         state = pf
+    elif fam == "audio":
+        caches = encdec.init_kv_caches(cfg, B, S + gen, device=dev)
+        caches["xk"], caches["xv"] = pf["xk"], pf["xv"]
     else:
         caches = init_kv_caches(cfg, B, S + gen, device=dev)
         caches["k"][:, :, :S] = pf["k"]
@@ -121,22 +148,30 @@ def serve(arch: str, *, reduced: bool = True, batch: int = 4,
           prompt_len: int = 32, gen: int = 16, seed: int = 0,
           device: str | torch.device = "cuda") -> dict:
     """Serve ``batch`` random prompts of ``arch`` with random weights (both
-    from ``seed``) through the kernels; returns ``generate``'s results plus
-    ``elapsed_s``, ``tok_per_s``, the ``cfg``, and the ``params`` and
-    ``prompts`` it served, so a caller can replay them on another route."""
+    from ``seed``; for the encoder–decoder random frames too, normal in
+    the activation type) through the kernels; returns ``generate``'s
+    results plus ``elapsed_s``, ``tok_per_s``, the ``cfg``, and the
+    ``params``, ``prompts`` and ``frames`` (None but for the
+    encoder–decoder) it served, so a caller can replay them on another
+    route."""
     dev = resolve_device(device)
     cfg = get_arch(arch)
     if reduced:
         cfg = cfg.reduced()
     make_prefill_step(cfg)   # raises for a family that is not ported
     params = lm_module(cfg).init_lm(cfg, seed=seed, device=dev)
-    prompts = torch.randint(
-        0, cfg.vocab_size, (batch, prompt_len), device=dev,
-        generator=torch.Generator(device=dev).manual_seed(seed))
-    res = generate(params, prompts, cfg, gen, use_kernels=True)
+    draws = torch.Generator(device=dev).manual_seed(seed)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                            device=dev, generator=draws)
+    frames = None
+    if cfg.family == "audio":
+        frames = torch.randn((batch, cfg.encoder.n_frames, cfg.d_model),
+                             device=dev, generator=draws).to(act_dtype(cfg))
+    res = generate(params, prompts, cfg, gen, use_kernels=True,
+                   frames=frames)
     dt = res["prefill_s"] + res["decode_s"]
     res.update(elapsed_s=dt, tok_per_s=(batch * gen) / dt if gen else 0.0,
-               cfg=cfg, params=params, prompts=prompts)
+               cfg=cfg, params=params, prompts=prompts, frames=frames)
     return res
 
 

@@ -1,7 +1,8 @@
 """The port's model zoo: the decoder-only transformer of the ``dense`` and
 ``moe`` families (``transformer``), its layers and its MoE layer, RWKV-6
-of the ``ssm`` family (``rwkv6``) and Zamba2 of the ``hybrid`` family
-(``zamba2``)."""
+of the ``ssm`` family (``rwkv6``), Zamba2 of the ``hybrid`` family
+(``zamba2``) and the Whisper-style encoder–decoder of the ``audio``
+family (``encdec``)."""
 
 
 def lm_module(cfg):
@@ -18,6 +19,9 @@ def lm_module(cfg):
     if cfg.family == "hybrid":
         from repro_torch.models import zamba2
         return zamba2
+    if cfg.family == "audio":
+        from repro_torch.models import encdec
+        return encdec
     raise NotImplementedError(
         f"repro_torch.models: the {cfg.family!r} family ({cfg.name}) is not "
         f"ported yet (ROADMAP Queue 1, item 9(c))")

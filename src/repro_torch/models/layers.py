@@ -13,7 +13,7 @@ params and casts each matrix with ``.astype(x.dtype)`` at use, so storing
 it cast gives the same values. Norm scales and biases stay float32, the
 type the reference applies them in.
 
-Prefill attention with ``use_flash`` goes through
+Prefill and cross attention with ``use_flash`` go through
 ``kernels.flash_attention.ops.flash_attention`` (the CUDA kernel on CUDA
 tensors); everything else (decode, ``use_flash=False``) is plain torch.
 """
@@ -169,9 +169,11 @@ def attention(
     positions: Optional[torch.Tensor] = None,
     kv_cache: Optional[dict] = None,
     cache_index: Optional[int] = None,
+    cross_kv: Optional[tuple] = None,
     use_flash: bool = False,
 ):
-    """GQA attention for prefill (kv_cache None) or decode.
+    """GQA attention for prefill (kv_cache None), decode, or cross
+    attention (``cross_kv``).
 
     prefill: returns (out, {"k", "v"}) with the layer's new (B,S,KV,hd)
     keys and values. ``use_flash`` runs the flash kernel (on CUDA tensors;
@@ -181,16 +183,33 @@ def attention(
     written IN PLACE at ``cache_index`` (a Python int) and attention runs
     over the whole cache with a length mask (and the sliding window).
     Returns (out, kv_cache), the same cache tensors.
+
+    cross attention: ``cross_kv`` = (k, v), each (B,Sk,KV,hd), the other
+    sequence's keys and values. q is projected (with its bias, no rope)
+    and attends to every key, without a causal mask or window, through
+    the flash kernel under ``use_flash``. Returns (out, None).
     """
     B, S, _ = x.shape
     n_rep = cfg.n_heads // cfg.n_kv_heads
+    wo = p["wo"].reshape(-1, p["wo"].shape[-1])             # (H*hd, D)
+    if cross_kv is not None:
+        q = _proj(x, p["wq"])
+        if "bq" in p:
+            q = q + p["bq"]
+        kf, vf = (repeat_kv(t, n_rep) for t in cross_kv)
+        if use_flash:
+            out = flash_ops.flash_attention(q, kf, vf, causal=False,
+                                            window=0)
+        else:
+            out = sdpa(q, kf, vf, causal=False)
+        return out.reshape(B, S, -1) @ wo, None
+
     q, k, v = _qkv(p, x, cfg)
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
     if cfg.pos == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    wo = p["wo"].reshape(-1, p["wo"].shape[-1])             # (H*hd, D)
 
     if kv_cache is None:
         kf = repeat_kv(k, n_rep)

@@ -2,9 +2,9 @@
 of ``repro.serve.step``).
 
 Ported: the ``dense`` and ``moe`` families (``models.transformer``), the
-``ssm`` family (``models.rwkv6``) and the ``hybrid`` family
-(``models.zamba2``). The other families raise ``NotImplementedError``
-naming their ROADMAP item.
+``ssm`` family (``models.rwkv6``), the ``hybrid`` family
+(``models.zamba2``) and the ``audio`` family (``models.encdec``). The
+``vlm`` family raises ``NotImplementedError`` naming its ROADMAP item.
 
 The prefill of every family returns (last-position logits, decode state):
 the KV caches of the prompt for a transformer, the shift and WKV state
@@ -12,9 +12,10 @@ after the prompt for RWKV-6, and for Zamba2 the conv carries, SSD states
 and shared-attention KV rings after the prompt (its prefill takes
 ``max_seq``, the length the rings are sized for; the reference's hybrid
 prefill returns the logits only and its serve steps the prompt through
-decode). A transformer's and Zamba2's decode take ``(params, token,
-state, index)``, RWKV-6's ``(params, token, state)``, as in the
-reference.
+decode); for the encoder–decoder the cross K/V of the frames,
+``{"xk", "xv"}`` (its prefill takes ``frames``). A transformer's, Zamba2's
+and the encoder–decoder's decode take ``(params, token, state, index)``,
+RWKV-6's ``(params, token, state)``, as in the reference.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 
-PORTED = ("dense", "moe", "ssm", "hybrid")
+PORTED = ("dense", "moe", "ssm", "hybrid", "audio")
 
 
 def not_ported(cfg: ModelConfig) -> NotImplementedError:
@@ -34,12 +35,27 @@ def not_ported(cfg: ModelConfig) -> NotImplementedError:
 
 def make_prefill_step(cfg: ModelConfig, *, use_kernels: bool = False):
     """``prefill(params, tokens)`` (Zamba2's: ``prefill(params, tokens,
-    max_seq=None)``). ``use_kernels`` runs every hand-written kernel on
-    the family's prefill: flash attention and the grouped expert matmul
-    for a transformer, the WKV6 scan for RWKV-6, flash attention in
-    Zamba2's shared block (on CPU tensors their plain versions)."""
+    max_seq=None)``; the encoder–decoder's: ``prefill(params, tokens,
+    frames)``). ``use_kernels`` runs every hand-written kernel on the
+    family's prefill: flash attention and the grouped expert matmul for a
+    transformer, the WKV6 scan for RWKV-6, flash attention in Zamba2's
+    shared block and in every attention of the encoder–decoder (on CPU
+    tensors their plain versions)."""
     if cfg.family not in PORTED:
         raise not_ported(cfg)
+    if cfg.family == "audio":
+        from repro_torch.models import encdec as E
+
+        def prefill(params, tokens, frames):
+            """Encode once; the decoder over the prompt (the reference's
+            ``decode_train``) on those cross K/V -> (last-position
+            logits, {"xk", "xv"})."""
+            enc = E.encode(params, frames, cfg, use_flash=use_kernels)
+            xk, xv = E.precompute_cross_kv(params, enc, cfg)
+            logits = E.decode_train(params, tokens, enc, cfg,
+                                    use_flash=use_kernels, cross_kv=(xk, xv))
+            return logits[:, -1:], {"xk": xk, "xv": xv}
+        return prefill
     if cfg.family == "hybrid":
         from repro_torch.models import zamba2 as Z
 
@@ -64,10 +80,17 @@ def make_prefill_step(cfg: ModelConfig, *, use_kernels: bool = False):
 def make_decode_step(cfg: ModelConfig, *, use_kernels: bool = False):
     """One-token decode. ``use_kernels`` runs a transformer's MoE expert
     FFNs through the grouped matmul kernel; RWKV-6's and Zamba2's decode
-    take the one-step recurrences and plain attention over the cache,
-    which have no kernel."""
+    take the one-step recurrences and plain attention over the cache, the
+    encoder–decoder's plain attention over its cache and cross K/V, which
+    have no kernel."""
     if cfg.family not in PORTED:
         raise not_ported(cfg)
+    if cfg.family == "audio":
+        from repro_torch.models import encdec as E
+
+        def decode(params, token, caches, index):
+            return E.decode_step(params, token, caches, index, cfg)
+        return decode
     if cfg.family == "hybrid":
         from repro_torch.models import zamba2 as Z
 

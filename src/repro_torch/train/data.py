@@ -8,6 +8,11 @@ drawn from the port's threefry stream (``core.prng``), which is
 the same (seed, step). The draws run on the batch's device: at qwen2's
 vocabulary, batch 4 and sequence 1024 the categorical's Gumbel noise
 alone is 4 × 1025 × 151936 floats, drawn a block of rows at a time.
+
+The ``audio`` family's batches also carry ``frames``, the reference's
+``normal(fold_in(PRNGKey(seed ^ 7), step), (B, n_frames, d_model))`` in
+the activation type (``prng.normal``: bitwise in bfloat16, within a few
+ULP in float32).
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.core import prng
 from repro_torch.device import resolve_device
+from repro_torch.models.lm import act_dtype
 
 
 def zipf_logits(vocab: int, alpha: float = 1.1) -> np.ndarray:
@@ -44,9 +50,10 @@ def _gen(seed: int, step: int, *, batch: int, seq: int, vocab: int,
 def make_batch_fn(cfg: ModelConfig, shape: ShapeSpec, *, seed: int = 0,
                   batch_override: int | None = None,
                   device: str | torch.device = "cuda"):
-    """``batch_fn(step) -> {"tokens", "labels"}`` on ``device``. The
-    ``audio`` and ``vlm`` families' extra inputs are not ported."""
-    if cfg.family in ("audio", "vlm"):
+    """``batch_fn(step) -> {"tokens", "labels"}`` on ``device``, and
+    ``"frames"`` (B, n_frames, d_model) for the ``audio`` family. The
+    ``vlm`` family's patch embeddings are not ported."""
+    if cfg.family == "vlm":
         raise NotImplementedError(
             f"repro_torch.train.data: the {cfg.family!r} family's inputs "
             f"({cfg.name}) are not ported yet (ROADMAP Queue 1, item 9(c))")
@@ -57,6 +64,12 @@ def make_batch_fn(cfg: ModelConfig, shape: ShapeSpec, *, seed: int = 0,
     def batch_fn(step: int) -> dict:
         toks, labels = _gen(seed, step, batch=B, seq=S,
                             vocab=cfg.vocab_size, device=dev)
-        return {"tokens": toks, "labels": labels}
+        batch = {"tokens": toks, "labels": labels}
+        if cfg.family == "audio":
+            key = prng.fold_in(prng.PRNGKey(seed ^ 7, dev), step)
+            batch["frames"] = prng.normal(
+                key, (B, cfg.encoder.n_frames, cfg.d_model),
+                dtype=act_dtype(cfg))
+        return batch
 
     return batch_fn

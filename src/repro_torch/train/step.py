@@ -54,14 +54,21 @@ def model_loss(params, batch: dict, cfg: ModelConfig, *, remat: str = "dots",
                use_kernel: bool = False,
                vocab_parallel: bool = False) -> torch.Tensor:
     """The mean next-token cross-entropy of ``batch`` ({"tokens",
-    "labels"}). ``use_flash``/``use_moe_kernel`` reach the transformer's
-    attention and expert FFNs (``use_flash`` also Zamba2's shared
-    attention), ``use_kernel`` RWKV-6's WKV scan: the kernels on CUDA
-    tensors (no autograd there), their plain versions on CPU tensors."""
+    "labels"}, and "frames" for the ``audio`` family).
+    ``use_flash``/``use_moe_kernel`` reach the transformer's attention and
+    expert FFNs (``use_flash`` also Zamba2's shared attention and every
+    attention of the encoder–decoder), ``use_kernel`` RWKV-6's WKV scan:
+    the kernels on CUDA tensors (no autograd there), their plain versions
+    on CPU tensors."""
     fam = cfg.family
-    if fam not in ("dense", "moe", "ssm", "hybrid"):
+    if fam not in ("dense", "moe", "ssm", "hybrid", "audio"):
         raise _unported(fam, cfg)
     p = params_at_use(params, cfg)
+    if fam == "audio":
+        from repro_torch.models import encdec as E
+        logits = E.forward(p, batch["tokens"], batch["frames"], cfg,
+                           remat=remat, use_flash=use_flash)
+        return _xent(logits, batch["labels"], cfg)
     if fam == "hybrid":
         from repro_torch.models import zamba2 as Z
         logits = Z.forward(p, batch["tokens"], cfg, remat=remat,

@@ -212,3 +212,28 @@ def test_fig5_greedy_follows_reference_until_a_near_tie():
             break
         _assert_state(ts, js)
     assert first_flip is None or first_flip >= 500, first_flip
+
+
+# t from 0 to 10**6 (every t below 5000, then 20000 drawn), m from 2 to 53
+GAMMA_T = np.unique(np.concatenate([
+    np.arange(5000), np.random.default_rng(27).integers(0, 10 ** 6, 20000),
+    [10 ** 6]])).astype(np.int32)
+
+
+@pytest.mark.parametrize("scale", [1.0, 0.5, 0.37])
+def test_gamma_schedules_bitwise_equal_reference(scale):
+    """``gamma_sqrt`` bitwise the reference's over t in [0, 10**6] and m in
+    [2, 53] (ln m as XLA's CPU backend rounds it, the root correctly
+    rounded); ``gamma_constant`` a float32 0-d tensor of its value."""
+    for m in range(2, 54):
+        want = np.asarray(jasa.gamma_sqrt(jnp.asarray(GAMMA_T), m, scale))
+        got = tasa.gamma_sqrt(torch.from_numpy(GAMMA_T), m, scale)
+        assert got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=f"m={m}")
+        # a Python int t gives the 0-d value of the same element
+        assert float(tasa.gamma_sqrt(7, m, scale)) == float(want[7])
+    for t in (0, torch.tensor(5, dtype=torch.int32)):
+        got = tasa.gamma_constant(t, scale)
+        want = np.asarray(jasa.gamma_constant(jnp.int32(0), scale))
+        assert got.dtype == torch.float32 and got.dim() == 0
+        assert got.numpy().tobytes() == want.tobytes()

@@ -1411,3 +1411,158 @@ def test_hybrid_train_step_through_flash_raises_on_the_card(cuda_device):
         assert flash_ops.KERNEL_LAUNCHES["flash_attention"] - n0 == 1
         plain = TS.model_loss(p, b, cfg, remat="none")
     assert abs(float(loss) - float(plain)) <= 2 ** -9 * abs(float(plain))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,sk,causal", [(1500, 1500, False),
+                                          (64, 64, True),
+                                          (64, 1500, False)])
+def test_flash_attention_kernel_at_whisper_shapes(cuda_device, sq, sk,
+                                                  causal):
+    """whisper-tiny's three prefill shapes at the served batch (16, 6
+    heads of 64, bfloat16, the tensor-core design): the encoder's
+    self-attention without a mask (1500 = 23 × 64 + 28: a ragged last key
+    tile), the decoder's causal self-attention over a 64-token prompt,
+    and its cross attention, 64 queries over 1500 keys."""
+    q = _randn((16, sq, 6, 64), 0, cuda_device, torch.bfloat16)
+    k, v = (_randn((16, sk, 6, 64), i, cuda_device, torch.bfloat16)
+            for i in (1, 2))
+    before = flash_ops.DESIGN_LAUNCHES["wgmma"]
+    got = flash_ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_ops.DESIGN_LAUNCHES["wgmma"] == before + 1
+    want = flash_ref.attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=FLASH_ATOL[torch.bfloat16], rtol=0)
+    _assert_rel_close(got, want, FLASH_REL)
+
+
+def _whisper_cut(dtype: str, layers: int = 2):
+    """whisper-tiny at its published width, both stacks cut to
+    ``layers``."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+
+    cfg = ARCHS["whisper-tiny"]
+    return dataclasses.replace(
+        cfg, dtype=dtype, n_layers=layers,
+        encoder=dataclasses.replace(cfg.encoder, n_layers=layers))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_audio_prefill_through_flash_matches_its_twin_on_the_card(
+        cuda_device, dtype):
+    """whisper-tiny at published width, 2 + 2 layers, 1500 frames, a
+    32-token prompt: the prefill through the flash kernel (one launch an
+    attention: 2 in the encoder, 2 self and 2 cross in the decoder)
+    against the same route with flash swapped for its plain version
+    (logits and the cross K/V within the kernel's own limits, a few
+    float32 or bfloat16 roundings), and the plain route on the CPU."""
+    from repro_torch.models import encdec as TE
+    from repro_torch.serve import step as tstep
+    from repro_torch.train import optimizer as TO
+
+    cfg = _whisper_cut(dtype)
+    params = TE.init_lm(cfg, seed=0, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (2, 32), device=cuda_device,
+                         generator=gen)
+    frames = torch.randn((2, cfg.encoder.n_frames, cfg.d_model),
+                         device=cuda_device, generator=gen).to(
+                             params["enc_pos"].dtype)
+    prefill = tstep.make_prefill_step(cfg, use_kernels=True)
+    before = flash_ops.KERNEL_LAUNCHES["flash_attention"]
+    got, gk = prefill(params, toks, frames)
+    assert flash_ops.KERNEL_LAUNCHES["flash_attention"] - before == 6
+    kernel = flash_ops.flash_attention
+    flash_ops.flash_attention = flash_ref.attention_ref
+    try:
+        want, wk = prefill(params, toks, frames)
+    finally:
+        flash_ops.flash_attention = kernel
+    atol = 1e-4 if dtype == "float32" else 6e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    for k in gk:
+        torch.testing.assert_close(gk[k].float(), wk[k].float(),
+                                   atol=atol * 10, rtol=0)
+    cpu = TO.tree_map(lambda x: x.cpu(), params)
+    on_cpu, _ = tstep.make_prefill_step(cfg)(cpu, toks.cpu(), frames.cpu())
+    torch.testing.assert_close(got.float().cpu(), on_cpu.float(), atol=atol,
+                               rtol=0)
+
+
+@pytest.mark.cuda
+def test_audio_train_step_through_flash_raises_on_the_card(cuda_device):
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.train import optimizer as TO
+    from repro_torch.train import step as TS
+    from repro_torch.train.data import make_batch_fn
+
+    cfg = ARCHS["whisper-tiny"].reduced()
+    p = TO.tree_map(lambda x: x.float(),
+                    TS.init_params(cfg, seed=0, device=cuda_device))
+    o = TO.init(p)
+    b = make_batch_fn(cfg, ShapeSpec("t", 32, 2, "train"),
+                      device=cuda_device)(0)
+    assert b["frames"].is_cuda
+    with pytest.raises(RuntimeError, match="no backward"):
+        TS.make_train_step(cfg, use_flash=True, remat="none")(p, o, b)
+    assert int(o.step) == 0
+    with torch.no_grad():
+        n0 = flash_ops.KERNEL_LAUNCHES["flash_attention"]
+        loss = TS.model_loss(p, b, cfg, remat="none", use_flash=True)
+        assert flash_ops.KERNEL_LAUNCHES["flash_attention"] - n0 == \
+            cfg.encoder.n_layers + 2 * cfg.n_layers
+        plain = TS.model_loss(p, b, cfg, remat="none")
+    assert abs(float(loss) - float(plain)) <= 2 ** -9 * abs(float(plain))
+
+
+@pytest.mark.cuda
+def test_freed_kernel_mode_end_to_end_bitwise_plain(cuda_device):
+    """The reference's ``test_pallas_freed_mode_end_to_end`` on the card:
+    statistics at scale 28 under per-stage on a 100-core machine, 40
+    steps through the ``freed_scan`` kernel (``freed_mode="kernel"``, the
+    ``fused`` design) bitwise the plain sorted scan's run."""
+    from repro_torch.sched.workflows import STATISTICS
+    from repro_torch.xsim import events, policies
+    from repro_torch.xsim import state as X
+
+    t = X.empty_table(16)
+    policies.add_workflow(t, 0, STATISTICS, 28, X.PER_STAGE, t0=0.0)
+    st = X.freeze(t, policy=X.PER_STAGE, total_cores=100.0,
+                  free_cores=100.0, device=cuda_device)
+    before = dict(backfill.DESIGN_LAUNCHES)
+    a = events.simulate(st, n_steps=40, freed_mode="ref")
+    b = events.simulate(st, n_steps=40, freed_mode="kernel")
+    assert backfill.DESIGN_LAUNCHES["fused"] > before["fused"]
+    for x, y in zip(a, b):
+        if isinstance(x, torch.Tensor):
+            assert torch.equal(x, y)
+        elif x is not None:
+            for xx, yy in zip(x, y):
+                assert torch.equal(xx, yy)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_audio_frames_on_the_card_equal_the_cpu_route(cuda_device, dtype):
+    """The ``audio`` batches' frames (``prng.normal`` in the activation
+    type: XLA's erfinv polynomial, float64 log1p, sqrt and multiply-adds
+    rounded once) drawn on the card bitwise the CPU route's, with the
+    tokens and labels, at whisper-tiny's published frame shape."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.train.data import make_batch_fn
+
+    cfg = dataclasses.replace(ARCHS["whisper-tiny"], dtype=dtype)
+    shape = ShapeSpec("t", 64, 4, "train")
+    got = make_batch_fn(cfg, shape, seed=3, device=cuda_device)(5)
+    want = make_batch_fn(cfg, shape, seed=3, device="cpu")(5)
+    assert got["frames"].shape == (4, 1500, 384)
+    for k in want:
+        assert torch.equal(got[k].cpu(), want[k]), k

@@ -1,19 +1,19 @@
 """The port's training driver (``launch.train``), its checkpoints and its
 placement on the host's mesh, on the CPU.
 
-* Kill and restart (qwen2-0.5b and zamba2-1.2b, reduced): a run
-  checkpointed at step 4 and resumed to step 6 equals the uninterrupted
-  6-step run BITWISE, every logged loss (the
-  reference's ``tests/test_system.py::test_train_checkpoint_restart_exact``
-  holds its own to 1e-3), and ``test_training_reduces_loss`` rerun.
-* Across the packages (reduced qwen2-0.5b, bfloat16 activations): the
-  reference's checkpoint of step 4 restored by the port (every leaf equal
-  to the reference's own restore) and the port's training resumed from
-  it; and the port's checkpoint of step 4 resumed by the reference's
-  ``train``. Each resumed run's losses at steps 4 and 5 within
-  ``BF16_LOSS_REL`` of the other package's uninterrupted run, and its
-  step-6 checkpoint's parameters within ``RESUMED_PARAM_ATOL`` of that
-  run's. ``BF16_LOSS_REL`` is half a bfloat16 step (2^-9 of the loss):
+* Kill and restart (qwen2-0.5b, zamba2-1.2b and whisper-tiny, reduced):
+  a run checkpointed at step 4 and resumed to step 6 equals the
+  uninterrupted 6-step run BITWISE, every logged loss (the reference's
+  ``tests/test_system.py::test_train_checkpoint_restart_exact`` holds its
+  own to 1e-3), and ``test_training_reduces_loss`` rerun.
+* Across the packages (reduced qwen2-0.5b and whisper-tiny, bfloat16
+  activations): the reference's checkpoint of step 4 restored by the
+  port (every leaf equal to the reference's own restore) and the port's
+  training resumed from it; and the port's checkpoint of step 4 resumed
+  by the reference's ``train``. Each resumed run's losses at steps 4 and
+  5 within ``BF16_LOSS_REL`` of the other package's uninterrupted run,
+  and its step-6 checkpoint's parameters within ``RESUMED_PARAM_ATOL``
+  of that run's. ``BF16_LOSS_REL`` is half a bfloat16 step (2^-9 of the loss):
   both runs start step 4 from the same float32 parameters and draw the
   same batches, and differ only where the two frameworks round a
   bfloat16 activation at other places, which moves the float32 mean of
@@ -84,6 +84,13 @@ def test_hybrid_train_checkpoint_restart_exact(tmp_path):
     _restart_exact("zamba2-1.2b", tmp_path)
 
 
+def test_audio_train_checkpoint_restart_exact(tmp_path):
+    """The same for the ``audio`` family (whisper-tiny: the batches'
+    frames, the encoder and the decoder's cross attention under
+    autograd)."""
+    _restart_exact("whisper-tiny", tmp_path)
+
+
 def test_training_reduces_loss():
     r = ttrain.train("gemma-2b", reduced=True, steps=25, batch=4, seq=64,
                      log_every=24, device="cpu")
@@ -140,13 +147,13 @@ def _compare_resumed(resumed_losses, full_losses, resumed_dir, full_dir):
                                        atol=RESUMED_PARAM_ATOL, err_msg=k)
 
 
-def test_reference_checkpoint_resumes_in_the_port(tmp_path):
+def _reference_resumes_in_port(arch: str, tmp_path) -> None:
     ref_dir, port_dir = tmp_path / "ref", tmp_path / "port"
-    full = jtrain.train("qwen2-0.5b", steps=6, ckpt_dir=str(ref_dir),
+    full = jtrain.train(arch, steps=6, ckpt_dir=str(ref_dir),
                         ckpt_every=2, **RUN)
     _copy_step(ref_dir, port_dir, 4)
     # the port restores every leaf of the reference's checkpoint exactly
-    cfg = ARCHS["qwen2-0.5b"].reduced()
+    cfg = ARCHS[arch].reduced()
     params = TO.tree_map(lambda p: p.float(),
                          init_params(cfg, device="cpu"))
     opt = TO.init(params)
@@ -158,19 +165,34 @@ def test_reference_checkpoint_resumes_in_the_port(tmp_path):
     for k, v in flat.items():
         assert v.dtype == {"step": torch.int32}.get(k, torch.float32)
         np.testing.assert_array_equal(v.numpy(), want[k], err_msg=k)
-    resumed = ttrain.train("qwen2-0.5b", steps=6, ckpt_dir=str(port_dir),
+    resumed = ttrain.train(arch, steps=6, ckpt_dir=str(port_dir),
                            ckpt_every=2, device="cpu", **RUN)
     _compare_resumed(resumed["losses"], full["losses"], port_dir, ref_dir)
 
 
-def test_port_checkpoint_resumes_in_the_reference(tmp_path):
+def _port_resumes_in_reference(arch: str, tmp_path) -> None:
     port_dir, ref_dir = tmp_path / "port", tmp_path / "ref"
-    full = ttrain.train("qwen2-0.5b", steps=6, ckpt_dir=str(port_dir),
+    full = ttrain.train(arch, steps=6, ckpt_dir=str(port_dir),
                         ckpt_every=2, device="cpu", **RUN)
     _copy_step(port_dir, ref_dir, 4)
-    resumed = jtrain.train("qwen2-0.5b", steps=6, ckpt_dir=str(ref_dir),
+    resumed = jtrain.train(arch, steps=6, ckpt_dir=str(ref_dir),
                            ckpt_every=2, **RUN)
     _compare_resumed(resumed["losses"], full["losses"], ref_dir, port_dir)
+
+
+def test_reference_checkpoint_resumes_in_the_port(tmp_path):
+    _reference_resumes_in_port("qwen2-0.5b", tmp_path)
+
+
+def test_port_checkpoint_resumes_in_the_reference(tmp_path):
+    _port_resumes_in_reference("qwen2-0.5b", tmp_path)
+
+
+def test_audio_checkpoints_resume_across_the_packages(tmp_path):
+    """whisper-tiny's checkpoints (``enc_*`` and ``dec_layers/xattn*``
+    leaves) both ways."""
+    _reference_resumes_in_port("whisper-tiny", tmp_path / "a")
+    _port_resumes_in_reference("whisper-tiny", tmp_path / "b")
 
 
 def _bf16_tree(seed: int):

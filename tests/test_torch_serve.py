@@ -189,7 +189,7 @@ def test_serve_on_cpu_and_unported_families():
         again = tserve.serve(arch, batch=2, prompt_len=prompt_len, gen=4,
                              device="cpu")
         assert torch.equal(res["tokens"], again["tokens"])   # from the seed
-    for arch in ("whisper-tiny", "pixtral-12b"):
+    for arch in ("pixtral-12b",):
         cfg = TARCHS[arch].reduced()
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tstep.make_prefill_step(cfg)

@@ -14,13 +14,13 @@
 * Losses: ``loss_fn``, ``vocab_parallel_xent`` and
   ``aux_load_balance_loss`` within 1e-5 relative.
 * ``model_loss``'s gradients for the reduced qwen2-0.5b, moonshot,
-  rwkv6-3b and zamba2-1.2b in float32, from the reference's parameters
-  perturbed with numpy noise (its init hides errors: RWKV-6's
-  ``bonus_u`` is 0, its mix factors 0.5, every norm scale 1), each leaf
-  within 1e-4 rel_rms (measured: at most 1.2e-6, 1.3e-6, 1.4e-5 and
-  2.6e-6).
+  rwkv6-3b, zamba2-1.2b and whisper-tiny (with the batch's frames) in
+  float32, from the reference's parameters perturbed with numpy noise
+  (its init hides errors: RWKV-6's ``bonus_u`` is 0, its mix factors
+  0.5, every norm scale 1), each leaf within 1e-4 rel_rms (measured: at
+  most 1.2e-6, 1.3e-6, 1.4e-5, 2.6e-6 and 1.2e-6).
 * 3 ``make_train_step`` steps (accum 1 and 2) against the reference's
-  jitted step on the same four models in float32: losses within 1e-5
+  jitted step on the same five models in float32: losses within 1e-5
   relative, parameters within max-abs 4e-5. That is twice the sum of the
   first three learning rates (3e-6, 6e-6, 9e-6): Adam's first steps move
   a weight by about its learning rate whatever the gradient's size, so a
@@ -35,7 +35,7 @@
   ``tests/test_optimizer_data.py`` that are not about sharding rules
   (``tests/test_torch_runtime.py`` holds that one), and
   ``tests/test_models_smoke.py``'s ``test_reduced_train_step`` for the
-  eight ``dense``/``moe``/``ssm``/``hybrid`` archs and
+  nine ``dense``/``moe``/``ssm``/``hybrid``/``audio`` archs and
   ``test_vocab_parallel_xent_matches_naive``.
 """
 
@@ -72,9 +72,11 @@ from repro_torch.train import step as TS
 jax.config.update("jax_threefry_partitionable", True)
 torch.set_num_threads(1)   # small tensors: threads only contend
 
-MODELS = ("qwen2-0.5b", "moonshot-v1-16b-a3b", "rwkv6-3b", "zamba2-1.2b")
+MODELS = ("qwen2-0.5b", "moonshot-v1-16b-a3b", "rwkv6-3b", "zamba2-1.2b",
+          "whisper-tiny")
 TRAIN_ARCHS = sorted(n for n, c in ARCHS.items()
-                     if c.family in ("dense", "moe", "ssm", "hybrid"))
+                     if c.family in ("dense", "moe", "ssm", "hybrid",
+                                       "audio"))
 CPU = torch.device("cpu")
 
 
@@ -263,7 +265,7 @@ def test_batches_bitwise_equal_to_reference(seed, monkeypatch):
 
 
 def test_unported_families_raise():
-    for arch in ("whisper-tiny", "pixtral-12b"):
+    for arch in ("pixtral-12b",):
         with pytest.raises(NotImplementedError, match=r"9\(c\)"):
             TD.make_batch_fn(ARCHS[arch].reduced(),
                              ShapeSpec("t", 8, 2, "train"), device="cpu")
