@@ -19,10 +19,9 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
-from repro_torch.core import prng
+from repro_torch.core import prng, xla_f32
 from repro_torch.core.losses import zero_one
 
 
@@ -37,7 +36,7 @@ class ASAState(NamedTuple):
 
     @property
     def p(self) -> torch.Tensor:
-        return torch.exp(self.log_p)
+        return xla_f32.exp(self.log_p)
 
 
 def _f32(x, like: torch.Tensor) -> torch.Tensor:
@@ -47,6 +46,12 @@ def _f32(x, like: torch.Tensor) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=like.device, dtype=torch.float32)
     return torch.full((), x, dtype=torch.float32, device=like.device)
+
+
+def _over_50(g: torch.Tensor) -> torch.Tensor:
+    """γ/50 as the reference's jitted step computes it: XLA rewrites the
+    division by a constant as a product with its float32 reciprocal."""
+    return g * _f32(1 / 50, g)
 
 
 def select(pred: torch.Tensor, new: ASAState, old: ASAState) -> ASAState:
@@ -63,7 +68,8 @@ def init(m: int, key: torch.Tensor) -> ASAState:
     shape is the key's leading shape."""
     batch = key.shape[:-1]
     dev = key.device
-    log_m = torch.log(torch.tensor(float(m), dtype=torch.float32, device=dev))
+    log_m = xla_f32.log(torch.full((), float(m), dtype=torch.float32,
+                                   device=dev))
     return ASAState(
         log_p=(-log_m).expand(batch + (m,)).clone(),
         round_loss=torch.zeros(batch + (m,), dtype=torch.float32, device=dev),
@@ -87,49 +93,16 @@ def gamma_constant(t, value: float = 1.0) -> torch.Tensor:
     return torch.full((), value, dtype=torch.float32, device=dev)
 
 
-# Cephes' float32 log: the polynomial on the mantissa in [sqrt(1/2),
-# sqrt(2)) and the exponent's ln 2 split in two parts
-_LOG_P = tuple(np.float32(c) for c in (
-    7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
-    1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
-    3.3333331174e-1))
-_LOG_Q1, _LOG_Q2 = np.float32(-2.12194440e-4), np.float32(0.693359375)
-
-
-def _log_f32(x: float) -> np.float32:
-    """ln x of a positive normal ``x`` in float32 by Cephes' polynomial,
-    each step rounded to float32. For every integer x from 2 to 4096 but
-    five (1340, 1532, 1608, 2725, 2869: one ULP apart) this is the value
-    XLA's CPU backend gives, which for x = 7, 47 and 49 is one ULP above
-    the correctly rounded log that ``torch.log`` gives."""
-    f32 = np.float32
-    bits = int(np.array([x], np.float32).view(np.uint32)[0])
-    e = f32((bits >> 23 & 0xFF) - 126)
-    m = np.array([bits & 0x807FFFFF | 0x3F000000], np.uint32).view(
-        np.float32)[0]                                   # in [0.5, 1)
-    if m < f32(0.707106781186547524):
-        e, z = f32(e - 1), f32(f32(m + m) - 1)
-    else:
-        z = f32(m - 1)
-    z2 = f32(z * z)
-    y = _LOG_P[0]
-    for c in _LOG_P[1:]:
-        y = f32(f32(y * z) + c)
-    y = f32(f32(y * f32(z2 * z)) + f32(e * _LOG_Q1))
-    y = f32(y - f32(z2 * f32(0.5)))
-    return f32(f32(z + y) + f32(e * _LOG_Q2))
-
-
 def gamma_sqrt(t, m: int, scale: float = 1.0) -> torch.Tensor:
     """Non-increasing γ_t = scale · sqrt(ln m / (t+1)), in float32 —
-    Appendix-A friendly. ln m is the reference's float32 value
-    (``_log_f32``); the quotient, root and product are float32 on
-    ``t``'s device, each correctly rounded as XLA rounds them (the root
-    is taken in float64 and rounded once: torch's float32 ``sqrt`` on the
-    CPU is not correctly rounded)."""
+    Appendix-A friendly. ln m is XLA's float32 value (``xla_f32.log``);
+    the quotient, root and product are float32 on ``t``'s device, each
+    correctly rounded as XLA rounds them (the root is taken in float64
+    and rounded once: torch's float32 ``sqrt`` on the CPU is not
+    correctly rounded)."""
     t = torch.as_tensor(t).to(torch.float32)
-    log_m = torch.full((), float(_log_f32(float(m))), dtype=torch.float32,
-                       device=t.device)
+    log_m = xla_f32.log(torch.full((), float(m), dtype=torch.float32,
+                                   device=t.device))
     return scale * torch.sqrt((log_m / (t + 1.0)).double()).float()
 
 
@@ -139,18 +112,21 @@ def greedy_action(state: ASAState) -> torch.Tensor:
 
 
 def _renormalize(log_p: torch.Tensor) -> torch.Tensor:
-    """log_p − logsumexp(log_p), in ``jax.nn.logsumexp``'s op order."""
-    amax = torch.amax(log_p, dim=-1, keepdim=True)
-    amax = torch.where(torch.isfinite(amax), amax, torch.zeros_like(amax))
-    sumexp = torch.sum(torch.exp(log_p - amax), dim=-1, keepdim=True)
-    return log_p - (torch.log(sumexp) + amax)
+    """log_p − logsumexp(log_p), with the bits of the reference's."""
+    return log_p - xla_f32.logsumexp(log_p, dim=-1, keepdim=True)
 
 
 def apply_round_update(state: ASAState, gamma) -> ASAState:
-    """Line 7: p ← e^{−γ ℓ} p / N, reset ℓ, close the round."""
-    g = _f32(gamma, state.log_p)
+    """Line 7: p ← e^{−γ ℓ} p / N, reset ℓ, close the round. log_p − γ·ℓ
+    is one rounding, as XLA fuses it (a plain subtraction where ``gamma``
+    is the number 1)."""
+    if isinstance(gamma, (int, float)) and gamma == 1:
+        log_p = state.log_p - state.round_loss
+    else:
+        log_p = xla_f32.fma(-_f32(gamma, state.log_p), state.round_loss,
+                            state.log_p)
     return state._replace(
-        log_p=_renormalize(state.log_p - g * state.round_loss),
+        log_p=_renormalize(log_p),
         round_loss=torch.zeros_like(state.round_loss),
         rounds=state.rounds + 1,
     )
@@ -172,11 +148,15 @@ def observe(state: ASAState, action: torch.Tensor, loss: torch.Tensor,
 def observe_full(state: ASAState, loss_vector: torch.Tensor, gamma,
                  repetitions: int = 1) -> ASAState:
     """Tuned policy (§4.5): apply the full-information loss vector
-    ``repetitions`` times in one multiplicative update."""
+    ``repetitions`` times in one multiplicative update. log_p −
+    (γ·ℓ)·repetitions rounds once after γ·ℓ, as XLA fuses it (a plain
+    subtraction for one repetition, where the product is exact)."""
     g = _f32(gamma, state.log_p)
-    upd = g * loss_vector.to(torch.float32) * float(repetitions)
+    gl = g * loss_vector.to(torch.float32)
+    log_p = (state.log_p - gl if repetitions == 1
+             else xla_f32.fma(-gl, float(repetitions), state.log_p))
     return state._replace(
-        log_p=_renormalize(state.log_p - upd),
+        log_p=_renormalize(log_p),
         t=state.t + 1,
         rounds=state.rounds + 1,
     )
@@ -194,7 +174,7 @@ def map_wait(state: ASAState, bins: torch.Tensor) -> torch.Tensor:
 
 def posterior_features(state: ASAState, bins: torch.Tensor) -> torch.Tensor:
     """``[map_wait, expected_wait, entropy]`` of the live posterior."""
-    p = torch.exp(state.log_p)
+    p = xla_f32.exp(state.log_p)
     entropy = -torch.sum(p * state.log_p, dim=-1)
     b = bins.to(torch.float32)
     return torch.stack([map_wait(state, b), expected_wait(state, b),
@@ -218,7 +198,7 @@ def step(state: ASAState, loss_vector: torch.Tensor, gamma, *,
         state, a = sample_action(state)
         state = observe(state, a, chosen(a), gamma)
         state = observe_full(state, loss_vector,
-                             _f32(gamma, state.log_p) / 50.0, repetitions)
+                             _over_50(_f32(gamma, state.log_p)), repetitions)
     else:
         raise ValueError(f"unknown policy {policy!r}")
     return state, a
@@ -255,8 +235,11 @@ def learn_wait_if(state: ASAState, bins: torch.Tensor,
     lv = zero_one(b, torch.clamp_min(true_wait.to(torch.float32), 1.0))
     g = _f32(gamma, b)
     s, a = sample_action(state)
-    s = observe(s, a, torch.gather(lv, -1, a.unsqueeze(-1)).squeeze(-1), g)
-    s = observe_full(s, lv, g / 50.0, 50)
+    s = observe(s, a, torch.gather(lv, -1, a.unsqueeze(-1)).squeeze(-1),
+                gamma)
+    # the reference's γ is a constant of its jitted program, so XLA folds
+    # (γ/50)·50 into one factor before the update
+    s = observe_full(s, lv, _over_50(g) * 50.0, 1)
     return select(do, s, state)
 
 

@@ -11,10 +11,17 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import xla_f32
+
 
 def _log_dist(bins: torch.Tensor, true_wait: torch.Tensor) -> torch.Tensor:
-    logw = torch.log(torch.clamp_min(true_wait, 1e-9))
-    return torch.log(bins) - logw.unsqueeze(-1)
+    w = torch.clamp_min(true_wait, 1e-9).to(torch.float32)
+    # one call takes both logs (elementwise: the same bits, half the
+    # launches)
+    logs = xla_f32.log(torch.cat([bins.to(torch.float32).reshape(-1),
+                                  w.reshape(-1)]))
+    logb = logs[:bins.numel()].view(bins.shape)
+    return logb - logs[bins.numel():].view(w.shape).unsqueeze(-1)
 
 
 def zero_one(bins: torch.Tensor, true_wait: torch.Tensor) -> torch.Tensor:
@@ -30,7 +37,7 @@ def log_distance(bins: torch.Tensor, true_wait: torch.Tensor
                  ) -> torch.Tensor:
     """Shaped loss in [0,1]: normalized |log a − log w|. Beyond-paper."""
     d = torch.abs(_log_dist(bins, true_wait))
-    return torch.clamp(d / torch.log(bins[-1] / bins[0]), 0.0, 1.0)
+    return torch.clamp(d / xla_f32.log(bins[-1] / bins[0]), 0.0, 1.0)
 
 
 def asymmetric(bins: torch.Tensor, true_wait: torch.Tensor,
@@ -38,7 +45,7 @@ def asymmetric(bins: torch.Tensor, true_wait: torch.Tensor,
                ) -> torch.Tensor:
     """Beyond-paper: under-estimation weighted above over-estimation."""
     d = _log_dist(bins, true_wait)
-    scale = torch.log(bins[-1] / bins[0])
+    scale = xla_f32.log(bins[-1] / bins[0])
     shaped = torch.where(d < 0, under_weight * (-d) / scale,
                          over_weight * d / scale)
     return torch.clamp(shaped, 0.0, 1.0)

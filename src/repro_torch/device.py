@@ -2,7 +2,8 @@
 
 Every entry point takes ``device=`` (default ``"cuda"``). A CUDA request on
 a machine without a CUDA device raises: the port never quietly runs on the
-CPU. The CPU is used only when the caller names it.
+CPU. The CPU is used only when the caller names it, and the ``meta``
+device (shapes without storage) only by the dry run.
 """
 
 from __future__ import annotations
@@ -22,8 +23,9 @@ def resolve_device(device: str | torch.device = DEFAULT_DEVICE
                 "repro_torch: a CUDA device was requested (the default) but "
                 "torch.cuda.is_available() is False; pass device='cpu' to "
                 "run on the CPU")
-    elif dev.type != "cpu":
-        raise ValueError(f"repro_torch runs on 'cuda' or 'cpu', got {dev}")
+    elif dev.type not in ("cpu", "meta"):
+        raise ValueError(f"repro_torch runs on 'cuda' or 'cpu' (or 'meta' "
+                         f"for the dry run's shapes), got {dev}")
     return dev
 
 

@@ -17,8 +17,9 @@ CPU tests and the chip smoke's one-card blocks use it.
 
 ``make_local_mesh`` builds the (data, model) mesh of training over the
 host's devices (a ``DeviceMesh``); ``parallel.sharding`` places parameter
-trees on it. ``make_production_mesh`` (the 16×16 and 2×16×16 meshes of
-the dry run) waits for ROADMAP Queue 1 item 10.
+trees on it. ``make_production_mesh`` builds the dry run's 16×16 and
+2×16×16 meshes, of ``meta`` devices: the dry run (``launch.dryrun``)
+reads shapes and shardings from them and allocates nothing.
 """
 
 from __future__ import annotations
@@ -105,11 +106,16 @@ class DeviceMesh:
         return f"DeviceMesh({self.shape}, {devs})"
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    """The (pod, data, model) mesh of the dry run: not ported yet."""
-    raise NotImplementedError(
-        "repro_torch.launch.mesh.make_production_mesh: the dry-run meshes "
-        "are not ported yet (ROADMAP Queue 1, item 10)")
+def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
+    """16×16 single-pod (256 chips) or 2×16×16 multi-pod (512 chips), as
+    the reference's: ``model`` is tensor/expert-parallel, ``data`` is
+    data + FSDP, ``pod`` extends data/FSDP across pods. Every device is
+    ``meta``, so building it needs no card."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    grid = np.empty(shape, dtype=object)
+    grid.fill(torch.device("meta"))
+    return DeviceMesh(grid, axes)
 
 
 def make_local_mesh(model: int = 1, *,

@@ -1,6 +1,6 @@
 """Batched serving entry point: prefill a batch of prompts, decode greedily
-(port of ``repro.launch.serve``, the ``dense``, ``moe``, ``ssm``,
-``hybrid`` and ``audio`` families).
+(port of ``repro.launch.serve``, every family: ``dense``, ``moe``,
+``vlm``, ``ssm``, ``hybrid`` and ``audio``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
       --device cuda --batch 8 --prompt-len 2048 --gen 32
@@ -10,6 +10,8 @@
       --device cuda --batch 8 --prompt-len 2048 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \\
       --device cuda --batch 16 --prompt-len 64 --gen 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch pixtral-12b \\
+      --device cuda --batch 4 --prompt-len 1024 --gen 32
 
 On the card ``serve`` runs every hand-written CUDA kernel on its path
 (``use_kernels=True``): for a transformer, prefill attention and every
@@ -20,7 +22,9 @@ every shared-attention invocation of prefill goes through
 ``csrc/flash_attention.cu`` (its SSD scan is plain, as the reference's);
 for the encoder–decoder, every attention of prefill (the encoder's, the
 decoder's self-attention over the prompt and its cross attention over
-the frames) goes through ``csrc/flash_attention.cu``. This differs
+the frames) goes through ``csrc/flash_attention.cu``; for the VLM prefix,
+every layer's attention of prefill over the patches and the prompt goes
+through ``csrc/flash_attention.cu``. This differs
 from ``repro.launch.serve``, whose default route is XLA's (``sdpa``,
 einsum expert FFNs, the jnp chunked scan): the reference reaches its
 Pallas kernels only behind per-kernel flags and only on a TPU, and this
@@ -54,6 +58,13 @@ frames twice (once in prefill, once for the cross K/V of decode); here
 they are encoded once and one set of cross K/V feeds both, the same
 float work (``tests/test_torch_encdec.py`` holds it to the reference's
 two calls).
+
+The VLM prefix follows the reference's ``vlm`` route too: 8 patch
+embeddings a request drawn from the seed, prefill is ``forward`` over the
+patches and the prompt (its last row's logits), and decode starts from a
+zero-filled KV cache of S + gen positions, written at S + i: neither the
+patches' nor the prompt's keys and values are ever written into it, and
+it has no room for the patches.
 """
 
 from __future__ import annotations
@@ -71,6 +82,8 @@ from repro_torch.models.transformer import init_kv_caches
 from repro_torch.serve.step import (greedy_sample, make_decode_step,
                                     make_prefill_step)
 
+VLM_PATCHES = 8   # patch embeddings a request, as the reference's route
+
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
@@ -79,7 +92,8 @@ def _sync(device: torch.device) -> None:
 
 def generate(params: dict, prompts: torch.Tensor, cfg, gen: int, *,
              use_kernels: bool = False,
-             frames: torch.Tensor | None = None) -> dict:
+             frames: torch.Tensor | None = None,
+             patches: torch.Tensor | None = None) -> dict:
     """Prefill ``prompts`` (B, S), then decode greedily: ``gen`` decode
     steps, as the reference's loop does (the last step's token is not
     kept). A transformer's prefill keys and values fill a (S + gen)-long
@@ -87,7 +101,9 @@ def generate(params: dict, prompts: torch.Tensor, cfg, gen: int, *,
     so does Zamba2's, its rings sized for S + gen tokens. The
     encoder–decoder takes ``frames`` (B, n_frames, D): its decode starts
     from an empty (S + gen)-long self-attention cache and the cross K/V
-    of prefill (see the module's docstring). ``use_kernels`` runs every
+    of prefill (see the module's docstring). The VLM takes ``patches``
+    (B, P, D), and its decode starts from an empty (S + gen)-long KV
+    cache, as the reference's. ``use_kernels`` runs every
     hand-written kernel on the path (``serve.step``).
 
     Returns ``tokens`` (B, gen), ``prefill_logits`` (B, 1, V_padded), the
@@ -107,6 +123,11 @@ def generate(params: dict, prompts: torch.Tensor, cfg, gen: int, *,
         if frames is None:
             raise ValueError("the audio family serves frames: pass frames=")
         logits, pf = prefill(params, prompts, frames)
+    elif fam == "vlm":
+        if patches is None:
+            raise ValueError("the vlm family serves patch embeddings: pass "
+                             "patches=")
+        logits, pf = prefill(params, prompts, patches)
     else:
         logits, pf = prefill(params, prompts)
     if fam in ("ssm", "hybrid"):
@@ -116,8 +137,9 @@ def generate(params: dict, prompts: torch.Tensor, cfg, gen: int, *,
         caches["xk"], caches["xv"] = pf["xk"], pf["xv"]
     else:
         caches = init_kv_caches(cfg, B, S + gen, device=dev)
-        caches["k"][:, :, :S] = pf["k"]
-        caches["v"][:, :, :S] = pf["v"]
+        if fam != "vlm":   # the VLM's decode starts from the empty cache
+            caches["k"][:, :, :S] = pf["k"]
+            caches["v"][:, :, :S] = pf["v"]
     del pf
     _sync(dev)
     t1 = time.perf_counter()
@@ -148,30 +170,33 @@ def serve(arch: str, *, reduced: bool = True, batch: int = 4,
           prompt_len: int = 32, gen: int = 16, seed: int = 0,
           device: str | torch.device = "cuda") -> dict:
     """Serve ``batch`` random prompts of ``arch`` with random weights (both
-    from ``seed``; for the encoder–decoder random frames too, normal in
-    the activation type) through the kernels; returns ``generate``'s
-    results plus ``elapsed_s``, ``tok_per_s``, the ``cfg``, and the
-    ``params``, ``prompts`` and ``frames`` (None but for the
-    encoder–decoder) it served, so a caller can replay them on another
-    route."""
+    from ``seed``; for the encoder–decoder random frames too, for the VLM
+    8 random patch embeddings a request, normal in the activation type)
+    through the kernels; returns ``generate``'s results plus
+    ``elapsed_s``, ``tok_per_s``, the ``cfg``, and the ``params``,
+    ``prompts``, ``frames`` and ``patches`` (None but for their family)
+    it served, so a caller can replay them on another route."""
     dev = resolve_device(device)
     cfg = get_arch(arch)
     if reduced:
         cfg = cfg.reduced()
-    make_prefill_step(cfg)   # raises for a family that is not ported
     params = lm_module(cfg).init_lm(cfg, seed=seed, device=dev)
     draws = torch.Generator(device=dev).manual_seed(seed)
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                             device=dev, generator=draws)
-    frames = None
+    frames = patches = None
     if cfg.family == "audio":
         frames = torch.randn((batch, cfg.encoder.n_frames, cfg.d_model),
                              device=dev, generator=draws).to(act_dtype(cfg))
+    if cfg.family == "vlm":
+        patches = torch.randn((batch, VLM_PATCHES, cfg.d_model), device=dev,
+                              generator=draws).to(act_dtype(cfg))
     res = generate(params, prompts, cfg, gen, use_kernels=True,
-                   frames=frames)
+                   frames=frames, patches=patches)
     dt = res["prefill_s"] + res["decode_s"]
     res.update(elapsed_s=dt, tok_per_s=(batch * gen) / dt if gen else 0.0,
-               cfg=cfg, params=params, prompts=prompts, frames=frames)
+               cfg=cfg, params=params, prompts=prompts, frames=frames,
+               patches=patches)
     return res
 
 

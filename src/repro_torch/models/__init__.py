@@ -1,16 +1,15 @@
-"""The port's model zoo: the decoder-only transformer of the ``dense`` and
-``moe`` families (``transformer``), its layers and its MoE layer, RWKV-6
-of the ``ssm`` family (``rwkv6``), Zamba2 of the ``hybrid`` family
-(``zamba2``) and the Whisper-style encoder–decoder of the ``audio``
-family (``encdec``)."""
+"""The port's model zoo: the decoder-only transformer of the ``dense``,
+``moe`` and ``vlm`` families (``transformer``), its layers and its MoE
+layer, RWKV-6 of the ``ssm`` family (``rwkv6``), Zamba2 of the ``hybrid``
+family (``zamba2``) and the Whisper-style encoder–decoder of the
+``audio`` family (``encdec``)."""
 
 
 def lm_module(cfg):
     """The model module of ``cfg``'s family, with its ``param_specs``,
     ``flat_specs`` and ``init_lm`` (the family dispatch of the reference's
-    ``train/step.py:init_params``). Raises ``NotImplementedError`` for a
-    family that is not ported."""
-    if cfg.family in ("dense", "moe"):
+    ``train/step.py:init_params``)."""
+    if cfg.family in ("dense", "moe", "vlm"):
         from repro_torch.models import transformer
         return transformer
     if cfg.family == "ssm":
@@ -22,6 +21,4 @@ def lm_module(cfg):
     if cfg.family == "audio":
         from repro_torch.models import encdec
         return encdec
-    raise NotImplementedError(
-        f"repro_torch.models: the {cfg.family!r} family ({cfg.name}) is not "
-        f"ported yet (ROADMAP Queue 1, item 9(c))")
+    raise ValueError(cfg.family)

@@ -9,9 +9,9 @@ einsums. Routing follows the reference exactly:
   probabilities; a stable descending sort does the same (router logits are
   rounded to the activation type, so ties among 64 experts are common in
   bfloat16);
-* the dispatch sorts slots by expert with a stable argsort, counts them
-  with ``bincount``, keeps the first C of each expert and sends the rest to
-  the drop row E·C;
+* the dispatch sorts slots by expert with a stable argsort, finds each
+  expert's first slot with ``searchsorted``, keeps the first C of each
+  expert and sends the rest to the drop row E·C;
 * the combine adds each token's top_k weighted rows in ascending expert
   order, the order in which the reference's scatter-add meets them, one
   rounded add at a time, without atomics: the result does not depend on
@@ -66,8 +66,9 @@ def dispatch(expert_idx: torch.Tensor, C: int, n_experts: int):
     flat_e = expert_idx.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
     se = flat_e[order]
-    counts = torch.bincount(se, minlength=n_experts)
-    starts = torch.cumsum(counts, dim=0) - counts
+    # each expert's first sorted slot (a shape-static search, so the
+    # dispatch also runs on meta tensors for the dry run)
+    starts = torch.searchsorted(se, torch.arange(n_experts, device=se.device))
     pos_in_e = torch.arange(se.numel(), device=se.device) - starts[se]
     keep = pos_in_e < C
     dest = torch.where(keep, se * C + pos_in_e, n_experts * C)

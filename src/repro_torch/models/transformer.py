@@ -1,5 +1,5 @@
-"""Decoder-only transformer LM, ``dense`` and ``moe`` families (port of
-``repro.models.transformer``).
+"""Decoder-only transformer LM, ``dense``, ``moe`` and ``vlm`` families
+(port of ``repro.models.transformer``).
 
 Parameters are a nested dict of tensors laid out as the reference's: the
 per-layer leaves are STACKED on a leading L axis under ``"layers"``, and a
@@ -16,6 +16,12 @@ run the hand-written kernels, which have no backward (their wrappers
 refuse autograd there), so a training loss takes the plain route, as the
 reference's does. ``decode_step`` writes the KV cache IN PLACE at the
 write index; the reference returns an updated copy.
+
+The ``vlm`` family is this decoder with a prefix: ``forward`` and
+``loss_fn`` take ``prefix_embeds`` (B, P, D), precomputed patch
+embeddings (the reference's "ViT" is a stub that supplies them), cast to
+the activation type and prepended to the token embeddings; positions run
+over all P + S rows, and the loss drops the prefix's P rows.
 
 The losses: ``loss_fn`` (log-softmax of the float32 logits) and
 ``vocab_parallel_xent`` (the cross-entropy from the final hidden state
@@ -107,25 +113,21 @@ def _embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     return x
 
 
-def _unported_prefix() -> NotImplementedError:
-    return NotImplementedError(
-        "repro_torch.models.transformer: the VLM prefix (prefix_embeds) is "
-        "not ported yet (ROADMAP Queue 1, item 9(c))")
-
-
 def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
             prefix_embeds: Optional[torch.Tensor] = None,
             use_flash: bool = False, remat: str = "none",
-            return_hidden: bool = False,
+            return_hidden: bool = False, last_only: bool = False,
             use_moe_kernel: bool = False) -> torch.Tensor:
-    """Training/eval forward -> logits (B, S, V_padded), or with
-    ``return_hidden`` the final-normed hidden state (B, S, D). The default
-    is the plain route (``sdpa`` and einsum expert FFNs), as the
+    """Training/eval forward -> logits (B, P + S, V_padded), or with
+    ``return_hidden`` the final-normed hidden state (B, P + S, D); P is
+    the length of ``prefix_embeds`` (B, P, D), 0 without one.
+    ``last_only`` unembeds the last row alone (B, 1, V_padded). The
+    default is the plain route (``sdpa`` and einsum expert FFNs), as the
     reference's. remat: none | full | dots, the activation-checkpoint
     policy on each layer (``lm.remat_layer``)."""
-    if prefix_embeds is not None:
-        raise _unported_prefix()
     x = _embed(params, tokens, cfg)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
 
     def body(lp, x):
@@ -137,7 +139,7 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
         x = body(layer(params["layers"], i), x)
     if return_hidden:
         return L.apply_norm(params["final_norm"], x, cfg.norm_eps, cfg.norm)
-    return unembed(params, x, cfg)
+    return unembed(params, x[:, -1:] if last_only else x, cfg)
 
 
 def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
@@ -187,12 +189,14 @@ def loss_fn(params: dict, tokens: torch.Tensor, labels: torch.Tensor,
             cfg: ModelConfig, *, prefix_embeds=None, use_flash: bool = False,
             remat: str = "dots", use_moe_kernel: bool = False
             ) -> torch.Tensor:
-    """Mean next-token cross-entropy over (B, S), from the float32
-    log-softmax of the logits."""
-    if prefix_embeds is not None:
-        raise _unported_prefix()
-    logits = forward(params, tokens, cfg, use_flash=use_flash, remat=remat,
+    """Mean next-token cross-entropy over the S token rows (B, S), from
+    the float32 log-softmax of the logits; the rows of ``prefix_embeds``
+    carry no label."""
+    logits = forward(params, tokens, cfg, prefix_embeds=prefix_embeds,
+                     use_flash=use_flash, remat=remat,
                      use_moe_kernel=use_moe_kernel)
+    if prefix_embeds is not None:
+        logits = logits[:, prefix_embeds.shape[1]:]
     logp = torch.log_softmax(logits.float(), dim=-1)
     ll = torch.gather(logp, -1, labels[..., None].long())[..., 0]
     return -torch.mean(ll)

@@ -63,6 +63,21 @@ class NamedSharding:
     mesh: object
     spec: PartitionSpec
 
+    def shard_shape(self, global_shape) -> tuple[int, ...]:
+        """One device's local shape of a leaf of ``global_shape``: each
+        dimension divided by the extents of the axes that split it (as
+        ``jax.sharding.NamedSharding.shard_shape``; raises where an
+        extent does not divide the dimension)."""
+        out = []
+        for i, dim in enumerate(global_shape):
+            part = self.spec[i] if i < len(self.spec) else None
+            n = axis_size(self.mesh, part)
+            if dim % n:
+                raise ValueError(f"dimension {i} of {tuple(global_shape)} is "
+                                 f"not divisible by {n} ({self.spec})")
+            out.append(dim // n)
+        return tuple(out)
+
 
 def device_put(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
     """``x`` placed by ``sharding``: moved whole to the mesh's device when

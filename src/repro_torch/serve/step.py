@@ -1,10 +1,9 @@
 """Family-dispatched serving steps: prefill and single-token decode (port
 of ``repro.serve.step``).
 
-Ported: the ``dense`` and ``moe`` families (``models.transformer``), the
-``ssm`` family (``models.rwkv6``), the ``hybrid`` family
-(``models.zamba2``) and the ``audio`` family (``models.encdec``). The
-``vlm`` family raises ``NotImplementedError`` naming its ROADMAP item.
+Every family is ported: ``dense``, ``moe`` and ``vlm``
+(``models.transformer``), ``ssm`` (``models.rwkv6``), ``hybrid``
+(``models.zamba2``) and ``audio`` (``models.encdec``).
 
 The prefill of every family returns (last-position logits, decode state):
 the KV caches of the prompt for a transformer, the shift and WKV state
@@ -13,7 +12,10 @@ and shared-attention KV rings after the prompt (its prefill takes
 ``max_seq``, the length the rings are sized for; the reference's hybrid
 prefill returns the logits only and its serve steps the prompt through
 decode); for the encoder–decoder the cross K/V of the frames,
-``{"xk", "xv"}`` (its prefill takes ``frames``). A transformer's, Zamba2's
+``{"xk", "xv"}`` (its prefill takes ``frames``); for the VLM prefix
+nothing (``{}``): its prefill takes ``patch_embeds`` (B, P, D) and is
+``forward`` over the prefix and the prompt, as the reference's, whose
+decode starts from an empty cache. A transformer's, Zamba2's
 and the encoder–decoder's decode take ``(params, token, state, index)``,
 RWKV-6's ``(params, token, state)``, as in the reference.
 """
@@ -23,56 +25,52 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
-
-PORTED = ("dense", "moe", "ssm", "hybrid", "audio")
-
-
-def not_ported(cfg: ModelConfig) -> NotImplementedError:
-    return NotImplementedError(
-        f"repro_torch.serve: the {cfg.family!r} family ({cfg.name}) is not "
-        f"ported yet (ROADMAP Queue 1, item 9(c), the other families)")
+from repro_torch.models import lm_module
 
 
 def make_prefill_step(cfg: ModelConfig, *, use_kernels: bool = False):
     """``prefill(params, tokens)`` (Zamba2's: ``prefill(params, tokens,
     max_seq=None)``; the encoder–decoder's: ``prefill(params, tokens,
-    frames)``). ``use_kernels`` runs every hand-written kernel on the
-    family's prefill: flash attention and the grouped expert matmul for a
-    transformer, the WKV6 scan for RWKV-6, flash attention in Zamba2's
-    shared block and in every attention of the encoder–decoder (on CPU
-    tensors their plain versions)."""
-    if cfg.family not in PORTED:
-        raise not_ported(cfg)
+    frames)``; the VLM's: ``prefill(params, tokens, patch_embeds)``).
+    ``use_kernels`` runs every hand-written kernel on the family's
+    prefill: flash attention and the grouped expert matmul for a
+    transformer (every layer's attention over the P + S rows for the
+    VLM), the WKV6 scan for RWKV-6, flash attention in Zamba2's shared
+    block and in every attention of the encoder–decoder (on CPU tensors
+    their plain versions). An unknown family raises ``ValueError``."""
+    M = lm_module(cfg)
+    if cfg.family == "vlm":
+        def prefill(params, tokens, patch_embeds):
+            """``forward`` over the patches and the prompt, unembedding
+            the last row alone -> (its logits (B, 1, V_padded), {})."""
+            logits = M.forward(params, tokens, cfg,
+                               prefix_embeds=patch_embeds,
+                               use_flash=use_kernels, last_only=True)
+            return logits, {}
+        return prefill
     if cfg.family == "audio":
-        from repro_torch.models import encdec as E
-
         def prefill(params, tokens, frames):
             """Encode once; the decoder over the prompt (the reference's
             ``decode_train``) on those cross K/V -> (last-position
             logits, {"xk", "xv"})."""
-            enc = E.encode(params, frames, cfg, use_flash=use_kernels)
-            xk, xv = E.precompute_cross_kv(params, enc, cfg)
-            logits = E.decode_train(params, tokens, enc, cfg,
+            enc = M.encode(params, frames, cfg, use_flash=use_kernels)
+            xk, xv = M.precompute_cross_kv(params, enc, cfg)
+            logits = M.decode_train(params, tokens, enc, cfg,
                                     use_flash=use_kernels, cross_kv=(xk, xv))
             return logits[:, -1:], {"xk": xk, "xv": xv}
         return prefill
     if cfg.family == "hybrid":
-        from repro_torch.models import zamba2 as Z
-
         def prefill(params, tokens, max_seq=None):
-            return Z.prefill(params, tokens, cfg, max_seq=max_seq,
+            return M.prefill(params, tokens, cfg, max_seq=max_seq,
                              use_kernels=use_kernels)
         return prefill
     if cfg.family == "ssm":
-        from repro_torch.models import rwkv6 as R
-
         def prefill(params, tokens):
-            return R.prefill(params, tokens, cfg, use_kernel=use_kernels)
+            return M.prefill(params, tokens, cfg, use_kernel=use_kernels)
         return prefill
-    from repro_torch.models import transformer as T
 
     def prefill(params, tokens):
-        return T.prefill(params, tokens, cfg, use_flash=use_kernels,
+        return M.prefill(params, tokens, cfg, use_flash=use_kernels,
                          use_moe_kernel=use_kernels)
     return prefill
 
@@ -82,31 +80,20 @@ def make_decode_step(cfg: ModelConfig, *, use_kernels: bool = False):
     FFNs through the grouped matmul kernel; RWKV-6's and Zamba2's decode
     take the one-step recurrences and plain attention over the cache, the
     encoder–decoder's plain attention over its cache and cross K/V, which
-    have no kernel."""
-    if cfg.family not in PORTED:
-        raise not_ported(cfg)
-    if cfg.family == "audio":
-        from repro_torch.models import encdec as E
-
-        def decode(params, token, caches, index):
-            return E.decode_step(params, token, caches, index, cfg)
-        return decode
-    if cfg.family == "hybrid":
-        from repro_torch.models import zamba2 as Z
-
+    have no kernel; the VLM's is the transformer's. An unknown family
+    raises ``ValueError``."""
+    M = lm_module(cfg)
+    if cfg.family in ("audio", "hybrid"):
         def decode(params, token, state, index):
-            return Z.decode_step(params, token, state, index, cfg)
+            return M.decode_step(params, token, state, index, cfg)
         return decode
     if cfg.family == "ssm":
-        from repro_torch.models import rwkv6 as R
-
         def decode(params, token, state):
-            return R.decode_step(params, token, state, cfg)
+            return M.decode_step(params, token, state, cfg)
         return decode
-    from repro_torch.models import transformer as T
 
     def decode(params, token, caches, index):
-        return T.decode_step(params, token, caches, index, cfg,
+        return M.decode_step(params, token, caches, index, cfg,
                              use_moe_kernel=use_kernels)
     return decode
 

@@ -12,7 +12,8 @@ alone is 4 × 1025 × 151936 floats, drawn a block of rows at a time.
 The ``audio`` family's batches also carry ``frames``, the reference's
 ``normal(fold_in(PRNGKey(seed ^ 7), step), (B, n_frames, d_model))`` in
 the activation type (``prng.normal``: bitwise in bfloat16, within a few
-ULP in float32).
+ULP in float32); the ``vlm`` family's carry ``patch_embeds``, drawn the
+same way from ``PRNGKey(seed ^ 9)``.
 """
 
 from __future__ import annotations
@@ -51,12 +52,8 @@ def make_batch_fn(cfg: ModelConfig, shape: ShapeSpec, *, seed: int = 0,
                   batch_override: int | None = None,
                   device: str | torch.device = "cuda"):
     """``batch_fn(step) -> {"tokens", "labels"}`` on ``device``, and
-    ``"frames"`` (B, n_frames, d_model) for the ``audio`` family. The
-    ``vlm`` family's patch embeddings are not ported."""
-    if cfg.family == "vlm":
-        raise NotImplementedError(
-            f"repro_torch.train.data: the {cfg.family!r} family's inputs "
-            f"({cfg.name}) are not ported yet (ROADMAP Queue 1, item 9(c))")
+    ``"frames"`` (B, n_frames, d_model) for the ``audio`` family,
+    ``"patch_embeds"`` (B, n_frames, d_model) for the ``vlm`` family."""
     dev = resolve_device(device)
     B = batch_override or shape.global_batch
     S = shape.seq_len
@@ -65,9 +62,11 @@ def make_batch_fn(cfg: ModelConfig, shape: ShapeSpec, *, seed: int = 0,
         toks, labels = _gen(seed, step, batch=B, seq=S,
                             vocab=cfg.vocab_size, device=dev)
         batch = {"tokens": toks, "labels": labels}
-        if cfg.family == "audio":
-            key = prng.fold_in(prng.PRNGKey(seed ^ 7, dev), step)
-            batch["frames"] = prng.normal(
+        extra = {"audio": ("frames", 7), "vlm": ("patch_embeds", 9)}
+        if cfg.family in extra:
+            name, salt = extra[cfg.family]
+            key = prng.fold_in(prng.PRNGKey(seed ^ salt, dev), step)
+            batch[name] = prng.normal(
                 key, (B, cfg.encoder.n_frames, cfg.d_model),
                 dtype=act_dtype(cfg))
         return batch

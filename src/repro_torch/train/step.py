@@ -29,12 +29,6 @@ from repro_torch.models import lm, lm_module
 from repro_torch.train import optimizer as OPT
 
 
-def _unported(fam: str, cfg: ModelConfig) -> NotImplementedError:
-    return NotImplementedError(
-        f"repro_torch.train.step: training the {fam!r} family ({cfg.name}) "
-        f"is not ported yet (ROADMAP Queue 1, item 9(c))")
-
-
 def params_at_use(params: dict, cfg: ModelConfig) -> dict:
     """Each leaf in the type the layers use it in: float32 for the leaves
     the reference keeps in float32 (norm scales and biases, RWKV-6's mix
@@ -54,16 +48,15 @@ def model_loss(params, batch: dict, cfg: ModelConfig, *, remat: str = "dots",
                use_kernel: bool = False,
                vocab_parallel: bool = False) -> torch.Tensor:
     """The mean next-token cross-entropy of ``batch`` ({"tokens",
-    "labels"}, and "frames" for the ``audio`` family).
+    "labels"}, and "frames" for the ``audio`` family, "patch_embeds"
+    for the ``vlm`` family, whose prefix rows carry no label).
     ``use_flash``/``use_moe_kernel`` reach the transformer's attention and
     expert FFNs (``use_flash`` also Zamba2's shared attention and every
     attention of the encoder–decoder), ``use_kernel`` RWKV-6's WKV scan:
     the kernels on CUDA tensors (no autograd there), their plain versions
     on CPU tensors."""
     fam = cfg.family
-    if fam not in ("dense", "moe", "ssm", "hybrid", "audio"):
-        raise _unported(fam, cfg)
-    p = params_at_use(params, cfg)
+    p = params_at_use(params, cfg)   # an unknown family raises here
     if fam == "audio":
         from repro_torch.models import encdec as E
         logits = E.forward(p, batch["tokens"], batch["frames"], cfg,
@@ -80,6 +73,11 @@ def model_loss(params, batch: dict, cfg: ModelConfig, *, remat: str = "dots",
                            use_kernel=use_kernel)
         return _xent(logits, batch["labels"], cfg)
     from repro_torch.models import transformer as T
+    if fam == "vlm":
+        return T.loss_fn(p, batch["tokens"], batch["labels"], cfg,
+                         prefix_embeds=batch["patch_embeds"],
+                         use_flash=use_flash, remat=remat,
+                         use_moe_kernel=use_moe_kernel)
     if vocab_parallel:
         hidden = T.forward(p, batch["tokens"], cfg, use_flash=use_flash,
                            remat=remat, return_hidden=True,

@@ -1566,3 +1566,124 @@ def test_audio_frames_on_the_card_equal_the_cpu_route(cuda_device, dtype):
     assert got["frames"].shape == (4, 1500, 384)
     for k in want:
         assert torch.equal(got[k].cpu(), want[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1032, 2048])
+def test_flash_attention_kernel_at_pixtral_shapes(cuda_device, s):
+    """pixtral-12b's prefill attention (bfloat16, 32 heads of 128, the KV
+    heads expanded, causal, the tensor-core design) at the served route's
+    8 patches and 1024 prompt tokens (1032 = 16 × 64 + 8: a ragged last
+    tile) and at the config's 1024 patches and 1024 tokens."""
+    q = _randn((4, s, 32, 128), 0, cuda_device, torch.bfloat16)
+    k, v = (_randn((4, s, 32, 128), i, cuda_device, torch.bfloat16)
+            for i in (1, 2))
+    before = flash_ops.DESIGN_LAUNCHES["wgmma"]
+    got = flash_ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_ops.DESIGN_LAUNCHES["wgmma"] == before + 1
+    want = flash_ref.attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=FLASH_ATOL[torch.bfloat16], rtol=0)
+    _assert_rel_close(got, want, FLASH_REL)
+
+
+def _pixtral_cut(dtype: str, layers: int = 2):
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+
+    return dataclasses.replace(ARCHS["pixtral-12b"], dtype=dtype,
+                               n_layers=layers)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_vlm_prefill_through_flash_matches_its_twin_on_the_card(
+        cuda_device, dtype):
+    """pixtral-12b at published width, 2 layers, 8 patches and a 56-token
+    prompt: the prefill through the flash kernel (one launch a layer, over
+    all 64 rows) against the same route with flash swapped for its plain
+    version, and the plain route on the CPU."""
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.lm import act_dtype
+    from repro_torch.serve import step as tstep
+    from repro_torch.train import optimizer as TO
+
+    cfg = _pixtral_cut(dtype)
+    params = TT.init_lm(cfg, seed=0, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (2, 56), device=cuda_device,
+                         generator=gen)
+    patches = torch.randn((2, 8, cfg.d_model), device=cuda_device,
+                          generator=gen).to(act_dtype(cfg))
+    prefill = tstep.make_prefill_step(cfg, use_kernels=True)
+    before = flash_ops.KERNEL_LAUNCHES["flash_attention"]
+    got, _ = prefill(params, toks, patches)
+    assert flash_ops.KERNEL_LAUNCHES["flash_attention"] - before == 2
+    kernel = flash_ops.flash_attention
+    flash_ops.flash_attention = flash_ref.attention_ref
+    try:
+        want, _ = prefill(params, toks, patches)
+    finally:
+        flash_ops.flash_attention = kernel
+    atol = 1e-4 if dtype == "float32" else 6e-2
+    scale = float(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), atol=atol * scale,
+                               rtol=0)
+    cpu = TO.tree_map(lambda x: x.cpu(), params)
+    on_cpu, _ = tstep.make_prefill_step(cfg)(cpu, toks.cpu(), patches.cpu())
+    torch.testing.assert_close(got.float().cpu(), on_cpu.float(),
+                               atol=atol * scale, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_vlm_patch_embeds_on_the_card_equal_the_cpu_route(cuda_device,
+                                                          dtype):
+    """The ``vlm`` batches' patch embeddings drawn on the card bitwise the
+    CPU route's, with the tokens and labels, at pixtral-12b's 1024
+    patches of width 5120."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.train.data import make_batch_fn
+
+    cfg = _pixtral_cut(dtype)
+    shape = ShapeSpec("t", 32, 2, "train")
+    got = make_batch_fn(cfg, shape, seed=3, device=cuda_device)(5)
+    want = make_batch_fn(cfg, shape, seed=3, device="cpu")(5)
+    assert got["patch_embeds"].shape == (2, 1024, 5120)
+    for k in want:
+        assert torch.equal(got[k].cpu(), want[k]), k
+
+
+@pytest.mark.cuda
+def test_xla_f32_on_the_card_equals_the_cpu(cuda_device):
+    """``core.xla_f32``'s exp, log, sum and logsumexp on the card bit for
+    bit the CPU's (which tests/test_torch_xla_f32.py holds to jax's), on
+    the estimator's ranges, every 32-bit pattern's kind and edge cases."""
+    from repro_torch.core import xla_f32
+
+    gen = torch.Generator().manual_seed(0)
+    n = 1 << 20
+    draws = {
+        "exp": torch.cat([torch.rand(n, generator=gen) * 88.0 - 87.0,
+                          torch.rand(n, generator=gen) * 210.0 - 110.0]),
+        "log": torch.exp(torch.rand(n, generator=gen) * 24.0 - 10.0),
+        "bits": torch.randint(-2 ** 31, 2 ** 31, (n,), generator=gen,
+                              dtype=torch.int64).to(torch.int32).view(
+                                  torch.float32),
+        "edges": torch.tensor([0.0, -0.0, 1e-40, -1e-40, 1.17549435e-38,
+                               -87.8, -87.34, 88.72, 88.8, 1.0, 53.0,
+                               float("inf"), float("-inf"), float("nan")]),
+    }
+    for name, x in draws.items():
+        for fn in (xla_f32.exp, xla_f32.log):
+            got, want = fn(x.to(cuda_device)).cpu(), fn(x)
+            same = (got.view(torch.int32) == want.view(torch.int32)) | (
+                torch.isnan(got) & torch.isnan(want))
+            assert bool(same.all()), (name, fn.__name__)
+    rows = torch.randn((4096, 53), generator=gen) * 10.0
+    rows[:, 3] = rows[:, 5]
+    for fn in (lambda t: xla_f32.sum(xla_f32.exp(t), -1),
+               lambda t: xla_f32.logsumexp(t, -1, keepdim=True)):
+        assert torch.equal(fn(rows.to(cuda_device)).cpu(), fn(rows))

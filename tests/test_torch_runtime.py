@@ -244,13 +244,16 @@ def test_reshard_plan_counts_bfloat16_bytes():
 
 def test_unported_placements_raise_naming_their_items():
     """Placing a leaf that the production mesh's axes split needs
-    parameters split across cards (item 11); the production mesh itself
-    waits for the dry run (item 10). The shardings themselves are built."""
+    parameters split across cards (item 11). The shardings themselves are
+    built, and the production mesh is (item 10, the dry run's meta
+    devices): placing on it raises the same way."""
     rules = ShardingRules(FakeMesh({"data": 16, "model": 16}))
     params = {"layers": {"mlp": {"w_up": torch.zeros((2, 32, 64))}}}
     sh = rules.tree_shardings(params)["layers"]["mlp"]["w_up"]
     assert sh.spec == rules.spec_for("layers/mlp/w_up", (2, 32, 64))
     with pytest.raises(NotImplementedError, match="item 11"):
         telastic.apply_resize(params, None, rules)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tmesh.make_production_mesh()
+    mesh = tmesh.make_production_mesh()
+    assert mesh.shape == {"data": 16, "model": 16}
+    with pytest.raises(NotImplementedError, match="item 11"):
+        telastic.apply_resize(params, None, ShardingRules(mesh))

@@ -189,9 +189,17 @@ def test_serve_on_cpu_and_unported_families():
         again = tserve.serve(arch, batch=2, prompt_len=prompt_len, gen=4,
                              device="cpu")
         assert torch.equal(res["tokens"], again["tokens"])   # from the seed
-    for arch in ("pixtral-12b",):
-        cfg = TARCHS[arch].reduced()
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tstep.make_prefill_step(cfg)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tserve.serve(arch, device="cpu")
+    # the vlm family, the last unported one until its slice, now serves
+    # (tests/test_torch_vlm.py holds it against the reference); an unknown
+    # family is refused
+    res = tserve.serve("pixtral-12b", batch=2, prompt_len=8, gen=4,
+                       device="cpu")
+    assert res["tokens"].shape == (2, 4)
+    assert res["prefill_logits"].shape == (2, 1,
+                                           TT.padded_vocab(res["cfg"]))
+    cfg = dataclasses.replace(TARCHS["pixtral-12b"].reduced(),
+                              family="unknown")
+    with pytest.raises(ValueError, match="unknown"):
+        tstep.make_prefill_step(cfg)
+    with pytest.raises(ValueError, match="unknown"):
+        tstep.make_decode_step(cfg)

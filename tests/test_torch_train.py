@@ -34,8 +34,8 @@
 * The reference's contracts rerun on the port: the six of
   ``tests/test_optimizer_data.py`` that are not about sharding rules
   (``tests/test_torch_runtime.py`` holds that one), and
-  ``tests/test_models_smoke.py``'s ``test_reduced_train_step`` for the
-  nine ``dense``/``moe``/``ssm``/``hybrid``/``audio`` archs and
+  ``tests/test_models_smoke.py``'s ``test_reduced_train_step`` for every
+  arch of the registry (the ``vlm`` family's pixtral-12b included) and
   ``test_vocab_parallel_xent_matches_naive``.
 """
 
@@ -74,9 +74,7 @@ torch.set_num_threads(1)   # small tensors: threads only contend
 
 MODELS = ("qwen2-0.5b", "moonshot-v1-16b-a3b", "rwkv6-3b", "zamba2-1.2b",
           "whisper-tiny")
-TRAIN_ARCHS = sorted(n for n, c in ARCHS.items()
-                     if c.family in ("dense", "moe", "ssm", "hybrid",
-                                       "audio"))
+TRAIN_ARCHS = sorted(ARCHS)
 CPU = torch.device("cpu")
 
 
@@ -265,26 +263,22 @@ def test_batches_bitwise_equal_to_reference(seed, monkeypatch):
 
 
 def test_unported_families_raise():
-    for arch in ("pixtral-12b",):
-        with pytest.raises(NotImplementedError, match=r"9\(c\)"):
-            TD.make_batch_fn(ARCHS[arch].reduced(),
-                             ShapeSpec("t", 8, 2, "train"), device="cpu")
-        with pytest.raises(NotImplementedError, match=r"9\(c\)"):
-            TS.model_loss({}, {}, ARCHS[arch].reduced())
-    # the hybrid family trains on the CPU
-    cfg = ARCHS["zamba2-1.2b"].reduced()
-    params = TO.tree_map(lambda x: x.float(),
-                         TS.init_params(cfg, seed=0, device="cpu"))
-    batch = TD.make_batch_fn(cfg, ShapeSpec("t", 32, 2, "train"),
-                             device="cpu")(0)
-    opt = TO.init(params)
-    params, opt, m = TS.make_train_step(cfg, remat="none")(params, opt,
-                                                           batch)
-    assert math.isfinite(float(m["loss"])) and int(opt.step) == 1
-    jcfg, tcfg, _, tp = _both_params("qwen2-0.5b")
-    with pytest.raises(NotImplementedError, match=r"9\(c\)"):
-        TT.forward(tp, torch.zeros((1, 4), dtype=torch.int32), tcfg,
-                   prefix_embeds=torch.zeros((1, 2, tcfg.d_model)))
+    """Every family trains now: the hybrid and the vlm family (the last
+    one ported) take a step on the CPU, and an unknown family is
+    refused."""
+    for arch in ("zamba2-1.2b", "pixtral-12b"):
+        cfg = ARCHS[arch].reduced()
+        params = TO.tree_map(lambda x: x.float(),
+                             TS.init_params(cfg, seed=0, device="cpu"))
+        batch = TD.make_batch_fn(cfg, ShapeSpec("t", 32, 2, "train"),
+                                 device="cpu")(0)
+        opt = TO.init(params)
+        params, opt, m = TS.make_train_step(cfg, remat="none")(params, opt,
+                                                               batch)
+        assert math.isfinite(float(m["loss"])) and int(opt.step) == 1
+    with pytest.raises(ValueError, match="unknown"):
+        TS.model_loss({}, {}, dataclasses.replace(
+            ARCHS["pixtral-12b"].reduced(), family="unknown"))
 
 
 # ---------------------------------------------------------------- losses
