@@ -3495,7 +3495,7 @@ def train_restart(dev, arch: str = TRAIN_ARCH,
     run = dict(reduced=False, batch=batch, seq=TRAIN_SEQ, log_every=1,
                device=str(dev))
     cfg = ARCHS[arch]
-    if layers:
+    if layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=layers)
     cut = dict(ARCHS, **{arch: cfg})
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
@@ -4213,11 +4213,14 @@ def audio_on_card(dev) -> dict:
 # cut to 4 layers (2.43 G parameters: 39 GB of float32 parameters,
 # gradients, m and v), batch 2, 1024 patches and 1024 tokens, through
 # kernel_route_loss as phase 17(b); then launch.train restarted from its
-# step-2 checkpoint at VLM_RESTART_LAYERS layer: the untied embedding and
+# step-2 checkpoint at VLM_RESTART_LAYERS layers: the untied embedding and
 # head alone are 1.34 G parameters, a 16 GB checkpoint of parameters, m
-# and v at any depth, so the restart keeps one layer and writes its
-# checkpoint with zlib's stored blocks (level 0) to keep the smoke's
-# time. (e) The batches' patch embeddings on the card against the CPU
+# and v at any depth, so the restart keeps none of the 40 layers (one
+# until the split-mesh phase came: its 3.3 GB of the checkpoint, about
+# 15 s of the smoke's time; the layers are qwen2's, restarted in phase
+# 17(a)) and writes its checkpoint with zlib's stored blocks (level 0).
+# The restart still runs the VLM route: the patch embeddings of each
+# step's batch prepended, the loss over the token rows. (e) The batches' patch embeddings on the card against the CPU
 # route, bitwise, in bfloat16 and float32. (f) core.xla_f32 over
 # XLA_F32_N inputs on the card against the CPU, bitwise. (g) The dry
 # run's plan of qwen2-0.5b's train_4k on a (1, 1) mesh at a batch of
@@ -4230,7 +4233,7 @@ VLM_PREFILL = ("pixtral-12b", 4, 1024, 1024)     # batch, patches, prompt
 VLM_F32 = ("pixtral-12b", 4, 1024, 8, 4)         # batch, prompt, gen, depth
 VLM_F32_TOL = AUDIO_F32_TOL
 VLM_TRAIN = ("pixtral-12b", 4, 2)
-VLM_RESTART_LAYERS = 1
+VLM_RESTART_LAYERS = 0
 TIMED_TRAIN_ARCHS = (TRAIN_ARCH, HYBRID_TRAIN[0], AUDIO_TRAIN[0],
                      VLM_TRAIN[0])
 XLA_F32_N = 10 ** 7
@@ -4498,7 +4501,7 @@ def vlm_on_card(dev) -> dict:
     print(f"train/vlm/cut: {layers} of 40 layers at published width (the "
           f"float32 parameters, gradients, m and v of 40 layers, about 195 "
           f"GB, do not fit one card); the restart at {VLM_RESTART_LAYERS} "
-          f"layer (the untied embedding and head make a 16 GB checkpoint "
+          f"layers (the untied embedding and head make a 16 GB checkpoint "
           f"at any depth)")
     launches = kernel_route_loss(arch, layers, batch, dev)
     torch.cuda.empty_cache()
@@ -4516,6 +4519,264 @@ def vlm_on_card(dev) -> dict:
           f"c_f32={t3 - t2:.3f} d={t4 - t3:.3f} e={t5 - t4:.3f} "
           f"f={t6 - t5:.3f} g={t7 - t6:.3f}")
     return dict(served=served, train=launches, flash_row=row)
+
+
+# phase 21: training with parameters split over a (data, model) mesh of
+# the one card (a DeviceMesh whose positions all repeat cuda:0, as
+# ScenariosMesh repeats a device in phase 16; train.step's split route). (a)
+# XLA's float32 log1p (core.xla_f32.log1p) on the card against the CPU
+# over every SHARDED_LOG1P_STRIDE-th float32 bit pattern (2^24 inputs),
+# and a normal and an exponential draw of SHARDED_DRAWS, bitwise.
+SHARDED_LOG1P_STRIDE = 256
+SHARDED_DRAWS = 1 << 20
+# (b) qwen2-0.5b at published width and depth, phase 17's batch: 3 steps
+# on a (2, 2) mesh against 3 steps of make_train_step(accum=2) on the
+# unsplit card route, from the same weights and batches (drawn once),
+# bitwise (losses, grad norms, then every parameter, m and v); (c) a
+# (1, 2) mesh against the unsplit step, 2 steps, bitwise.
+SHARDED_STEPS = 3
+# (d) launch.train at published width cut to SHARDED_RESTART_LAYERS
+# layers, saved on (2, 2) at step 2 (zlib level 0), resumed onto (4, 1)
+# and onto (1, 1) for 2 more steps, each continuation's losses bitwise
+# the accum=4 / accum=1 steps from the same checkpoint; (e) apply_resize
+# (2, 2) -> (4, 1) of that state, every shard bitwise.
+SHARDED_RESTART_LAYERS = 2
+
+
+def card_mesh(dev, data: int, model: int):
+    from repro_torch.launch.mesh import DeviceMesh
+
+    grid = np.empty((data, model), dtype=object)
+    grid.fill(torch.device(dev))
+    return DeviceMesh(grid, ("data", "model"))
+
+
+def log1p_card_vs_cpu(dev) -> None:
+    """Phase 21(a)."""
+    from repro_torch.core import prng, xla_f32
+
+    x = torch.from_numpy(np.arange(0, 1 << 32, SHARDED_LOG1P_STRIDE,
+                                   dtype=np.uint64).astype(np.uint32)
+                         .view(np.float32))
+    t0 = time.perf_counter()
+    got = xla_f32.log1p(x.to(dev))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    want = xla_f32.log1p(x)
+    t2 = time.perf_counter()
+    got = got.cpu()
+    same = (got.view(torch.int32) == want.view(torch.int32)) | (
+        torch.isnan(got) & torch.isnan(want))
+    print(f"xla_f32/log1p: inputs={x.numel()} (every "
+          f"{SHARDED_LOG1P_STRIDE}th bit pattern) bitwise_equal_cpu="
+          f"{bool(same.all())} card_s={t1 - t0:.3f} cpu_s={t2 - t1:.3f}")
+    check(bool(same.all()), f"xla_f32/log1p: {int((~same).sum())} results "
+          f"differ between the card and the CPU")
+    for draw in (prng.normal, prng.exponential):
+        key = prng.PRNGKey(29)
+        t0 = time.perf_counter()
+        got = draw(key.to(dev), (SHARDED_DRAWS,))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        want = draw(key, (SHARDED_DRAWS,))
+        t2 = time.perf_counter()
+        equal = torch.equal(got.cpu(), want)
+        print(f"prng/{draw.__name__}: draws={SHARDED_DRAWS} "
+              f"bitwise_equal_cpu={equal} card_s={t1 - t0:.3f} "
+              f"cpu_s={t2 - t1:.3f}")
+        check(equal, f"prng/{draw.__name__}: the card's draw differs from "
+              f"the CPU's")
+
+
+def _timed_steps(step, params, opt, batches) -> tuple:
+    """The steps over ``batches``: (params, opt, [loss], [grad norm],
+    [seconds], peak bytes)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, secs = [], [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(m["loss"])
+        norms.append(m["grad_norm"])
+    return params, opt, losses, norms, secs, torch.cuda.max_memory_allocated()
+
+
+def _trees_equal(got, want) -> bool:
+    from repro_torch.parallel.sharding import gather_tree
+    from repro_torch.train import optimizer as OPT
+
+    return all(torch.equal(a, b) for a, b in zip(
+        OPT.leaves(gather_tree(got)), OPT.leaves(want)))
+
+
+def split_steps(dev) -> None:
+    """Phase 21(b) and (c)."""
+    from repro_torch.configs import ARCHS, ShapeSpec
+    from repro_torch.parallel.sharding import (ShardedTensor, ShardingRules,
+                                               place)
+    from repro_torch.train import optimizer as OPT
+    from repro_torch.train import step as TS
+    from repro_torch.train.data import make_batch_fn
+
+    cfg = ARCHS[TRAIN_ARCH]
+    base = OPT.tree_map(lambda p: p.float(),
+                        TS.init_params(cfg, seed=0, device=dev))
+    t0 = time.perf_counter()
+    batch_fn = make_batch_fn(cfg, ShapeSpec("smoke", TRAIN_SEQ, TRAIN_BATCH,
+                                            "train"), seed=0, device=dev)
+    batches = [batch_fn(i) for i in range(SHARDED_STEPS)]
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    for (data, model), n in (((2, 2), SHARDED_STEPS), ((1, 2), 2)):
+        tag = f"train/split_{data}x{model}"
+        p = OPT.tree_map(lambda x: x.clone(), base)
+        o = OPT.init(p)
+        ref = _timed_steps(TS.make_train_step(cfg, accum=data, remat="none"),
+                           p, o, batches[:n])
+        mesh = card_mesh(dev, data, model)
+        sp = place(OPT.tree_map(lambda x: x.clone(), base),
+                   ShardingRules(mesh).tree_shardings(base))
+        so = OPT.init(sp)
+        split = sum(isinstance(x, ShardedTensor) for x in OPT.leaves(sp))
+        got = _timed_steps(TS.make_train_step(cfg, remat="none"),
+                           sp, so, batches[:n])
+        losses = [float(x) for x in got[2]]
+        check(all(torch.equal(a, b) for a, b in zip(got[2], ref[2]))
+              and all(torch.equal(a, b) for a, b in zip(got[3], ref[3])),
+              f"{tag}: losses {losses} or grad norms differ from the "
+              f"accum={data} route's {[float(x) for x in ref[2]]}")
+        equal = [_trees_equal(g, r) for g, r in ((got[0], ref[0]),
+                                                 (got[1].m, ref[1].m),
+                                                 (got[1].v, ref[1].v))]
+        check(all(equal), f"{tag}: parameters, m, v equal {equal} to the "
+              f"accum={data} route's after {n} steps")
+        print(f"{tag}: arch={TRAIN_ARCH} layers={cfg.n_layers} "
+              f"batch={TRAIN_BATCH} seq={TRAIN_SEQ} steps={n} "
+              f"split_leaves={split} of {len(OPT.leaves(sp))} "
+              f"losses={losses} bitwise_accum_{data}=True "
+              f"step_s={[round(t, 6) for t in got[4]]} "
+              f"accum_step_s={[round(t, 6) for t in ref[4]]} "
+              f"peak_mem_bytes={got[5]} accum_peak_mem_bytes={ref[5]} "
+              f"data_s={data_s:.3f}")
+        del p, o, ref, sp, so, got
+        torch.cuda.empty_cache()
+
+
+def elastic_restart(dev) -> None:
+    """Phase 21(d) and (e)."""
+    import shutil
+    import tempfile
+    from functools import partial
+
+    from repro_torch.configs import ARCHS, ShapeSpec
+    from repro_torch.launch import train as launch_train
+    from repro_torch.parallel.sharding import (ShardedTensor, ShardingRules,
+                                               place)
+    from repro_torch.runtime import checkpoint as ckpt
+    from repro_torch.runtime.elastic import apply_resize
+    from repro_torch.train import optimizer as OPT
+    from repro_torch.train import step as TS
+    from repro_torch.train.data import make_batch_fn
+
+    cfg = dataclasses.replace(ARCHS[TRAIN_ARCH],
+                              n_layers=SHARDED_RESTART_LAYERS)
+    run = dict(reduced=False, batch=TRAIN_BATCH, seq=TRAIN_SEQ, log_every=1,
+               device=str(dev))
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_split_"))
+    try:
+        with patched((launch_train, "ARCHS",
+                      dict(ARCHS, **{TRAIN_ARCH: cfg})),
+                     (ckpt, "save_async", partial(ckpt.save_async,
+                                                  level=0))):
+            t0 = time.perf_counter()
+            first = launch_train.train(TRAIN_ARCH, steps=2,
+                                       ckpt_dir=str(tmp / "a"),
+                                       ckpt_every=2,
+                                       mesh=card_mesh(dev, 2, 2), **run)
+            save_s = time.perf_counter() - t0
+            ckpt_bytes = sum(f.stat().st_size
+                             for f in (tmp / "a" / "step_2").iterdir())
+            p = OPT.tree_map(lambda x: x.float(),
+                             TS.init_params(cfg, device=dev))
+            o = OPT.init(p)
+            state = ckpt.restore({"params": p, "m": o.m, "v": o.v,
+                                  "step": o.step}, tmp / "a", 2, device=dev)
+            batch_fn = make_batch_fn(cfg, ShapeSpec("custom", TRAIN_SEQ,
+                                                    TRAIN_BATCH, "train"),
+                                     seed=0, device=dev)
+            batches = [batch_fn(s) for s in (2, 3)]
+            for (data, model), accum in (((4, 1), 4), ((1, 1), 1)):
+                tag = f"train/elastic_2x2_to_{data}x{model}"
+                d = tmp / f"{data}x{model}"
+                d.mkdir()
+                shutil.copytree(tmp / "a" / "step_2", d / "step_2")
+                t0 = time.perf_counter()
+                got = launch_train.train(TRAIN_ARCH, steps=4,
+                                         ckpt_dir=str(d), ckpt_every=100,
+                                         mesh=card_mesh(dev, data, model),
+                                         **run)
+                resume_s = time.perf_counter() - t0
+                rp = OPT.tree_map(lambda x: x.clone(), state["params"])
+                ro = OPT.AdamWState(state["step"].clone(),
+                                    OPT.tree_map(lambda x: x.clone(),
+                                                 state["m"]),
+                                    OPT.tree_map(lambda x: x.clone(),
+                                                 state["v"]))
+                step = TS.make_train_step(cfg, accum=accum, remat="none")
+                want = []
+                for s, b in zip((2, 3), batches):
+                    rp, ro, m = step(rp, ro, b)
+                    want.append((s, float(m["loss"])))
+                check(got["losses"] == want,
+                      f"{tag}: the continuation's losses {got['losses']} "
+                      f"differ from the accum={accum} steps' {want}")
+                print(f"{tag}: layers={cfg.n_layers} batch={TRAIN_BATCH} "
+                      f"seq={TRAIN_SEQ} first_losses={first['losses']} "
+                      f"losses={got['losses']} bitwise_accum_{accum}=True "
+                      f"resume_s={resume_s:.3f} save_run_s={save_s:.3f} "
+                      f"checkpoint_bytes={ckpt_bytes}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # (e) the restored state moved from (2, 2) to (4, 1)
+    old, new = card_mesh(dev, 2, 2), card_mesh(dev, 4, 1)
+    tree = {"params": state["params"], "m": state["m"], "v": state["v"]}
+    placed = place(tree, ShardingRules(old).tree_shardings(tree))
+    t0 = time.perf_counter()
+    moved = apply_resize(placed, new, ShardingRules(new))
+    torch.cuda.synchronize()
+    resize_s = time.perf_counter() - t0
+    n_split = n_shards = 0
+    for x, whole in zip(OPT.leaves(moved), OPT.leaves(tree)):
+        if isinstance(x, ShardedTensor):
+            n_split += 1
+            n_shards += len(x.shards)
+            check(x.sharding.mesh is new and all(
+                torch.equal(s, whole[i]) for i, s in zip(x.indices,
+                                                          x.shards)),
+                  "train/apply_resize: a shard differs from its block")
+        else:
+            check(torch.equal(x, whole),
+                  "train/apply_resize: an unsplit leaf differs")
+    print(f"train/apply_resize: (2, 2) -> (4, 1) leaves="
+          f"{len(OPT.leaves(moved))} split={n_split} shards={n_shards} "
+          f"bitwise=True resize_s={resize_s:.3f}")
+
+
+def sharded_training_on_card(dev) -> None:
+    """Phase 21, (a)-(e), each part's seconds printed."""
+    t0 = time.perf_counter()
+    log1p_card_vs_cpu(dev)
+    t1 = time.perf_counter()
+    split_steps(dev)
+    t2 = time.perf_counter()
+    elastic_restart(dev)
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    print(f"phase21/seconds: a={t1 - t0:.3f} b_c={t2 - t1:.3f} "
+          f"d_e={t3 - t2:.3f}")
 
 
 class Phases:
@@ -4701,6 +4962,12 @@ def main() -> None:
     train_paths["flash_attention"]["train/vlm_kernel_loss"] = \
         vlm["train"]["flash_attention"]
     phases.done("20_vlm")
+
+    # phase 21: training with parameters split over a (data, model) mesh
+    # of the card, bitwise the accumulating one-device step; an elastic
+    # restart onto other meshes; XLA's float32 log1p on the card
+    sharded_training_on_card(dev)
+    phases.done("21_train_split")
     scan_paths["sweep/full"] = full["launches"]["freed_scan"]
     entry.update(launches=sum(scan_paths.values()),
                  launches_by_path=scan_paths)

@@ -19,12 +19,12 @@ int64 masked to 32 bits, which every torch backend supports (torch's
 uint32 support is partial). Leading key dimensions batch: a ``(B, 2)``
 key gives ``(B, *shape)`` draws, one independent stream per row.
 
-``uniform`` and ``categorical`` are bitwise equal to the reference for
-the same key, ``uniform`` in float32 and bfloat16. ``normal`` takes
-XLA's float32 ``erf_inv`` polynomial (``erfinv_f32``): bitwise in
-bfloat16, within 3 ULP in float32 (measured). ``exponential`` (via
-``log1p``) agrees to a ULP: the transcendental functions of the two
-frameworks round differently in the last bits.
+``uniform``, ``normal``, ``exponential`` and ``categorical`` are bitwise
+equal to the reference for the same key, ``uniform`` and ``normal`` in
+float32 and bfloat16: ``normal`` takes XLA's float32 ``erf_inv``
+polynomial (``erfinv_f32``) and ``exponential`` XLA's float32 ``log1p``
+(``core.xla_f32.log1p``), each multiply-add rounded once as XLA's CPU
+backend rounds it.
 """
 
 from __future__ import annotations
@@ -33,6 +33,8 @@ import math
 
 import numpy as np
 import torch
+
+from repro_torch.core import xla_f32
 
 M32 = 0xFFFFFFFF
 _KS_PARITY = 0x1BD11BDA
@@ -168,22 +170,21 @@ _ERFINV_W_GE_5 = (-0.000200214257, 0.000100950558, 0.00134934322,
 
 
 def erfinv_f32(x: torch.Tensor) -> torch.Tensor:
-    """erfinv of a float32 tensor by XLA's algorithm, within 2 ULP of
+    """erfinv of a float32 tensor by XLA's algorithm, bit for bit
     ``jax.lax.erf_inv`` on every float32 input ``normal`` can give it
-    (``torch.erfinv`` is up to 65 ULP away). The Horner steps are fused
-    multiply-adds as XLA contracts them (float64 product and sum, one
-    rounding); log1p and sqrt are taken in float64 and rounded once, so
-    the CPU and CUDA routes give the same bits."""
-    w = -torch.log1p((-(x * x)).double()).float()
+    (``torch.erfinv`` is up to 65 ULP away): ``w = -log1p(-x·x)`` by
+    XLA's float32 ``log1p`` (``core.xla_f32.log1p``), the Horner steps
+    fused multiply-adds as XLA contracts them (``xla_f32.fma``, one
+    rounding), sqrt correctly rounded; the CPU and CUDA routes give the
+    same bits."""
+    w = -xla_f32.log1p(-(x * x))
     lt = w < 5.0
     z = torch.where(lt, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
-    zd = z.double()
     c_lt = torch.tensor(_ERFINV_W_LT_5, dtype=torch.float32, device=x.device)
     c_ge = torch.tensor(_ERFINV_W_GE_5, dtype=torch.float32, device=x.device)
     p = torch.where(lt, c_lt[0], c_ge[0])
     for i in range(1, len(_ERFINV_W_LT_5)):
-        c = torch.where(lt, c_lt[i], c_ge[i])
-        p = (p.double() * zd + c.double()).float()
+        p = xla_f32.fma(p, z, torch.where(lt, c_lt[i], c_ge[i]))
     return torch.where(x.abs() == 1.0, x * math.inf, p * x)
 
 
@@ -210,10 +211,22 @@ def normal(key: torch.Tensor, shape: tuple[int, ...] = (),
     return _SQRT2 * erfinv_f32(u)
 
 
+def normal_affine(key: torch.Tensor, shape: tuple[int, ...],
+                  loc: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``loc + scale * jax.random.normal(key, shape)`` in float32 as XLA
+    compiles it inside one jitted program: the two constant factors
+    reassociated, ``(scale·sqrt(2))·erfinv(u)``, and the add fused into
+    that product (one rounding). ``loc`` and ``scale`` broadcast against
+    the draws."""
+    u = uniform(key, shape, _NORMAL_LO, 1.0)
+    return xla_f32.fma(scale * _SQRT2, erfinv_f32(u), loc)
+
+
 def exponential(key: torch.Tensor, shape: tuple[int, ...] = ()
                 ) -> torch.Tensor:
-    """``jax.random.exponential``: -log1p(-u)."""
-    return -torch.log1p(-uniform(key, shape))
+    """``jax.random.exponential``: -log1p(-u), by XLA's float32
+    ``log1p``."""
+    return -xla_f32.log1p(-uniform(key, shape))
 
 
 def gumbel(key: torch.Tensor, shape: tuple[int, ...] = (), offset: int = 0

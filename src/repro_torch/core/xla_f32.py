@@ -1,6 +1,7 @@
-"""float32 ``exp``, ``log``, ``sum`` and ``logsumexp`` with the bits XLA's
-CPU backend gives (jax's ``jnp.exp``, ``jnp.log``, ``jnp.sum`` and
-``jax.nn.logsumexp`` on float32, eager and under ``jit``).
+"""float32 ``exp``, ``log``, ``log1p``, ``sum`` and ``logsumexp`` with the
+bits XLA's CPU backend gives (jax's ``jnp.exp``, ``jnp.log``,
+``jnp.log1p``, ``jnp.sum`` and ``jax.nn.logsumexp`` on float32, eager and
+under ``jit``).
 
 The estimator (``core.asa``) keeps ``log_p`` through logsumexp
 renormalisations, and its greedy reads are ``argmax log_p``: bins tied
@@ -16,23 +17,33 @@ and on the card:
 - ``log`` is Cephes' ``logf``: the mantissa in [sqrt(1/2), sqrt(2)), a
   degree-8 polynomial in three interleaved Horner chains, the exponent's
   ln 2 added in two parts;
+- ``log1p`` is Cephes' rational approximation below |x| = sqrt(2) - 1,
+  ``x + fma(-0.5, x², (x·x²)·(P(x)/Q(x)))`` with P and Q of degree 6,
+  and ``log`` of the float32 sum ``x + 1`` above (jax's ``exponential``
+  and the ``erf_inv`` of its ``normal`` take it, ``core.prng``);
 - every multiply-add of both is one rounding (XLA's CPU backend fuses
   them into FMAs), and subnormal inputs and outputs are flushed to zero
   (an input of ``exp`` needs no flush: a subnormal gives 1 either way);
 - ``sum`` follows XLA's tree rewrite of a long reduction: a row longer
   than 32 is padded with zeros to a multiple of 32 (half the padding,
   rounded down, in front), each window of 32 is summed left to right,
-  and the window sums are reduced the same way.
+  and the window sums are reduced the same way;
+- ``cumsum`` follows XLA's rewrite of a cumulative reduce-window: a row
+  longer than 16 is padded with zeros at its end to a multiple of 16,
+  each block of 16 is summed left to right, the block totals are
+  scanned the same way, and each block adds the scan of the blocks
+  before it.
 
 ``fma`` is the one rounding of ``a·b + c``: the product is exact in
 float64, the sum is rounded to odd there (53 bits, so the second
 rounding to float32's 24 cannot meet a false tie) and then to float32.
 Inside ``exp`` and ``log`` a multiply-add is one launch instead
 (``_fma_f64``: the float64 sum rounded to nearest, then to float32), to
-keep the estimator's launches down: ``exp`` and ``log`` as written here
-give jax's bits (NaN for NaN) on every one of the 2^32 float32 inputs,
-checked exhaustively against ``jax.jit(jnp.exp)`` and ``jnp.log`` on the
-CPU (jax 0.9.0; ROADMAP's Queue 3). ``tests/test_torch_xla_f32.py``
+keep the estimator's launches down; ``log1p``'s multiply-adds are
+``fma``'s. ``exp``, ``log`` and ``log1p`` as written here give jax's bits
+(NaN for NaN) on every one of the 2^32 float32 inputs, checked
+exhaustively against ``jax.jit(jnp.exp)``, ``jnp.log`` and ``jnp.log1p``
+on the CPU (jax 0.9.0; ``scripts/xla_f32_exhaustive.py``). ``tests/test_torch_xla_f32.py``
 holds them to jax on draws and edge cases.
 """
 
@@ -43,6 +54,7 @@ import torch
 
 F32_MIN_NORMAL = float(np.finfo(np.float32).tiny)   # 2^-126
 WINDOW = 32
+SCAN_BLOCK = 16
 
 _EXP_P = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
           4.1665795894e-2, 1.6666665459e-1, 5.0000001201e-1)
@@ -156,6 +168,37 @@ def log(x: torch.Tensor) -> torch.Tensor:
                        special)
 
 
+# Cephes' log1p: P and Q highest degree first, x below sqrt(2) - 1
+_LOG1P_P = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+            6.5787325942061044846969, 2.9911919328553073277375e1,
+            6.0949667980987787057556e1, 5.7112963590585538103336e1,
+            2.0039553499201281259648e1)
+_LOG1P_Q = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+            2.2176239823732856465394e2, 3.0909872225312059774938e2,
+            2.1642788614495947685003e2, 6.0118660497603843919306e1)
+_LOG1P_SMALL = float(np.float32(0.41421356237309504880))
+
+
+def _flush(x: torch.Tensor) -> torch.Tensor:
+    """A subnormal float32 as a zero of its sign."""
+    return torch.where(x.abs() < F32_MIN_NORMAL, x * 0.0, x)
+
+
+def log1p(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.log1p`` on float32, bit for bit (a subnormal is a zero of its
+    sign)."""
+    x = _flush(x.to(torch.float32))
+    x2 = _flush(x * x)
+    p = q = None
+    for cp, cq in zip(_LOG1P_P, _LOG1P_Q):
+        p = _c(cp, x) if p is None else fma(p, x, cp)
+        q = _c(cq, x) if q is None else fma(q, x, cq)
+    r = _flush(_flush(x * x2) * _flush(p / q))
+    small = x + _flush(fma(-0.5, x2, r))
+    large = log(x + 1.0)
+    return torch.where(x.abs() < _LOG1P_SMALL, small, large)
+
+
 def sum(x: torch.Tensor, dim: int = -1, keepdim: bool = False
         ) -> torch.Tensor:
     """``jnp.sum(x, dim)`` on float32 in XLA's CPU order."""
@@ -176,6 +219,32 @@ def _sum_in_order(x: torch.Tensor) -> torch.Tensor:
     for column in x.unbind(-1):
         acc.add_(column)
     return acc
+
+
+def cumsum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """``jnp.cumsum(x, dim)`` on float32 in XLA's CPU order."""
+    x = x.to(torch.float32).movedim(dim, -1)
+    n = x.shape[-1]
+    if n <= SCAN_BLOCK:
+        return _cumsum_in_order(x).movedim(-1, dim)
+    nb = -(-n // SCAN_BLOCK)
+    blocks = _cumsum_in_order(torch.nn.functional.pad(
+        x, (0, nb * SCAN_BLOCK - n)).unflatten(-1, (nb, SCAN_BLOCK)))
+    before = torch.nn.functional.pad(cumsum(blocks[..., -1])[..., :-1],
+                                     (1, 0))
+    out = (blocks + before.unsqueeze(-1)).flatten(-2)[..., :n]
+    return out.movedim(-1, dim)
+
+
+def _cumsum_in_order(x: torch.Tensor) -> torch.Tensor:
+    """Left to right over the last dim, each partial sum rounded to
+    float32 (``torch.cumsum`` accumulates in float64 on the CPU and in
+    another order on the card)."""
+    acc, out = None, []
+    for column in x.unbind(-1):
+        acc = column if acc is None else acc + column
+        out.append(acc)
+    return torch.stack(out, -1)
 
 
 def logsumexp(x: torch.Tensor, dim: int = -1, keepdim: bool = False

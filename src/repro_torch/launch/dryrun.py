@@ -65,9 +65,11 @@ from repro_torch.train.step import make_train_step, params_at_use
 OUT_DIR = Path(__file__).resolve().parents[3] / "experiments" / "dryrun_torch"
 HBM_BYTES = 80 * 10 ** 9
 META = torch.device("meta")
-NO_COLLECTIVES = ("no HLO to read collectives from: the port's model code "
-                  "runs unsplit; collectives come with sharded training "
-                  "across cards (ROADMAP Queue 1, item 11)")
+NO_COLLECTIVES = ("no HLO to read collectives from: one process gathers "
+                  "split parameters and adds row gradients itself "
+                  "(train.step); copies between cards and the model "
+                  "axis's compute split are later work (ROADMAP Queue 1, "
+                  "after item 11)")
 TEMP_NOTE = ("peak bytes one step allocates on meta tensors at the "
              "per-device batch; layers split over 'model' are counted at "
              "full width, gradients and new parameters at full size: an "

@@ -8,6 +8,20 @@ automatically from the latest complete step).
 
 (``--reduced --device cpu`` for a seconds-long CPU run.)
 
+The parameters and AdamW's m and v are placed by
+``ShardingRules.tree_shardings`` on the mesh (FSDP over ``data``, TP/EP
+over ``model``): a leaf that an axis of extent > 1 splits becomes a
+``ShardedTensor``, gathered at use by the step (``train.step``), which
+takes a microbatch a data row of the mesh. ``mesh=`` (a
+``launch.mesh.DeviceMesh``, whose positions may repeat a device) stands
+in for the reference's faked devices: ``train(..., mesh=DeviceMesh(grid,
+("data", "model")))`` with ``grid`` a (2, 2) array of ``cpu`` trains
+with every parameter split on the CPU. Without it the mesh is
+``make_local_mesh(model_parallel)`` over the host's devices. A restart
+restores its checkpoint onto the mesh it is given, whatever mesh wrote
+it (an elastic restart); on a one-device mesh nothing is split and the
+route is the unsplit one.
+
 Parameters are kept in float32, as the reference keeps them, and cast to
 the activation type at use (``train.step.params_at_use``): an update
 smaller than half a bfloat16 step of its weight still lands. The starting
@@ -29,7 +43,8 @@ import time
 
 from repro_torch.configs import ARCHS, ShapeSpec
 from repro_torch.launch.mesh import make_local_mesh
-from repro_torch.parallel.sharding import ShardingRules, place
+from repro_torch.parallel.sharding import (NamedSharding, PartitionSpec as P,
+                                           ShardingRules, place)
 from repro_torch.runtime import checkpoint as CKPT
 from repro_torch.train import optimizer as OPT
 from repro_torch.train.data import make_batch_fn
@@ -40,26 +55,31 @@ def train(arch: str, *, reduced: bool = True, steps: int = 50,
           batch: int = 8, seq: int = 128, ckpt_dir: str | None = None,
           ckpt_every: int = 20, seed: int = 0, remat: str = "none",
           log_every: int = 10, model_parallel: int = 1,
-          device: str = "cuda") -> dict:
+          device: str = "cuda", mesh=None) -> dict:
     cfg = ARCHS[arch]
     if reduced:
         cfg = cfg.reduced()
-    mesh = make_local_mesh(model=model_parallel, device=device)
+    if mesh is None:
+        mesh = make_local_mesh(model=model_parallel, device=device)
     rules = ShardingRules(mesh)
     shape = ShapeSpec("custom", seq, batch, "train")
 
     params = OPT.tree_map(lambda p: p.float(),
                           init_params(cfg, seed=seed, device=mesh.device))
-    params = place(params, rules.tree_shardings(params))
+    shardings = rules.tree_shardings(params)
+    params = place(params, shardings)
     opt_state = OPT.init(params)
 
     start_step = 0
     if ckpt_dir:
         last = CKPT.latest_step(ckpt_dir)
         if last is not None:
-            state = CKPT.restore({"params": params, "m": opt_state.m,
-                                  "v": opt_state.v, "step": opt_state.step},
-                                 ckpt_dir, last, device=mesh.device)
+            state = CKPT.restore(
+                {"params": params, "m": opt_state.m, "v": opt_state.v,
+                 "step": opt_state.step}, ckpt_dir, last,
+                shardings={"params": shardings, "m": shardings,
+                           "v": shardings,
+                           "step": NamedSharding(mesh, P())})
             params = state["params"]
             opt_state = OPT.AdamWState(step=state["step"], m=state["m"],
                                        v=state["v"])

@@ -23,9 +23,14 @@ Placement: ``tree_shardings`` pairs each leaf's spec with the mesh
 mesh axis that the spec names has extent 1 (a one-device mesh: one card,
 or the CPU), the leaf moves whole to the mesh's device
 (``launch.mesh.DeviceMesh.device``). A spec that splits a leaf over an
-axis of extent > 1 needs parameters split across cards, which the port's
-single-process model code cannot run yet: it raises, naming ROADMAP
-Queue 1 item 11.
+axis of extent > 1 gives a ``ShardedTensor``: the global shape and dtype,
+the sharding, and one local shard a mesh position, on that position's
+device, in the order of jax's ``addressable_shards`` (the mesh's devices
+flattened); positions that the spec replicates hold equal copies. One
+process drives every position, as the reference's ``jit`` drives every
+device of its host; a mesh may repeat a device (``launch.mesh``), so the
+split runs on one card or on the CPU too. ``train.step.make_train_step``
+trains on such trees, a microbatch each of ``data_rows``.
 """
 
 from __future__ import annotations
@@ -79,20 +84,105 @@ class NamedSharding:
         return tuple(out)
 
 
-def device_put(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
-    """``x`` placed by ``sharding``: moved whole to the mesh's device when
-    no axis of extent > 1 splits it; raises otherwise."""
+    def shard_indices(self, global_shape) -> list[tuple[slice, ...]]:
+        """The index of each mesh position's shard in a leaf of
+        ``global_shape``, in the mesh's flat device order (as
+        ``jax.sharding.NamedSharding.devices_indices_map``): along a
+        dimension split over axes (a, b, ...) a position's block is its
+        coordinates on those axes read as one number, ``a`` major."""
+        shard = self.shard_shape(global_shape)
+        names = list(self.mesh.axis_names)
+        grid = tuple(self.mesh.shape[a] for a in names)
+        out = []
+        for pos in np.ndindex(grid):
+            index = []
+            for i, n in enumerate(shard):
+                part = self.spec[i] if i < len(self.spec) else None
+                block = 0
+                for a in (() if part is None else (part,)
+                          if isinstance(part, str) else part):
+                    block = block * self.mesh.shape[a] + pos[names.index(a)]
+                index.append(slice(block * n, (block + 1) * n))
+            out.append(tuple(index))
+        return out
+
+
+class ShardedTensor:
+    """A leaf split over a mesh: ``shape`` and ``dtype`` are the global
+    leaf's, ``shards[i]`` is mesh position i's local block (its index
+    ``indices[i]``, on ``sharding.mesh.devices.flat[i]``)."""
+
+    def __init__(self, shards, sharding: NamedSharding, shape,
+                 dtype: torch.dtype):
+        self.shards = tuple(shards)
+        self.sharding = sharding
+        self.shape = torch.Size(shape)
+        self.dtype = dtype
+        self.indices = sharding.shard_indices(self.shape)
+
+    @property
+    def device(self) -> torch.device:
+        """The mesh's first device (where a gather lands by default)."""
+        return self.sharding.mesh.device
+
+    def numel(self) -> int:
+        return self.shape.numel()
+
+    def __repr__(self) -> str:
+        return (f"ShardedTensor(shape={tuple(self.shape)}, dtype={self.dtype}"
+                f", spec={self.sharding.spec}, shards={len(self.shards)})")
+
+    def gather(self, device=None, dtype: torch.dtype | None = None
+               ) -> torch.Tensor:
+        """The global tensor on ``device`` (default: the mesh's first),
+        each shard cast to ``dtype`` first if given: bitwise the leaf that
+        was split. Each block is read from the first position that holds
+        it."""
+        out = torch.empty(self.shape, dtype=dtype or self.dtype,
+                          device=self.device if device is None else device)
+        seen = set()
+        for index, shard in zip(self.indices, self.shards):
+            key = tuple((s.start, s.stop) for s in index)
+            if key not in seen:
+                seen.add(key)
+                out[index].copy_(shard if dtype is None else shard.to(dtype))
+        return out
+
+    def map_shards(self, fn) -> "ShardedTensor":
+        """``fn`` over every shard (elementwise: the shape is kept)."""
+        shards = [fn(x) for x in self.shards]
+        return ShardedTensor(shards, self.sharding, self.shape,
+                             shards[0].dtype)
+
+
+def device_put(x, sharding: NamedSharding):
+    """``x`` (a tensor or a ``ShardedTensor``) placed by ``sharding``:
+    moved whole to the mesh's device when no axis of extent > 1 splits
+    it, else split into a ``ShardedTensor``, each shard a copy of its
+    block on its position's device (``meta`` shards on a meta mesh
+    allocate nothing)."""
+    mesh = sharding.mesh
+    if isinstance(x, ShardedTensor):
+        x = x.gather(mesh.device)
     named = [a for part in sharding.spec if part
              for a in ((part,) if isinstance(part, str) else part)]
-    split = [a for a in named if sharding.mesh.shape[a] > 1]
-    if split:
-        raise NotImplementedError(
-            f"repro_torch.parallel.sharding.device_put: a leaf of shape "
-            f"{tuple(x.shape)} split by {sharding.spec} over mesh axes "
-            f"{ {a: sharding.mesh.shape[a] for a in split} } needs "
-            f"parameters split across cards, which is not ported yet "
-            f"(ROADMAP Queue 1, item 11)")
-    return x.to(sharding.mesh.device)
+    if all(mesh.shape[a] == 1 for a in named):
+        return x.to(mesh.device)
+    shape = sharding.shard_shape(tuple(x.shape))
+    shards = []
+    for index, dev in zip(sharding.shard_indices(tuple(x.shape)),
+                          mesh.devices.flat):
+        shard = torch.empty(shape, dtype=x.dtype, device=dev)
+        shards.append(shard.copy_(x[index]))
+    return ShardedTensor(shards, sharding, x.shape, x.dtype)
+
+
+def gather_tree(tree, device=None):
+    """``tree`` with every ``ShardedTensor`` gathered (see
+    ``ShardedTensor.gather``)."""
+    return _map_with_path(
+        lambda _, x: x.gather(device) if isinstance(x, ShardedTensor)
+        else x, tree)
 
 
 def place(tree, shardings):
@@ -291,3 +381,10 @@ class ShardingRules:
         h_ax = "model" if _div(n_kv, self.n_model) else None
         core = (b_ax, None, h_ax, None)
         return PartitionSpec(*(((None,) + core) if stacked else core))
+
+
+def data_rows(mesh, batch_size: int) -> int:
+    """The blocks a batch of ``batch_size`` is split into over ``mesh``'s
+    FSDP axes (``ShardingRules.batch_spec``): their extent where it
+    divides the batch, else 1."""
+    return axis_size(mesh, ShardingRules(mesh).batch_spec(batch_size, 1)[0])

@@ -18,7 +18,11 @@ are checked to fit), and a uint32 leaf restores as int64, as
 ``convert.tensor`` carries them. A bfloat16 leaf is stored as its raw
 2-byte words with the manifest dtype ``"bfloat16"``, as the reference
 (through ``ml_dtypes``) writes it, and restores as a bfloat16 tensor
-(numpy needs no ``ml_dtypes`` for it).
+(numpy needs no ``ml_dtypes`` for it). A leaf may also be a
+``parallel.sharding.ShardedTensor``: it is gathered to the host in the
+caller's thread and written whole, the reference's shape-canonical
+format, and ``restore(shardings=)`` places each leaf by its sharding, on
+whatever mesh that sharding names.
 
 Compression is zstd when the ``zstandard`` package is installed and the
 stdlib's ``zlib`` otherwise; the manifest records the codec, and a zstd
@@ -59,6 +63,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.parallel.sharding import ShardedTensor, device_put
 
 try:
     import zstandard
@@ -105,7 +110,8 @@ def _decompress(codec: str, payload: bytes) -> bytes:
 
 
 def _is_leaf(x) -> bool:
-    return isinstance(x, (torch.Tensor, np.ndarray, np.generic))
+    return isinstance(x, (torch.Tensor, np.ndarray, np.generic,
+                          ShardedTensor))
 
 
 def _leaf_paths(tree, prefix: tuple = ()) -> list[tuple[str, object]]:
@@ -169,6 +175,8 @@ def _host_copy(tree):
     leaves = [leaf for _, leaf in _leaf_paths(tree)]
     out, devices = [], set()
     for leaf in leaves:
+        if isinstance(leaf, ShardedTensor):
+            leaf = leaf.gather()
         if isinstance(leaf, torch.Tensor) and leaf.is_cuda:
             devices.add(leaf.device)
             out.append(leaf.detach().to("cpu", non_blocking=True))
@@ -195,6 +203,8 @@ def _step_lock(final: Path) -> threading.Lock:
 def save(tree, directory: str | Path, step: int, *, level: int = 3) -> Path:
     """Write ``tree`` as step ``step`` under ``directory``; returns the
     published ``step_<step>`` directory."""
+    if any(isinstance(x, ShardedTensor) for _, x in _leaf_paths(tree)):
+        tree = _host_copy(tree)
     directory = Path(directory)
     tmp = directory / f"_tmp_step_{step}"
     final = directory / f"step_{step}"
@@ -335,10 +345,33 @@ def latest_step(directory: str | Path,
     return None
 
 
+def _sharding_leaves(example, shardings) -> list:
+    """The leaves of ``shardings`` (a tree of ``NamedSharding`` shaped as
+    ``example``), in ``example``'s leaf order."""
+    if _is_leaf(example):
+        return [shardings]
+    if example is None:
+        return []
+    if isinstance(example, dict):
+        return [s for k in sorted(example)
+                for s in _sharding_leaves(example[k], shardings[k])]
+    return [s for v, sh in zip(example, shardings)
+            for s in _sharding_leaves(v, sh)]
+
+
 def restore(example_tree, directory: str | Path, step: int, *,
-            device: str | torch.device = DEFAULT_DEVICE):
+            device: str | torch.device = DEFAULT_DEVICE, shardings=None):
     """Restore step ``step`` into the structure of ``example_tree``: every
-    leaf comes back as a tensor on ``device`` (uint32 leaves as int64)."""
+    leaf comes back as a tensor on ``device`` (uint32 leaves as int64),
+    or, with ``shardings`` (a tree of ``NamedSharding`` shaped as
+    ``example_tree``), placed by its sharding (``device_put``: split over
+    that sharding's mesh, whatever mesh it was saved from)."""
+    if shardings is not None:
+        host = restore(example_tree, directory, step, device="cpu")
+        return _rebuild(example_tree, iter(
+            device_put(t, sh) for (_, t), sh in zip(
+                _leaf_paths(host),
+                _sharding_leaves(example_tree, shardings))))
     dev = resolve_device(device)
     directory = Path(directory) / f"step_{step}"
     try:

@@ -7,10 +7,10 @@ The paper's per-stage resource changes map to changing a training mesh's
 whether it must move: the number a scheduler needs to estimate a
 resize's cost (and what ASA learns to hide in the queue-wait overlap). It
 reads shapes and dtypes only, so a tree of meta tensors gives the plan
-of a published size without allocating it. ``apply_resize`` places the
-leaves on the new mesh (``parallel.sharding.device_put``: whole on a
-mesh whose axes do not split them; a split across cards raises, naming
-ROADMAP Queue 1 item 11).
+of a published size without allocating it. ``apply_resize`` re-places
+the leaves on the new mesh (``parallel.sharding.device_put``: a split
+leaf is gathered and split again by the new mesh's sharding, whole on a
+mesh whose axes do not split it): data movement only, so bitwise.
 
 ``resize_schedule`` is the center-side view of the same elasticity: a
 sequence of live capacity changes (the malleable-job model of Dynamic

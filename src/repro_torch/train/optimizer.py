@@ -13,6 +13,13 @@ order (``jax.tree.leaves``: dict keys sorted).
 ``torch.no_grad()`` (the reference donates ``params`` and ``opt_state``
 to its jitted step) and returns the same trees; its values are the
 reference's. Nothing here reads a tensor back to the host.
+
+A leaf may be a ``parallel.sharding.ShardedTensor`` (parameters split
+over a mesh): ``init`` gives it m and v split the same way, and
+``update`` takes its whole gradient, splits it to the leaf's shards and
+updates each shard in place. The update is elementwise once the clip
+scale is known, so each shard's values are those of the unsplit leaf's
+update, bit for bit.
 """
 
 from __future__ import annotations
@@ -21,6 +28,8 @@ import math
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.parallel.sharding import ShardedTensor
 
 
 class AdamWState(NamedTuple):
@@ -52,6 +61,9 @@ def tree_map(fn, tree, *rest):
 
 def init(params) -> AdamWState:
     def zeros(p):
+        if isinstance(p, ShardedTensor):
+            return p.map_shards(lambda x: torch.zeros_like(
+                x, dtype=torch.float32))
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
     device = leaves(params)[0].device
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=device),
@@ -108,14 +120,32 @@ def update(
     lr_t = cosine_lr(step) if lr is None else lr
     sf = step.float()
     bc1, bc2 = 1 - b1 ** sf, 1 - b2 ** sf
+    hyper = dict(b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
+    consts = {}     # the step's scalars on each device that a shard is on
     for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state.m),
                           leaves(state.v)):
-        g = g.float() * scale
-        m.copy_(b1 * m + (1 - b1) * g)
-        v.copy_(b2 * v + (1 - b2) * torch.square(g))
-        delta = (m / bc1) / (torch.sqrt(v / bc2) + eps)
-        # decoupled weight decay on matrices only (ndim >= 2)
-        if p.dim() >= 2:
-            delta = delta + weight_decay * p.float()
-        p.copy_(p.float() - lr_t * delta)
+        if not isinstance(p, ShardedTensor):
+            _adamw(p, g, m, v, scale, lr_t, bc1, bc2, **hyper)
+            continue
+        for index, ps, ms, vs in zip(p.indices, p.shards, m.shards,
+                                     v.shards):
+            dev = ps.device
+            if dev not in consts:
+                consts[dev] = tuple(
+                    c.to(dev) if isinstance(c, torch.Tensor) else c
+                    for c in (scale, lr_t, bc1, bc2))
+            _adamw(ps, g[index].to(dev), ms, vs, *consts[dev], **hyper)
     return params, AdamWState(step=step, m=state.m, v=state.v), gnorm
+
+
+def _adamw(p, g, m, v, scale, lr_t, bc1, bc2, *, b1, b2, eps,
+           weight_decay) -> None:
+    """One leaf's (or one shard's) AdamW update, in place."""
+    g = g.float() * scale
+    m.copy_(b1 * m + (1 - b1) * g)
+    v.copy_(b2 * v + (1 - b2) * torch.square(g))
+    delta = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+    # decoupled weight decay on matrices only (ndim >= 2)
+    if p.dim() >= 2:
+        delta = delta + weight_decay * p.float()
+    p.copy_(p.float() - lr_t * delta)

@@ -15,6 +15,18 @@ activation type, as the port's ``init_lm`` makes them for serving: the
 loss casts each leaf to the type the layers use it in
 (``params_at_use``), as the reference's ``.astype(x.dtype)`` at use, and
 AdamW updates in float32 and stores back in the leaf's own type.
+
+Parameters may also be split over a (data, model) mesh
+(``parallel.sharding.ShardedTensor`` leaves), the port's stand-in for
+the reference's step under its mesh: one process drives every position,
+as the reference's ``jit`` drives every device of its host. Each split
+leaf is gathered at use, its shards cast to the type the layers use it
+in, and the batch is taken in as many contiguous microbatches as the
+mesh has data rows (``sharding.data_rows``); AdamW splits each gradient
+back to its leaf's shards and updates them in place. So a step over a
+(k, m) mesh is bitwise this step with ``accum=k``. The ``model`` axis
+splits storage only: the whole model is computed at once and the gather
+holds the whole tree (ROADMAP Queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -26,6 +38,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm, lm_module
+from repro_torch.parallel.sharding import ShardedTensor, data_rows
 from repro_torch.train import optimizer as OPT
 
 
@@ -36,11 +49,17 @@ def params_at_use(params: dict, cfg: ModelConfig) -> dict:
     ``dt_bias``, ``D_skip`` and out-norm scale), the activation type for
     every other. The cast is differentiable and a no-op for a leaf that
     already has its type."""
-    specs = lm_module(cfg).flat_specs(cfg)
+    use = use_dtypes(cfg)
+    return lm.unflatten({path: x.to(use[path])
+                         for path, x in lm.flatten(params).items()})
+
+
+def use_dtypes(cfg: ModelConfig) -> dict:
+    """``{path: the dtype the layers use that leaf in}`` (see
+    ``params_at_use``)."""
     act = lm.act_dtype(cfg)
-    return lm.unflatten({
-        path: x.to(torch.float32 if specs[path].f32 else act)
-        for path, x in lm.flatten(params).items()})
+    return {path: torch.float32 if spec.f32 else act
+            for path, spec in lm_module(cfg).flat_specs(cfg).items()}
 
 
 def model_loss(params, batch: dict, cfg: ModelConfig, *, remat: str = "dots",
@@ -105,37 +124,58 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
 def make_train_step(cfg: ModelConfig, *, accum: int = 1,
                     remat: str = "dots", use_flash: bool = False,
                     vocab_parallel: bool = False) -> Callable:
+    """The step. Where a parameter is split over a mesh, ``accum`` is the
+    split leaves' mesh's data rows (see the module docstring)."""
     loss = partial(model_loss, cfg=cfg, remat=remat, use_flash=use_flash,
                    vocab_parallel=vocab_parallel)
+    use = use_dtypes(cfg)
 
     def value_and_grad(params, batch):
+        ps = OPT.leaves(params)
+        if any(isinstance(x, ShardedTensor) for x in ps):
+            with torch.no_grad():
+                params = lm.unflatten({
+                    path: x.gather(dtype=use[path])
+                    if isinstance(x, ShardedTensor) else x
+                    for path, x in lm.flatten(params).items()})
         alias = OPT.tree_map(lambda p: p.detach().requires_grad_(), params)
         xs = OPT.leaves(alias)
         with torch.enable_grad():
             l = loss(alias, batch)
             gs = torch.autograd.grad(l, xs, allow_unused=True)
-        return l.detach(), [torch.zeros_like(x) if g is None else g
-                            for x, g in zip(xs, gs)]
+        return l.detach(), [torch.zeros(p.shape, dtype=p.dtype,
+                                        device=x.device)
+                            if g is None else g.to(p.dtype)
+                            for p, x, g in zip(ps, xs, gs)]
 
     def train_step(params, opt_state, batch):
-        if accum == 1:
+        n = accum
+        split = [x for x in OPT.leaves(params)
+                 if isinstance(x, ShardedTensor)]
+        if split:
+            if accum != 1:
+                raise ValueError("a step over a mesh accumulates over its "
+                                 "data rows; accum must be 1")
+            n = data_rows(split[0].sharding.mesh,
+                          next(iter(batch.values())).shape[0])
+        if n == 1:
             l, grads = value_and_grad(params, batch)
         else:
-            # microbatches: batch dims reshaped (accum, b/accum, ...)
-            mb = {k: v.reshape((accum, v.shape[0] // accum) + v.shape[1:])
+            # microbatches: batch dims reshaped (n, b/n, ...)
+            mb = {k: v.reshape((n, v.shape[0] // n) + v.shape[1:])
                   for k, v in batch.items()}
             ps = OPT.leaves(params)
             l = torch.zeros((), dtype=torch.float32, device=ps[0].device)
             grads = [torch.zeros(p.shape, dtype=torch.float32,
                                  device=p.device) for p in ps]
-            for i in range(accum):
+            for i in range(n):
                 li, gi = value_and_grad(params,
                                         {k: v[i] for k, v in mb.items()})
                 l = l + li
                 for acc, g in zip(grads, gi):
                     acc.add_(g)
-            l = l / accum
-            grads = [g / accum for g in grads]
+            l = l / n
+            grads = [g / n for g in grads]
         params, opt_state, gnorm = OPT.update(params, grads, opt_state)
         return params, opt_state, {"loss": l, "grad_norm": gnorm}
 

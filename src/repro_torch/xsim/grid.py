@@ -9,11 +9,10 @@ tables at once (drawing from the port's own threefry stream) and
 
 The background generator mirrors ``QueueSim``'s calibrated model
 (Poisson bursts, log-normal widths and durations, warm-start residuals
-and backlog). Its draws go through ``log``/``exp``/``erfinv``, whose last
-bits differ between torch and XLA, so the port's tables agree with the
-reference's to float32 rounding rather than bit for bit; a width that
-lands on a rounding boundary (``round`` half-to-even) can flip by one
-core.
+and backlog). Its draws take XLA's float32 ``exp``, ``log``, ``log1p``
+and prefix sum (``core.xla_f32``) and the fused multiply-adds XLA makes
+of the reference's jitted build (``prng.normal_affine``, the pilot's
+duration and waste), so the port's tables are bitwise the reference's.
 """
 
 from __future__ import annotations
@@ -25,7 +24,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core import asa, prng
+from repro_torch.core import asa, prng, xla_f32
 from repro_torch.device import DEFAULT_DEVICE, check_device, resolve_device
 from repro_torch.launch.mesh import make_scenarios_mesh
 from repro_torch.obs import trace as obs_trace
@@ -150,14 +149,15 @@ def build_batch(keys: torch.Tensor, center: XCenter, wf_cores: torch.Tensor,
     one = torch.ones((), dtype=torch.float32, device=dev)
 
     def widths(k: torch.Tensor, n: int) -> torch.Tensor:
-        w = torch.exp(col(center.bg_cores_mean)
-                      + col(center.bg_cores_sigma) * prng.normal(k, (n,)))
+        w = xla_f32.exp(prng.normal_affine(k, (n,), col(center.bg_cores_mean),
+                                           col(center.bg_cores_sigma)))
         hi = col(torch.maximum(torch.floor_divide(total, 2.0), one))
         return torch.minimum(torch.maximum(torch.round(w), one), hi)
 
     def durations(k: torch.Tensor, n: int) -> torch.Tensor:
-        d = torch.exp(col(center.bg_duration_mean_s)
-                      + col(center.bg_duration_sigma) * prng.normal(k, (n,)))
+        d = xla_f32.exp(prng.normal_affine(
+            k, (n,), col(center.bg_duration_mean_s),
+            col(center.bg_duration_sigma)))
         return torch.clamp(d, 30.0, 7.0 * 86400.0)
 
     # --- warm start: machine filled to ~warm_fill with residual jobs ------
@@ -177,12 +177,12 @@ def build_batch(keys: torch.Tensor, center: XCenter, wf_cores: torch.Tensor,
     # --- future arrivals: Poisson bursts ----------------------------------
     gaps = prng.exponential(k_arr_g, (cfg.n_arrivals,)) \
         / col(center.bg_arrival_rate)
-    group_t = torch.cumsum(gaps, dim=1)
+    group_t = xla_f32.cumsum(gaps, dim=1)
     u = prng.uniform(k_arr_b, (cfg.n_arrivals,), 1e-6, 1.0 - 1e-6)
     p_burst = 1.0 / torch.maximum(center.bg_burst_mean, one)
     burst = torch.where(
         col(center.bg_burst_mean <= 1.0), one,
-        torch.floor(torch.log(u) / col(torch.log1p(-p_burst))) + 1.0)
+        torch.floor(xla_f32.log(u) / col(xla_f32.log1p(-p_burst))) + 1.0)
     slots = torch.arange(cfg.n_arrivals, dtype=torch.float32, device=dev)
     group_of = torch.searchsorted(torch.cumsum(burst, dim=1).contiguous(),
                                   slots.expand(b, -1).contiguous(),
@@ -202,7 +202,8 @@ def build_batch(keys: torch.Tensor, center: XCenter, wf_cores: torch.Tensor,
     useful_cs = torch.where(wf_valid, wf_cores * wf_durs, 0.0).sum(dim=1)
     is_pilot = policy == PILOT
     single = col((policy == BIGJOB) | is_pilot)
-    pilot_dur = total_dur + PILOT_STARTUP_S + n_stages * PILOT_TASK_LATENCY_S
+    pilot_dur = xla_f32.fma(n_stages, PILOT_TASK_LATENCY_S,
+                            total_dur + PILOT_STARTUP_S)
     single_dur = torch.where(is_pilot, pilot_dur, total_dur)
     no_dep = col((policy == ASA_NAIVE) | (policy == RL))
     f_valid = torch.where(single, y == 0, wf_valid)
@@ -217,7 +218,8 @@ def build_batch(keys: torch.Tensor, center: XCenter, wf_cores: torch.Tensor,
     f_dep = torch.where(f_valid & (y > 0) & ~single & ~no_dep,
                         wf_off + y - 1, -1)
     f_rows = torch.where(f_valid, wf_off + y, -1)
-    waste_cs = torch.where(is_pilot, peak * pilot_dur - useful_cs, 0.0)
+    waste_cs = torch.where(is_pilot,
+                           xla_f32.fma(peak, pilot_dur, -useful_cs), 0.0)
 
     # --- assemble the table -------------------------------------------------
     nwm, nbk, nar = cfg.n_warm, cfg.n_backlog, cfg.n_arrivals

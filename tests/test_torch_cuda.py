@@ -1687,3 +1687,155 @@ def test_xla_f32_on_the_card_equals_the_cpu(cuda_device):
     for fn in (lambda t: xla_f32.sum(xla_f32.exp(t), -1),
                lambda t: xla_f32.logsumexp(t, -1, keepdim=True)):
         assert torch.equal(fn(rows.to(cuda_device)).cpu(), fn(rows))
+
+
+@pytest.mark.cuda
+def test_log1p_draws_and_grid_on_the_card_equal_the_cpu(cuda_device):
+    """``xla_f32.log1p`` and ``cumsum``, ``prng.normal``,
+    ``normal_affine`` and ``exponential``, and a grid's built tables on the
+    card, bit for bit the CPU's (which tests/test_torch_xla_f32.py,
+    tests/test_torch_prng.py and tests/test_torch_xsim.py hold to jax's)."""
+    from repro_torch.core import prng, xla_f32
+    from repro_torch.xsim import grid as grid_mod
+    from repro_torch.xsim import policies
+
+    gen = torch.Generator().manual_seed(1)
+    n = 1 << 20
+    x = torch.cat([
+        torch.randint(-2 ** 31, 2 ** 31, (n,), generator=gen,
+                      dtype=torch.int64).to(torch.int32).view(torch.float32),
+        -torch.rand(n, generator=gen),
+        (torch.rand(n, generator=gen) - 0.5) * 0.83,
+        torch.tensor([0.0, -0.0, -1.0, 1e-40, -1e-40, 0.41421354,
+                      0.41421357, -0.41421357, float("inf"),
+                      float("-inf"), float("nan")])])
+    got, want = xla_f32.log1p(x.to(cuda_device)).cpu(), xla_f32.log1p(x)
+    same = (got.view(torch.int32) == want.view(torch.int32)) | (
+        torch.isnan(got) & torch.isnan(want))
+    assert bool(same.all())
+    rows = torch.rand((64, 1024), generator=gen) * 100.0
+    assert torch.equal(xla_f32.cumsum(rows.to(cuda_device), 1).cpu(),
+                       xla_f32.cumsum(rows, 1))
+    for draw in (prng.normal, prng.exponential):
+        assert torch.equal(
+            draw(prng.PRNGKey(3).to(cuda_device), (1 << 18,)).cpu(),
+            draw(prng.PRNGKey(3), (1 << 18,))), draw.__name__
+    loc, scale = torch.tensor([[5.1], [1.5]]), torch.tensor([[1.3], [2.9]])
+    keys = torch.stack([prng.PRNGKey(1), prng.PRNGKey(2)])
+    assert torch.equal(
+        prng.normal_affine(keys.to(cuda_device), (4096,),
+                           loc.to(cuda_device), scale.to(cuda_device)).cpu(),
+        prng.normal_affine(keys, (4096,), loc, scale))
+    cfg = grid_mod.XSimConfig(n_warm=16, n_backlog=12, n_arrivals=40,
+                              max_stages=9, t0=1800.0)
+    built = {}
+    for dev in ("cpu", cuda_device):
+        g = grid_mod.make_grid(cfg, n_seeds=1, shrink=1 / 64.0,
+                               policy_ids=(0, 1, 2), device=dev)
+        fleet = policies.init_fleet(int(g.geo_idx.max()) + 1, device=dev)
+        built[str(dev)] = g.build(policies.scenario_estimators(
+            fleet, torch.as_tensor(g.geo_idx, device=dev), 1))
+    for f in ("submit", "cores", "duration", "end", "pilot_waste_cs"):
+        assert torch.equal(getattr(built[str(cuda_device)], f).cpu(),
+                           getattr(built["cpu"], f)), f
+
+
+def _card_mesh(cuda_device, data: int, model: int):
+    import numpy as np
+
+    from repro_torch.launch.mesh import DeviceMesh
+
+    grid = np.empty((data, model), dtype=object)
+    grid.fill(torch.device(cuda_device.type, cuda_device.index or 0))
+    return DeviceMesh(grid, ("data", "model"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("data,model", [(2, 2), (1, 2), (4, 1)])
+def test_split_train_step_on_the_card_is_the_accum_step(cuda_device, data,
+                                                        model):
+    """Two steps of the reduced qwen2-0.5b and moonshot over a (data,
+    model) mesh of the one card, bitwise ``make_train_step(accum=data)``
+    on the card from the same state (tests/test_torch_train_sharded.py on
+    the CPU)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.parallel.sharding import (ShardedTensor, ShardingRules,
+                                               gather_tree, place)
+    from repro_torch.train import optimizer as OPT
+    from repro_torch.train import step as TS
+    from repro_torch.train.data import make_batch_fn
+
+    mesh = _card_mesh(cuda_device, data, model)
+    for arch in ("qwen2-0.5b", "moonshot-v1-16b-a3b"):
+        cfg = ARCHS[arch].reduced()
+        p0 = OPT.tree_map(lambda p: p.float(),
+                          TS.init_params(cfg, seed=2, device=mesh.device))
+        ref_p = OPT.tree_map(lambda p: p.clone(), p0)
+        ref_o = OPT.init(ref_p)
+        sp = place(OPT.tree_map(lambda p: p.clone(), p0),
+                   ShardingRules(mesh).tree_shardings(p0))
+        so = OPT.init(sp)
+        assert any(isinstance(x, ShardedTensor) for x in OPT.leaves(sp))
+        step = TS.make_train_step(cfg, accum=data, remat="none")
+        sstep = TS.make_train_step(cfg, remat="none")
+        batch_fn = make_batch_fn(cfg, ShapeSpec("t", 64, 4, "train"),
+                                 device=mesh.device)
+        for i in range(2):
+            b = batch_fn(i)
+            ref_p, ref_o, rm = step(ref_p, ref_o, b)
+            sp, so, sm = sstep(sp, so, b)
+            assert torch.equal(rm["loss"], sm["loss"]), arch
+        for got, want in ((sp, ref_p), (so.m, ref_o.m), (so.v, ref_o.v)):
+            assert all(torch.equal(a, b) for a, b in zip(
+                OPT.leaves(gather_tree(got)), OPT.leaves(want))), arch
+
+
+@pytest.mark.cuda
+def test_elastic_restart_and_resize_on_the_card(cuda_device, tmp_path):
+    """``launch.train`` saved on a (2, 2) mesh of the card, resumed on
+    (4, 1): bitwise the ``accum=4`` steps from the restored checkpoint;
+    ``apply_resize`` (2, 2) → (4, 1) moves every shard bitwise."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.train import train
+    from repro_torch.parallel.sharding import (ShardedTensor, ShardingRules,
+                                               place)
+    from repro_torch.runtime import checkpoint as CKPT
+    from repro_torch.runtime.elastic import apply_resize
+    from repro_torch.train import optimizer as OPT
+    from repro_torch.train import step as TS
+    from repro_torch.train.data import make_batch_fn
+
+    run = dict(reduced=True, batch=4, seq=64, log_every=1,
+               device=str(cuda_device))
+    ck = tmp_path / "ck"
+    train("qwen2-0.5b", steps=2, ckpt_dir=str(ck), ckpt_every=2,
+          mesh=_card_mesh(cuda_device, 2, 2), **run)
+    got = train("qwen2-0.5b", steps=4, ckpt_dir=str(ck), ckpt_every=100,
+                mesh=_card_mesh(cuda_device, 4, 1), **run)
+    cfg = ARCHS["qwen2-0.5b"].reduced()
+    p = OPT.tree_map(lambda x: x.float(),
+                     TS.init_params(cfg, device=cuda_device))
+    o = OPT.init(p)
+    state = CKPT.restore({"params": p, "m": o.m, "v": o.v, "step": o.step},
+                         ck, 2, device=cuda_device)
+    p, o = state["params"], OPT.AdamWState(state["step"], state["m"],
+                                           state["v"])
+    step = TS.make_train_step(cfg, accum=4, remat="none")
+    batch_fn = make_batch_fn(cfg, ShapeSpec("custom", 64, 4, "train"),
+                             device=cuda_device)
+    want = []
+    for s in (2, 3):
+        p, o, m = step(p, o, batch_fn(s))
+        want.append((s, float(m["loss"])))
+    assert got["losses"] == want
+    old, new = _card_mesh(cuda_device, 2, 2), _card_mesh(cuda_device, 4, 1)
+    placed = place(p, ShardingRules(old).tree_shardings(p))
+    moved = apply_resize(placed, new, ShardingRules(new))
+    for x, whole in zip(OPT.leaves(moved), OPT.leaves(p)):
+        if isinstance(x, ShardedTensor):
+            assert all(torch.equal(s, whole[i])
+                       for i, s in zip(x.indices, x.shards))
+        else:
+            assert torch.equal(x, whole)

@@ -246,3 +246,33 @@ def test_record_keys_temp_bytes_and_cli(tmp_path, capsys):
     assert rec["status"] == "ok" and rec["n_devices"] == 512
     assert rec["fits_80gb"] is True
     assert "done: 1 ok, 0 fail, 0 skip" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("mesh_name", ["single", "multi"])
+def test_placing_on_the_production_mesh_splits_into_meta_shards(mesh_name):
+    """Placing the arguments of a train cell on the production mesh no
+    longer raises: every split leaf gets one ``meta`` shard a position of
+    its shard shape, and the first position's shards hold the dry run's
+    argument bytes a device."""
+    from repro_torch.parallel.sharding import ShardedTensor, place
+
+    mesh = _meshes()[mesh_name]
+    cfg = ARCHS["qwen2-0.5b"]
+    shape = ShapeSpec("t", 4096, 256, "train")
+    rules = ShardingRules(mesh)
+    run, args = D._step(cfg, shape, remat="none", accum=1)
+    shardings = D._arg_shardings(cfg, shape, rules, mesh, args)
+    placed = place(args, shardings)
+    n = int(mesh.devices.size)
+    split = [x for _, x in flatten_with_path(placed)
+             if isinstance(x, ShardedTensor)]
+    assert len(split) >= 20
+    for x in split:
+        assert len(x.shards) == n
+        assert all(s.device.type == "meta"
+                   and tuple(s.shape) == x.sharding.shard_shape(x.shape)
+                   for s in x.shards)
+    got = sum(D._nbytes((x.shards[0] if isinstance(x, ShardedTensor)
+                         else x).shape, x.dtype)
+              for _, x in flatten_with_path(placed))
+    assert D.local_bytes(args, shardings) == got

@@ -27,8 +27,9 @@ placement on the host's mesh, on the CPU.
   leaves restored by the port, and the port's restored by the
   reference's ``restore``, bit for bit, the payloads byte for byte.
 * Placement: on the 1×1 CPU mesh every leaf moves whole to the mesh's
-  device; a spec that splits a leaf over an axis of extent > 1 raises,
-  naming ROADMAP Queue 1 item 11.
+  device; a spec that splits a leaf over an axis of extent > 1 splits it
+  into a ``ShardedTensor`` (held in ``tests/test_torch_train_sharded.py``);
+  a model axis that does not divide the host's devices raises.
 """
 
 import json
@@ -257,14 +258,24 @@ def test_placement_on_the_one_device_cpu_mesh():
 
 
 def test_placement_raises_for_an_axis_that_splits_a_leaf():
+    """A data axis of 2 splits the leaves it divides (a gather gives each
+    back bitwise) and moves the others whole; a model axis that does not
+    divide the host's devices raises. (The name is kept from when a split
+    leaf raised.)"""
+    from repro_torch.parallel.sharding import ShardedTensor, gather_tree
+
     cpu = torch.device("cpu")
     grid = np.empty((2, 1), dtype=object)
     grid[:] = [[cpu], [cpu]]
     mesh = DeviceMesh(grid, ("data", "model"))
     rules = ShardingRules(mesh)
     params = init_params(ARCHS["qwen2-0.5b"].reduced(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        apply_resize(params, mesh, rules)
+    placed = apply_resize(params, mesh, rules)
+    split = {path for path, x in lm.flatten(placed).items()
+             if isinstance(x, ShardedTensor)}
+    assert split and "layers/mlp/w_up" in split
+    for path, x in lm.flatten(gather_tree(placed)).items():
+        assert torch.equal(x, lm.flatten(params)[path]), path
     # a leaf that no axis splits still moves whole
     scale = params["final_norm"]["scale"]
     assert rules.spec_for("final_norm/scale", tuple(scale.shape)) == (None,)

@@ -16,7 +16,8 @@
   meta tensors of the same shapes) on the meshes {data:16, model:16},
   {pod:2, data:16, model:16}, {data:8, model:16} and {data:1, model:1}:
   spec strings, ``bytes_total`` and ``moves`` equal to the reference's.
-* What waits for ROADMAP Queue 1 items 10 and 11 raises, naming them.
+* Placing on the production mesh (item 10's meta devices) splits a
+  leaf into one ``meta`` shard a position (item 11: no longer raises).
 """
 
 import dataclasses
@@ -239,21 +240,31 @@ def test_reshard_plan_counts_bfloat16_bytes():
         [("layers/0", 4 * 64 * 32 * 2, False)]
 
 
-# ---------------------------------------------- what waits for 10, 11
+# ------------------------------------- placement on the production mesh
 
 
 def test_unported_placements_raise_naming_their_items():
-    """Placing a leaf that the production mesh's axes split needs
-    parameters split across cards (item 11). The shardings themselves are
-    built, and the production mesh is (item 10, the dry run's meta
-    devices): placing on it raises the same way."""
+    """Placing a leaf that the production mesh's axes split (item 11, now
+    ported) splits it: one ``meta`` shard a position, of the sharding's
+    shard shape, in the mesh's device order, nothing allocated; the
+    shardings themselves equal ``spec_for``'s. (The name is kept from
+    when such a placement raised.)"""
+    from repro_torch.parallel.sharding import ShardedTensor
+
     rules = ShardingRules(FakeMesh({"data": 16, "model": 16}))
-    params = {"layers": {"mlp": {"w_up": torch.zeros((2, 32, 64))}}}
+    params = {"layers": {"mlp": {"w_up": torch.zeros((2, 32, 64),
+                                                     device="meta")}}}
     sh = rules.tree_shardings(params)["layers"]["mlp"]["w_up"]
     assert sh.spec == rules.spec_for("layers/mlp/w_up", (2, 32, 64))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        telastic.apply_resize(params, None, rules)
     mesh = tmesh.make_production_mesh()
     assert mesh.shape == {"data": 16, "model": 16}
-    with pytest.raises(NotImplementedError, match="item 11"):
-        telastic.apply_resize(params, None, ShardingRules(mesh))
+    placed = telastic.apply_resize(params, mesh, ShardingRules(mesh))
+    leaf = placed["layers"]["mlp"]["w_up"]
+    assert isinstance(leaf, ShardedTensor)
+    assert leaf.sharding.spec == P(None, "data", "model")
+    assert len(leaf.shards) == 256 and leaf.shape == (2, 32, 64)
+    assert all(x.shape == (2, 2, 4) and x.device.type == "meta"
+               for x in leaf.shards)
+    # position (d, m) holds rows 2d..2d+1 and columns 4m..4m+3
+    assert leaf.indices[17] == (slice(0, 2), slice(2, 4), slice(4, 8))
+    assert leaf.gather().device.type == "meta"

@@ -1,8 +1,9 @@
 """``repro_torch.core.xla_f32`` against jax's float32 ``exp``, ``log``,
-``sum`` and ``logsumexp`` on the CPU: bit for bit, eager and under
+``log1p``, ``sum``, ``cumsum`` and ``logsumexp`` on the CPU: bit for bit, eager and under
 ``jax.jit``, on seeded draws over the ranges the estimator meets, on
 random bit patterns and on the edge cases (subnormals, zeros, infinities,
-NaN, the clamp ends of ``exp``)."""
+NaN, the clamp ends of ``exp``, ``log1p``'s branch point sqrt(2) - 1
+and its neighbours, values near -1)."""
 
 import jax
 import jax.numpy as jnp
@@ -65,6 +66,54 @@ def test_log_bitwise(draws, jit):
     fn = jax.jit(jnp.log) if jit else jnp.log
     _bits_equal(xla_f32.log(torch.from_numpy(x)), fn(x))
     _bits_equal(xla_f32.log(torch.from_numpy(EDGES)), fn(EDGES))
+
+
+LOG1P_EDGES = np.concatenate([EDGES, np.array([
+    -1.0, -1.0000001, -0.99999994, -0.9999999, -0.999, -0.5, 0.5,
+    -2.0, 1e-20, -1e-20, 2.0 ** -63, -(2.0 ** -63), 2.0 ** -64, 3e-4,
+    -3e-4], np.float32)])
+# sqrt(2) - 1 in float32 and the 8 floats on each side of it, both signs
+_BRANCH = np.float32(0.41421356237309504880).view(np.uint32)
+LOG1P_EDGES = np.concatenate([LOG1P_EDGES] + [
+    s * (np.arange(_BRANCH - 8, _BRANCH + 9, dtype=np.uint32)
+         .view(np.float32)) for s in (np.float32(1), np.float32(-1))])
+
+
+def _log1p_draws(name: str, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    if name == "small":           # the rational branch, every exponent
+        return (rng.choice([-1.0, 1.0], N) * np.exp2(
+            rng.uniform(-130.0, np.log2(0.4142), N))).astype(np.float32)
+    if name == "draws":           # -u, u uniform in [0, 1): exponential's
+        return -rng.uniform(0.0, 1.0, N).astype(np.float32)
+    if name == "near_minus_one":  # -x², the erf_inv argument at |x| ~ 1
+        return -(1.0 - np.exp2(rng.uniform(-24.0, -1.0, N))).astype(
+            np.float32)
+    return _draws("bits", seed)
+
+
+@pytest.mark.parametrize("draws", ["small", "draws", "near_minus_one",
+                                   "bits"])
+@pytest.mark.parametrize("jit", [False, True])
+def test_log1p_bitwise(draws, jit):
+    x = _log1p_draws(draws, 4)
+    fn = jax.jit(jnp.log1p) if jit else jnp.log1p
+    _bits_equal(xla_f32.log1p(torch.from_numpy(x)), fn(x))
+    _bits_equal(xla_f32.log1p(torch.from_numpy(LOG1P_EDGES)),
+                fn(LOG1P_EDGES))
+
+
+@pytest.mark.parametrize("n", [1, 16, 17, 31, 32, 33, 100, 256, 257, 1024])
+def test_cumsum_order_bitwise(n):
+    """XLA's blocked order of a float32 prefix sum (blocks of 16), at the
+    grid's arrival counts and around the block's edges."""
+    rng = np.random.default_rng(n)
+    x = (rng.exponential(size=(40, n))
+         * rng.choice([1.0, 1e-3, 1e3], size=(40, n))).astype(np.float32)
+    _bits_equal(xla_f32.cumsum(torch.from_numpy(x), 1),
+                jax.jit(lambda v: jnp.cumsum(v, 1))(x))
+    _bits_equal(xla_f32.cumsum(torch.from_numpy(x.T.copy()), 0),
+                jax.jit(lambda v: jnp.cumsum(v, 0))(x.T.copy()))
 
 
 def test_fma_rounds_once():
