@@ -4533,7 +4533,11 @@ SHARDED_DRAWS = 1 << 20
 # on a (2, 2) mesh against 3 steps of make_train_step(accum=2) on the
 # unsplit card route, from the same weights and batches (drawn once),
 # bitwise (losses, grad norms, then every parameter, m and v); (c) a
-# (1, 2) mesh against the unsplit step, 2 steps, bitwise.
+# (1, 2) mesh against the unsplit step, 2 steps, bitwise. The split step
+# gathers a layer at a time and sums each gradient into its blocks, so
+# its peak is held to at most the other route's plus the bytes of the
+# shards that repeat a block (parameters, m, v) and of the largest
+# layer's and the top-level leaves' gathers.
 SHARDED_STEPS = 3
 # (d) launch.train at published width cut to SHARDED_RESTART_LAYERS
 # layers, saved on (2, 2) at step 2 (zlib level 0), resumed onto (4, 1)
@@ -4588,11 +4592,15 @@ def log1p_card_vs_cpu(dev) -> None:
               f"the CPU's")
 
 
-def _timed_steps(step, params, opt, batches) -> tuple:
-    """The steps over ``batches``: (params, opt, [loss], [grad norm],
-    [seconds], peak bytes)."""
+def _timed_steps(step, make_state, batches) -> tuple:
+    """The state ``make_state()`` makes and the steps over ``batches``
+    from it: (params, opt, [loss], [grad norm], [seconds], peak bytes
+    above what was allocated before the state was made, the device's
+    peak bytes)."""
     torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
+    params, opt = make_state()
     losses, norms, secs = [], [], []
     for b in batches:
         t0 = time.perf_counter()
@@ -4601,7 +4609,43 @@ def _timed_steps(step, params, opt, batches) -> tuple:
         secs.append(time.perf_counter() - t0)
         losses.append(m["loss"])
         norms.append(m["grad_norm"])
-    return params, opt, losses, norms, secs, torch.cuda.max_memory_allocated()
+    peak = torch.cuda.max_memory_allocated()
+    return params, opt, losses, norms, secs, peak - before, peak
+
+
+def _replicated_bytes(*trees) -> int:
+    """The bytes of the shards that repeat a block another position
+    holds, over ``trees`` (the step's gradient accumulators hold one
+    tensor a block, so they repeat none)."""
+    from repro_torch.parallel.sharding import ShardedTensor
+    from repro_torch.train import optimizer as OPT
+
+    return sum(s.numel() * s.element_size()
+               for tree in trees for x in OPT.leaves(tree)
+               if isinstance(x, ShardedTensor)
+               for k, s in enumerate(x.shards) if k not in x.firsts)
+
+
+def _layer_gather_bytes(cfg, tree) -> int:
+    """The bytes a split step's gathers hold at once at most: the largest
+    layer's split leaves and the split top-level leaves, each in the type
+    the layers use it in."""
+    from repro_torch.models import lm
+    from repro_torch.parallel.sharding import ShardedTensor
+    from repro_torch.train import step as TS
+
+    use = TS.use_dtypes(cfg)
+    top, layer = 0, {}
+    for path, x in lm.flatten(tree).items():
+        if not isinstance(x, ShardedTensor):
+            continue
+        size = x.numel() * torch.empty((), dtype=use[path]).element_size()
+        if lm.is_stacked(path):
+            stack = path.split("/", 1)[0]
+            layer[stack] = layer.get(stack, 0) + size // x.shape[0]
+        else:
+            top += size
+    return top + max(layer.values(), default=0)
 
 
 def _trees_equal(got, want) -> bool:
@@ -4632,17 +4676,23 @@ def split_steps(dev) -> None:
     data_s = time.perf_counter() - t0
     for (data, model), n in (((2, 2), SHARDED_STEPS), ((1, 2), 2)):
         tag = f"train/split_{data}x{model}"
-        p = OPT.tree_map(lambda x: x.clone(), base)
-        o = OPT.init(p)
-        ref = _timed_steps(TS.make_train_step(cfg, accum=data, remat="none"),
-                           p, o, batches[:n])
+
+        def unsplit():
+            p = OPT.tree_map(lambda x: x.clone(), base)
+            return p, OPT.init(p)
+
+        def split():
+            sp = place(OPT.tree_map(lambda x: x.clone(), base),
+                       ShardingRules(mesh).tree_shardings(base))
+            return sp, OPT.init(sp)
+
         mesh = card_mesh(dev, data, model)
-        sp = place(OPT.tree_map(lambda x: x.clone(), base),
-                   ShardingRules(mesh).tree_shardings(base))
-        so = OPT.init(sp)
-        split = sum(isinstance(x, ShardedTensor) for x in OPT.leaves(sp))
-        got = _timed_steps(TS.make_train_step(cfg, remat="none"),
-                           sp, so, batches[:n])
+        ref = _timed_steps(TS.make_train_step(cfg, accum=data, remat="none"),
+                           unsplit, batches[:n])
+        got = _timed_steps(TS.make_train_step(cfg, remat="none"), split,
+                           batches[:n])
+        n_split = sum(isinstance(x, ShardedTensor)
+                      for x in OPT.leaves(got[0]))
         losses = [float(x) for x in got[2]]
         check(all(torch.equal(a, b) for a, b in zip(got[2], ref[2]))
               and all(torch.equal(a, b) for a, b in zip(got[3], ref[3])),
@@ -4653,15 +4703,24 @@ def split_steps(dev) -> None:
                                                  (got[1].v, ref[1].v))]
         check(all(equal), f"{tag}: parameters, m, v equal {equal} to the "
               f"accum={data} route's after {n} steps")
+        replicated = _replicated_bytes(got[0], got[1].m, got[1].v)
+        gathered = _layer_gather_bytes(cfg, got[0])
         print(f"{tag}: arch={TRAIN_ARCH} layers={cfg.n_layers} "
               f"batch={TRAIN_BATCH} seq={TRAIN_SEQ} steps={n} "
-              f"split_leaves={split} of {len(OPT.leaves(sp))} "
+              f"split_leaves={n_split} of {len(OPT.leaves(got[0]))} "
               f"losses={losses} bitwise_accum_{data}=True "
               f"step_s={[round(t, 6) for t in got[4]]} "
               f"accum_step_s={[round(t, 6) for t in ref[4]]} "
               f"peak_mem_bytes={got[5]} accum_peak_mem_bytes={ref[5]} "
+              f"replicated_bytes={replicated} "
+              f"layer_gather_bytes={gathered} "
+              f"device_peak_bytes={got[6]} accum_device_peak_bytes={ref[6]} "
               f"data_s={data_s:.3f}")
-        del p, o, ref, sp, so, got
+        check(got[5] <= ref[5] + replicated + gathered,
+              f"{tag}: peak {got[5]} bytes above the accum={data} route's "
+              f"{ref[5]} plus replicated {replicated} and gathered "
+              f"{gathered}")
+        del ref, got
         torch.cuda.empty_cache()
 
 

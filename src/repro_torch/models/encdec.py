@@ -142,12 +142,15 @@ def decode_train(params: dict, tokens: torch.Tensor, enc_out: torch.Tensor,
         return x + L.apply_mlp(lp["mlp"], _norm(lp["mlp_norm"], x, cfg),
                                cfg.mlp)
 
+    def layer(i):      # held by no name once its layer has run
+        lp = lm.layer(params["dec_layers"], i)
+        if cross_kv is None:
+            return lp
+        return dict(lp, xk=cross_kv[0][i], xv=cross_kv[1][i])
+
     body = lm.remat_layer(body, remat)
     for i in range(cfg.n_layers):
-        lp = lm.layer(params["dec_layers"], i)
-        if cross_kv is not None:
-            lp = dict(lp, xk=cross_kv[0][i], xv=cross_kv[1][i])
-        x = body(lp, x)
+        x = body(layer(i), x)
     return lm.unembed(params, x, cfg)
 
 

@@ -30,13 +30,16 @@ flattened); positions that the spec replicates hold equal copies. One
 process drives every position, as the reference's ``jit`` drives every
 device of its host; a mesh may repeat a device (``launch.mesh``), so the
 split runs on one card or on the CPU too. ``train.step.make_train_step``
-trains on such trees, a microbatch each of ``data_rows``.
+trains on such trees, a microbatch each of ``data_rows``, reading each
+split leaf through ``SplitAtUse``: gathered at use (a stacked leaf a
+layer at a time) by ``GatherFn``, whose backward is the reduce-scatter.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from functools import partial
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -119,6 +122,14 @@ class ShardedTensor:
         self.shape = torch.Size(shape)
         self.dtype = dtype
         self.indices = sharding.shard_indices(self.shape)
+        # the distinct blocks, each by the first position that holds it
+        # (``firsts``), and each position's block (``block_of``)
+        blocks: dict = {}
+        self.block_of = tuple(
+            blocks.setdefault(tuple((s.start, s.stop) for s in index),
+                              len(blocks)) for index in self.indices)
+        self.firsts = tuple(self.block_of.index(b)
+                            for b in range(len(blocks)))
 
     @property
     def device(self) -> torch.device:
@@ -132,20 +143,25 @@ class ShardedTensor:
         return (f"ShardedTensor(shape={tuple(self.shape)}, dtype={self.dtype}"
                 f", spec={self.sharding.spec}, shards={len(self.shards)})")
 
-    def gather(self, device=None, dtype: torch.dtype | None = None
-               ) -> torch.Tensor:
+    def blocks(self) -> list[torch.Tensor]:
+        """The distinct blocks, each the shard of the first position that
+        holds it (``indices[firsts[b]]`` is block b's index)."""
+        return [self.shards[k] for k in self.firsts]
+
+    def gather(self, device=None, dtype: torch.dtype | None = None,
+               out: torch.Tensor | None = None) -> torch.Tensor:
         """The global tensor on ``device`` (default: the mesh's first),
         each shard cast to ``dtype`` first if given: bitwise the leaf that
         was split. Each block is read from the first position that holds
-        it."""
-        out = torch.empty(self.shape, dtype=dtype or self.dtype,
-                          device=self.device if device is None else device)
-        seen = set()
-        for index, shard in zip(self.indices, self.shards):
-            key = tuple((s.start, s.stop) for s in index)
-            if key not in seen:
-                seen.add(key)
-                out[index].copy_(shard if dtype is None else shard.to(dtype))
+        it. ``out``, if given, is written and returned."""
+        if out is None:
+            out = torch.empty(self.shape, dtype=dtype or self.dtype,
+                              device=self.device if device is None
+                              else device)
+        for k in self.firsts:
+            shard = self.shards[k]
+            out[self.indices[k]].copy_(shard if dtype is None
+                                       else shard.to(dtype))
         return out
 
     def map_shards(self, fn) -> "ShardedTensor":
@@ -153,6 +169,146 @@ class ShardedTensor:
         shards = [fn(x) for x in self.shards]
         return ShardedTensor(shards, self.sharding, self.shape,
                              shards[0].dtype)
+
+    def block_zeros(self, dtype: torch.dtype) -> "ShardedTensor":
+        """Zeros of ``dtype`` split as this leaf, one tensor a distinct
+        block: the positions that hold a block share its tensor (a
+        gradient accumulator; see ``blocks``)."""
+        zeros = [torch.zeros(x.shape, dtype=dtype, device=x.device)
+                 for x in self.blocks()]
+        return ShardedTensor([zeros[b] for b in self.block_of],
+                             self.sharding, self.shape, dtype)
+
+
+# ------------------------------------------------ gathered at use
+#
+# The training step over a split tree (``train.step``) reads a split leaf
+# through ``SplitAtUse``: its distinct blocks stand behind autograd
+# leaves, and ``GatherFn`` gathers them where the loss uses them. Its
+# backward gives each block its part of the gradient: the reduce-scatter
+# of a mesh that one process drives. A stacked leaf is gathered one
+# layer at a time (``models.lm.layer``), and under ``gathers_not_saved``
+# autograd keeps, in place of a layer's gathered tensor, how to gather it
+# again, so the layers gathered in the forward do not stay alive until
+# the backward.
+
+
+class _Plan(NamedTuple):
+    """A tensor of ``shape``, ``dtype`` and ``device`` whose part
+    ``index[b]`` is input block b (``_build``)."""
+    shape: torch.Size
+    dtype: torch.dtype
+    device: torch.device
+    index: tuple
+
+
+def _build(plan: _Plan, blocks) -> torch.Tensor:
+    out = torch.empty(plan.shape, dtype=plan.dtype, device=plan.device)
+    for index, block in zip(plan.index, blocks):
+        out[index].copy_(block)      # the cast of ``block.to(dtype)``
+    return out
+
+
+def _regather(plan: _Plan, blocks) -> torch.Tensor:
+    with torch.no_grad():
+        return _build(plan, blocks)
+
+
+class GatherFn(torch.autograd.Function):
+    """``GatherFn.apply(plan, *blocks)``: the tensor built from its
+    blocks, each cast to the plan's dtype; the backward returns each
+    block's part of the gradient, rounded to the block's dtype (the
+    rounding of the unsplit step's cast back to the leaf). Nothing is
+    saved."""
+
+    @staticmethod
+    def forward(ctx, plan, *blocks):
+        ctx.plan = plan
+        ctx.blocks = [(b.dtype, b.device) for b in blocks]
+        return _build(plan, blocks)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (None, *(grad[index].to(device=dev, dtype=dtype, copy=True)
+                        for index, (dtype, dev) in zip(ctx.plan.index,
+                                                       ctx.blocks)))
+
+
+class SplitAtUse:
+    """A split leaf as the training step's loss reads it, in ``dtype``
+    (the type the layers use it in). ``inputs`` are the autograd leaves
+    the step differentiates, views of the distinct blocks (each read
+    from the first position that holds it, as ``gather`` reads it), and
+    ``slots[n]`` says where input n's gradient goes: (block, None) for a
+    whole block, (block, j) for row j of a stacked block.
+
+    A leaf outside the stacks of layers is gathered whole (``whole``,
+    once a data row). A stacked leaf is gathered a layer at a time
+    (``layer(i)``, which ``models.lm.layer`` calls): its inputs are a
+    block's layer each, so layer i's gradient lands in its own inputs and
+    no block-shaped gradient is made a layer. The spec may split any
+    axis, the layer axis too."""
+
+    def __init__(self, x: ShardedTensor, dtype: torch.dtype,
+                 stacked: bool):
+        self.inputs: list[torch.Tensor] = []
+        self.slots: list[tuple] = []
+        blocks = [(x.indices[k], x.shards[k]) for k in x.firsts]
+        if not stacked:
+            for b, (_, block) in enumerate(blocks):
+                self.slots.append((b, None))
+                self.inputs.append(block.detach().requires_grad_())
+            self._whole = _Plan(x.shape, dtype, x.device,
+                                tuple(index for index, _ in blocks))
+            return
+        parts = [[] for _ in range(x.shape[0])]   # a layer's blocks
+        for b, (index, block) in enumerate(blocks):
+            lo = index[0].start
+            for j in range(lo, index[0].stop):
+                parts[j].append((index[1:], len(self.inputs)))
+                self.slots.append((b, j - lo))
+                self.inputs.append(block[j - lo].detach().requires_grad_())
+        self._layers = [
+            (_Plan(x.shape[1:], dtype, x.device,
+                   tuple(index for index, _ in part)),
+             [self.inputs[n] for _, n in part]) for part in parts]
+
+    def whole(self) -> torch.Tensor:
+        return GatherFn.apply(self._whole, *self.inputs)
+
+    def layer(self, i: int) -> torch.Tensor:
+        """Layer ``i``, gathered. The tensor carries how to gather it
+        again (``_regather``, read by ``gathers_not_saved``)."""
+        plan, inputs = self._layers[i]
+        out = GatherFn.apply(plan, *inputs)
+        out._regather = partial(_regather, plan, inputs)
+        return out
+
+
+def _pack(t: torch.Tensor):
+    base = t if t._base is None else t._base
+    regather = getattr(base, "_regather", None)
+    if regather is None or t.dtype != base.dtype:
+        return t
+    return regather, t.size(), t.stride(), t.storage_offset()
+
+
+def _unpack(packed) -> torch.Tensor:
+    if isinstance(packed, torch.Tensor):
+        return packed
+    regather, size, stride, offset = packed
+    return regather().as_strided(size, stride, offset)
+
+
+def gathers_not_saved():
+    """Saved-tensor hooks under which autograd saves, in place of a
+    gathered layer (``SplitAtUse.layer``) or a view of it, how to gather
+    it again: a product's backward, and an activation checkpoint's
+    recomputation (``models.lm.remat_layer`` saves the layer's tensors),
+    gather the layer again where they need it. So under every ``remat``
+    policy at most one layer's gathered leaves are alive at a time, and
+    no value changes: a gather is a copy."""
+    return torch.autograd.graph.saved_tensors_hooks(_pack, _unpack)
 
 
 def device_put(x, sharding: NamedSharding):

@@ -16,10 +16,12 @@ reference's. Nothing here reads a tensor back to the host.
 
 A leaf may be a ``parallel.sharding.ShardedTensor`` (parameters split
 over a mesh): ``init`` gives it m and v split the same way, and
-``update`` takes its whole gradient, splits it to the leaf's shards and
-updates each shard in place. The update is elementwise once the clip
+``update`` takes its gradient split the same way (the step's block
+accumulators, ``ShardedTensor.block_zeros``) and updates each shard in
+place from its block's gradient. The update is elementwise once the clip
 scale is known, so each shard's values are those of the unsplit leaf's
-update, bit for bit.
+update, bit for bit; the global norm assembles one split gradient at a
+time whole, so its sum is the unsplit leaf's too.
 """
 
 from __future__ import annotations
@@ -80,8 +82,19 @@ def cosine_lr(step: torch.Tensor, *, peak: float = 3e-4, warmup: int = 100,
 
 
 def global_norm(tree) -> torch.Tensor:
+    """The square root of the leaves' float32 sums of squares, added in
+    tree order. A split leaf is assembled whole in float32 first, in one
+    buffer that every split leaf reuses (one leaf is whole at a time): a
+    sum over its blocks would round in another order."""
+    xs = leaves(tree)
+    split = [x for x in xs if isinstance(x, ShardedTensor)]
+    if split:
+        buf = torch.empty(max(x.numel() for x in split),
+                          dtype=torch.float32, device=split[0].device)
     total = 0
-    for x in leaves(tree):
+    for x in xs:
+        if isinstance(x, ShardedTensor):
+            x = x.gather(out=buf[:x.numel()].view(x.shape))
         total = total + torch.sum(torch.square(x.float()))
     return torch.sqrt(total)
 
@@ -127,14 +140,13 @@ def update(
         if not isinstance(p, ShardedTensor):
             _adamw(p, g, m, v, scale, lr_t, bc1, bc2, **hyper)
             continue
-        for index, ps, ms, vs in zip(p.indices, p.shards, m.shards,
-                                     v.shards):
+        for gs, ps, ms, vs in zip(g.shards, p.shards, m.shards, v.shards):
             dev = ps.device
             if dev not in consts:
                 consts[dev] = tuple(
                     c.to(dev) if isinstance(c, torch.Tensor) else c
                     for c in (scale, lr_t, bc1, bc2))
-            _adamw(ps, g[index].to(dev), ms, vs, *consts[dev], **hyper)
+            _adamw(ps, gs.to(dev), ms, vs, *consts[dev], **hyper)
     return params, AdamWState(step=step, m=state.m, v=state.v), gnorm
 
 

@@ -19,14 +19,21 @@ AdamW updates in float32 and stores back in the leaf's own type.
 Parameters may also be split over a (data, model) mesh
 (``parallel.sharding.ShardedTensor`` leaves), the port's stand-in for
 the reference's step under its mesh: one process drives every position,
-as the reference's ``jit`` drives every device of its host. Each split
-leaf is gathered at use, its shards cast to the type the layers use it
-in, and the batch is taken in as many contiguous microbatches as the
-mesh has data rows (``sharding.data_rows``); AdamW splits each gradient
-back to its leaf's shards and updates them in place. So a step over a
-(k, m) mesh is bitwise this step with ``accum=k``. The ``model`` axis
-splits storage only: the whole model is computed at once and the gather
-holds the whole tree (ROADMAP Queue 1 item 12).
+as the reference's ``jit`` drives every device of its host. The batch is
+taken in as many contiguous microbatches as the mesh has data rows
+(``sharding.data_rows``). A split leaf is read through
+``sharding.SplitAtUse``: gathered where it is used, cast to the type the
+layers use it in, a stacked leaf one layer at a time (``lm.layer``, as
+the reference's ``lax.scan`` over layers gathers a layer an iteration),
+and under ``sharding.gathers_not_saved`` autograd keeps how to gather a
+layer again rather than the gathered layer, under every ``remat``
+policy. The gather's backward hands each block its part of the gradient
+(the reduce-scatter), which is summed, rows in order, into float32
+accumulators of the block's shape; no split leaf's gradient is held
+whole, and AdamW updates each shard in place from its block's. So a
+step over a (k, m) mesh is bitwise this step with ``accum=k``. The
+``model`` axis splits storage only: each row's layer is computed whole
+(ROADMAP Queue 1 item 12(d)).
 """
 
 from __future__ import annotations
@@ -38,7 +45,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm, lm_module
-from repro_torch.parallel.sharding import ShardedTensor, data_rows
+from repro_torch.parallel.sharding import (ShardedTensor, SplitAtUse,
+                                           data_rows, flatten_with_path,
+                                           gathers_not_saved, path_str)
 from repro_torch.train import optimizer as OPT
 
 
@@ -50,7 +59,8 @@ def params_at_use(params: dict, cfg: ModelConfig) -> dict:
     every other. The cast is differentiable and a no-op for a leaf that
     already has its type."""
     use = use_dtypes(cfg)
-    return lm.unflatten({path: x.to(use[path])
+    return lm.unflatten({path: x if isinstance(x, SplitAtUse)
+                         else x.to(use[path])
                          for path, x in lm.flatten(params).items()})
 
 
@@ -131,52 +141,99 @@ def make_train_step(cfg: ModelConfig, *, accum: int = 1,
     use = use_dtypes(cfg)
 
     def value_and_grad(params, batch):
+        """-> (loss, a gradient a leaf in ``OPT.leaves`` order): the
+        leaf's, in its dtype; for a split leaf, (slot, gradient) pairs of
+        its ``SplitAtUse`` inputs, each rounded to the leaf's dtype."""
         ps = OPT.leaves(params)
-        if any(isinstance(x, ShardedTensor) for x in ps):
-            with torch.no_grad():
-                params = lm.unflatten({
-                    path: x.gather(dtype=use[path])
-                    if isinstance(x, ShardedTensor) else x
-                    for path, x in lm.flatten(params).items()})
-        alias = OPT.tree_map(lambda p: p.detach().requires_grad_(), params)
-        xs = OPT.leaves(alias)
-        with torch.enable_grad():
-            l = loss(alias, batch)
-            gs = torch.autograd.grad(l, xs, allow_unused=True)
-        return l.detach(), [torch.zeros(p.shape, dtype=p.dtype,
-                                        device=x.device)
-                            if g is None else g.to(p.dtype)
-                            for p, x, g in zip(ps, xs, gs)]
+        if not any(isinstance(x, ShardedTensor) for x in ps):
+            alias = OPT.tree_map(lambda p: p.detach().requires_grad_(),
+                                 params)
+            xs = OPT.leaves(alias)
+            with torch.enable_grad():
+                l = loss(alias, batch)
+                gs = torch.autograd.grad(l, xs, allow_unused=True)
+            return l.detach(), [torch.zeros(p.shape, dtype=p.dtype,
+                                            device=x.device)
+                                if g is None else g.to(p.dtype)
+                                for p, x, g in zip(ps, xs, gs)]
+        at_use = {}
+        for path, x in flatten_with_path(params):
+            name = path_str(path)
+            at_use[name] = (SplitAtUse(x, use[name], lm.is_stacked(name))
+                            if isinstance(x, ShardedTensor)
+                            else x.detach().requires_grad_())
+        xs = [a for u in at_use.values()
+              for a in (u.inputs if isinstance(u, SplitAtUse) else (u,))]
+        with torch.enable_grad(), gathers_not_saved():
+            l = loss(lm.unflatten({
+                name: u.whole() if isinstance(u, SplitAtUse)
+                and not lm.is_stacked(name) else u
+                for name, u in at_use.items()}), batch)
+            gs = iter(torch.autograd.grad(l, xs, allow_unused=True))
+        grads = []
+        for p, u in zip(ps, at_use.values()):
+            if isinstance(u, SplitAtUse):
+                grads.append([(slot, next(gs)) for slot in u.slots])
+            else:
+                g = next(gs)
+                grads.append(torch.zeros(p.shape, dtype=p.dtype,
+                                         device=u.device)
+                             if g is None else g.to(p.dtype))
+        return l.detach(), grads
 
     def train_step(params, opt_state, batch):
         n = accum
-        split = [x for x in OPT.leaves(params)
-                 if isinstance(x, ShardedTensor)]
+        ps = OPT.leaves(params)
+        split = [x for x in ps if isinstance(x, ShardedTensor)]
         if split:
             if accum != 1:
                 raise ValueError("a step over a mesh accumulates over its "
                                  "data rows; accum must be 1")
             n = data_rows(split[0].sharding.mesh,
                           next(iter(batch.values())).shape[0])
-        if n == 1:
+        if n == 1 and not split:
             l, grads = value_and_grad(params, batch)
         else:
-            # microbatches: batch dims reshaped (n, b/n, ...)
+            # microbatches: batch dims reshaped (n, b/n, ...). A split
+            # leaf's gradients are summed in float32 accumulators of its
+            # blocks, made when its first row's gradient comes; each
+            # row's gradient of a leaf is let go once it is added
             mb = {k: v.reshape((n, v.shape[0] // n) + v.shape[1:])
                   for k, v in batch.items()}
-            ps = OPT.leaves(params)
             l = torch.zeros((), dtype=torch.float32, device=ps[0].device)
-            grads = [torch.zeros(p.shape, dtype=torch.float32,
-                                 device=p.device) for p in ps]
+            grads = [None if isinstance(p, ShardedTensor)
+                     else torch.zeros(p.shape, dtype=torch.float32,
+                                      device=p.device) for p in ps]
             for i in range(n):
                 li, gi = value_and_grad(params,
                                         {k: v[i] for k, v in mb.items()})
                 l = l + li
-                for acc, g in zip(grads, gi):
-                    acc.add_(g)
+                for k, p in enumerate(ps):
+                    if not isinstance(p, ShardedTensor):
+                        grads[k].add_(gi[k])
+                    else:
+                        if grads[k] is None:
+                            grads[k] = p.block_zeros(torch.float32)
+                        _add_blocks(grads[k].blocks(), gi[k])
+                    gi[k] = None
             l = l / n
-            grads = [g / n for g in grads]
+            grads = [_div_blocks(g, n) if isinstance(g, ShardedTensor)
+                     else g / n for g in grads]
         params, opt_state, gnorm = OPT.update(params, grads, opt_state)
         return params, opt_state, {"loss": l, "grad_norm": gnorm}
 
     return train_step
+
+
+def _div_blocks(acc: ShardedTensor, n: int) -> ShardedTensor:
+    for block in acc.blocks():
+        block.div_(n)
+    return acc
+
+
+def _add_blocks(blocks: list, grads: list) -> None:
+    """Adds a split leaf's gradients (``value_and_grad``'s (slot,
+    gradient) pairs) into its block accumulators."""
+    for (b, j), g in grads:
+        if g is not None:
+            (blocks[b] if j is None else blocks[b][j]).add_(g)

@@ -257,11 +257,10 @@ def test_placement_on_the_one_device_cpu_mesh():
             assert torch.equal(x, lm.flatten(params)[path])
 
 
-def test_placement_raises_for_an_axis_that_splits_a_leaf():
+def test_placement_splits_a_leaf_over_a_data_axis():
     """A data axis of 2 splits the leaves it divides (a gather gives each
     back bitwise) and moves the others whole; a model axis that does not
-    divide the host's devices raises. (The name is kept from when a split
-    leaf raised.)"""
+    divide the host's devices raises."""
     from repro_torch.parallel.sharding import ShardedTensor, gather_tree
 
     cpu = torch.device("cpu")

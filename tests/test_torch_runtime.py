@@ -243,12 +243,11 @@ def test_reshard_plan_counts_bfloat16_bytes():
 # ------------------------------------- placement on the production mesh
 
 
-def test_unported_placements_raise_naming_their_items():
-    """Placing a leaf that the production mesh's axes split (item 11, now
-    ported) splits it: one ``meta`` shard a position, of the sharding's
-    shard shape, in the mesh's device order, nothing allocated; the
-    shardings themselves equal ``spec_for``'s. (The name is kept from
-    when such a placement raised.)"""
+def test_production_mesh_placement_gives_meta_shards():
+    """Placing a leaf that the production mesh's axes split splits it:
+    one ``meta`` shard a position, of the sharding's shard shape, in the
+    mesh's device order, nothing allocated; the shardings themselves
+    equal ``spec_for``'s."""
     from repro_torch.parallel.sharding import ShardedTensor
 
     rules = ShardingRules(FakeMesh({"data": 16, "model": 16}))

@@ -13,13 +13,27 @@ fails at its embedding gather.
 
 * Placement: every leaf's local shard at each mesh position equals the
   reference's ``addressable_shards`` on the same position (index, shape
-  and values, bit for bit), for the reduced qwen2-0.5b and moonshot
-  (experts split over ``model``).
+  and values, bit for bit), for one reduced model of each of the six
+  families (moonshot's experts split over ``model``), each with leaves
+  of its stacks of layers split; and the batch's rows (tokens, labels,
+  whisper's ``frames``, pixtral's ``patch_embeds``) that the split step
+  gives each data row are the reference's blocks of the batch at that
+  row's positions.
 * The step: on a (k, m) mesh, bitwise ``make_train_step(accum=k)`` on
   one device from the same state (loss, grad norm, parameters, m, v
-  after 2 steps), for the ``dense``, ``moe`` and ``hybrid`` families; on
-  a (1, m) mesh bitwise the unsplit step. One step function follows its
+  after 2 steps), for all six families under ``remat`` "none" and
+  "dots" (and "full" for the hybrid); on a (1, m) mesh bitwise the
+  unsplit step under the same policies. One step function follows its
   tree onto another mesh: it reads the data rows from the leaves.
+* One layer at a time: during a step's forward and backward, under each
+  ``remat`` policy, the gathered tensors alive at any gather are one
+  layer's and the top-level leaves'; none of a layer's is alive when the
+  backward starts. Each split leaf's gradient is summed in block
+  accumulators, each bitwise its slice of the ``accum=k`` route's whole
+  accumulator, the positions that hold a block sharing its accumulator;
+  the global norm assembles one leaf at a time in one buffer. A spec
+  that splits the layer axis gathers and differentiates as the unsplit
+  leaf.
 * Checkpoints both ways, in float32: the reference's ``train`` with
   ``model_parallel=2`` saves at step 2, the port resumes on its (2, 2)
   mesh, and the other way round; the losses of steps 2 and 3 within
@@ -45,6 +59,7 @@ import os
 import shutil
 import subprocess
 import sys
+import weakref
 from pathlib import Path
 
 import numpy as np
@@ -56,11 +71,14 @@ from repro_torch.launch import dryrun as D
 from repro_torch.launch import train as ttrain
 from repro_torch.launch.mesh import DeviceMesh, make_production_mesh
 from repro_torch.models import lm
-from repro_torch.parallel.sharding import (ShardedTensor, ShardingRules,
-                                           gather_tree, place)
+from repro_torch.parallel import sharding as SH
+from repro_torch.parallel.sharding import (NamedSharding, PartitionSpec as P,
+                                           ShardedTensor, ShardingRules,
+                                           SplitAtUse, gather_tree, place)
 from repro_torch.runtime import checkpoint as TCKPT
 from repro_torch.runtime.elastic import apply_resize
 from repro_torch.train import optimizer as TO
+from repro_torch.train import step as TS
 from repro_torch.train.data import make_batch_fn
 from repro_torch.train.step import init_params, make_train_step
 
@@ -70,8 +88,27 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 RUN = dict(reduced=True, batch=4, seq=32, log_every=1)
 LOSS_ULPS = 3
 PARAM_ATOL = 1.4e-7
-SHARD_ARCHS = ("qwen2-0.5b", "moonshot-v1-16b-a3b")
+SHARD_ARCHS = ("qwen2-0.5b", "moonshot-v1-16b-a3b", "rwkv6-3b",
+               "zamba2-1.2b", "whisper-tiny", "pixtral-12b")
 CKPT_ARCH = "qwen2-0.5b"
+# Widths past ``reduced()``'s: the rules take only ``layers/...`` paths
+# as stacked, so whisper's ``enc_layers/...`` and ``dec_layers/...``
+# leaves fall to the fallback rule, which splits a leaf's largest
+# dimension over the FSDP axes only when it is at least 1024 (both
+# packages alike). At d_ff 1024 the MLPs of both stacks split: ``w_up``
+# and ``b_up`` on their d_ff axis, ``w_down`` on its first.
+WIDER = {"whisper-tiny": {"d_ff": 1024}}
+# Leaves of each model's stacks of layers that a (2, 2) mesh splits.
+STACK_SPLITS = {
+    "qwen2-0.5b": ("layers/attn/wq", "layers/mlp/w_down"),
+    "moonshot-v1-16b-a3b": ("layers/moe/w_gate", "layers/attn/wo"),
+    "rwkv6-3b": ("layers/time_mix/wr", "layers/channel_mix/w_in"),
+    "zamba2-1.2b": ("layers/mamba/w_in_x", "layers/mamba/w_out"),
+    "whisper-tiny": ("enc_layers/mlp/w_up", "enc_layers/mlp/b_up",
+                     "enc_layers/mlp/w_down", "dec_layers/mlp/w_up",
+                     "dec_layers/mlp/b_up", "dec_layers/mlp/w_down"),
+    "pixtral-12b": ("layers/attn/wq", "layers/mlp/w_up"),
+}
 
 
 def cpu_mesh(data: int, model: int) -> DeviceMesh:
@@ -84,9 +121,18 @@ def _f32(arch: str):
     return dataclasses.replace(ARCHS[arch], dtype="float32")
 
 
+def _cfg(arch: str):
+    return dataclasses.replace(ARCHS[arch].reduced(), **WIDER.get(arch, {}))
+
+
 def _params(arch: str, seed: int = 0) -> dict:
     return TO.tree_map(lambda p: p.float(), init_params(
-        ARCHS[arch].reduced(), seed=seed, device="cpu"))
+        _cfg(arch), seed=seed, device="cpu"))
+
+
+def _batch_fn(arch: str):
+    return make_batch_fn(_cfg(arch), ShapeSpec("t", 32, 4, "train"), seed=1,
+                         device="cpu")
 
 
 REF = r'''
@@ -138,6 +184,16 @@ for arch in job["shard_archs"]:
             out[key] = np.asarray(s.data)
             index[key] = [[sl.start or 0, x.shape[j] if sl.stop is None
                            else sl.stop] for j, sl in enumerate(s.index)]
+for arch, shapes in job["batch_shapes"].items():
+    rules = ShardingRules(mesh)
+    for name, shape in shapes.items():
+        blocks = jax.sharding.NamedSharding(
+            mesh, rules.batch_spec(shape[0], len(shape))
+        ).devices_indices_map(tuple(shape))
+        for i, d in enumerate(mesh.devices.flat):
+            index[f"{arch}|batch/{name}|{i}"] = [
+                [sl.start or 0, shape[j] if sl.stop is None else sl.stop]
+                for j, sl in enumerate(blocks[d])]
 np.savez(os.path.join(work, "shards.npz"), **out)
 arch = job["ckpt_arch"]
 jtrain.ARCHS = dict(ARCHS, **{arch: dataclasses.replace(ARCHS[arch],
@@ -175,7 +231,9 @@ def packages(tmp_path_factory):
                     work / "port_to_ref" / "step_2")
     (work / "job.json").write_text(json.dumps({
         "shard_archs": list(SHARD_ARCHS), "ckpt_arch": CKPT_ARCH,
-        "run": RUN}))
+        "run": RUN, "batch_shapes": {
+            arch: {k: list(v.shape) for k, v in _batch_fn(arch)(0).items()}
+            for arch in SHARD_ARCHS}}))
     env = dict(os.environ, PYTHONPATH=str(SRC), JAX_PLATFORMS="cpu")
     env.pop("XLA_FLAGS", None)
     res = subprocess.run([sys.executable, "-c", REF, str(work)], env=env,
@@ -207,18 +265,52 @@ def test_local_shards_are_the_reference_addressable_shards(packages, arch):
                 assert got == ref["index"][key], key
         assert x.shape == whole.shape
     assert n_split >= 8
+    for path in STACK_SPLITS[arch]:
+        assert isinstance(lm.flatten(placed)[path], ShardedTensor), path
     if arch == "moonshot-v1-16b-a3b":   # experts split over model (EP)
         w = lm.flatten(placed)["layers/moe/w_gate"]
         assert isinstance(w, ShardedTensor)
         assert w.sharding.spec[1] == "model"
 
 
-def _steps(arch: str, data: int, model: int, n: int = 2):
+@pytest.mark.parametrize("arch", SHARD_ARCHS)
+def test_data_rows_take_the_reference_batch_blocks(packages, arch,
+                                                   monkeypatch):
+    """The rows of every batch entry (whisper's frames and pixtral's
+    patch embeddings with the tokens and labels) that the split step's
+    loss reads for data row r are the reference's block of the batch at
+    each position of row r."""
+    _, _, ref = packages
+    cfg = _cfg(arch)
+    batch = _batch_fn(arch)(0)
+    assert {"audio": "frames", "vlm": "patch_embeds"}.get(
+        cfg.family, "tokens") in batch
+    rows = []
+    real = TS.model_loss
+
+    def spy(params, b, cfg, **kw):
+        rows.append(b)
+        return real(params, b, cfg, **kw)
+
+    monkeypatch.setattr(TS, "model_loss", spy)
+    mesh = cpu_mesh(2, 2)
+    p0 = _params(arch, seed=2)
+    sp = place(p0, ShardingRules(mesh).tree_shardings(p0))
+    make_train_step(cfg, remat="none")(sp, TO.init(sp), batch)
+    assert len(rows) == 2
+    for name, x in batch.items():
+        for i in range(4):
+            (lo, hi), *rest = ref["index"][f"{arch}|batch/{name}|{i}"]
+            assert rest == [[0, n] for n in x.shape[1:]]
+            assert torch.equal(rows[i // 2][name], x[lo:hi]), (name, i)
+
+
+def _steps(arch: str, data: int, model: int, n: int = 2,
+           remat: str = "none"):
     """``n`` steps on a (data, model) mesh and ``accum=data`` on one
     device from the same state and batches."""
-    cfg = ARCHS[arch].reduced()
-    batch_fn = make_batch_fn(cfg, ShapeSpec("t", 32, 4, "train"), seed=1,
-                             device="cpu")
+    cfg = _cfg(arch)
+    batch_fn = _batch_fn(arch)
     p0 = _params(arch, seed=2)
     ref_p = TO.tree_map(lambda p: p.clone(), p0)
     ref_o = TO.init(ref_p)
@@ -227,8 +319,8 @@ def _steps(arch: str, data: int, model: int, n: int = 2):
                ShardingRules(mesh).tree_shardings(p0))
     so = TO.init(sp)
     assert any(isinstance(x, ShardedTensor) for x in TO.leaves(sp))
-    step = make_train_step(cfg, accum=data, remat="none")
-    sstep = make_train_step(cfg, remat="none")
+    step = make_train_step(cfg, accum=data, remat=remat)
+    sstep = make_train_step(cfg, remat=remat)
     for i in range(n):
         b = batch_fn(i)
         ref_p, ref_o, rm = step(ref_p, ref_o, b)
@@ -248,10 +340,18 @@ def _steps(arch: str, data: int, model: int, n: int = 2):
                 assert torch.equal(shard, whole[index])
 
 
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "moonshot-v1-16b-a3b",
-                                  "zamba2-1.2b"])
+REMATS = [(arch, "dots") for arch in SHARD_ARCHS] + [("zamba2-1.2b",
+                                                      "full")]
+
+
+@pytest.mark.parametrize("arch", SHARD_ARCHS)
 def test_split_step_is_the_accum_step_bitwise(arch):
     _steps(arch, 2, 2)
+
+
+@pytest.mark.parametrize("arch,remat", REMATS)
+def test_split_step_under_remat_is_the_accum_step_bitwise(arch, remat):
+    _steps(arch, 2, 2, remat=remat)
 
 
 def test_four_data_rows_are_accum_four_bitwise():
@@ -261,6 +361,168 @@ def test_four_data_rows_are_accum_four_bitwise():
 @pytest.mark.parametrize("model", [2, 4])
 def test_one_row_mesh_is_the_unsplit_step_bitwise(model):
     _steps("qwen2-0.5b", 1, model)
+
+
+@pytest.mark.parametrize("arch,remat",
+                         [(arch, "none") for arch in SHARD_ARCHS[1:]]
+                         + REMATS)
+def test_one_row_mesh_of_each_family_is_the_unsplit_step_bitwise(arch,
+                                                                 remat):
+    _steps(arch, 1, 2, remat=remat)
+
+
+@pytest.mark.parametrize("remat", ["none", "dots", "full"])
+@pytest.mark.parametrize("arch", SHARD_ARCHS)
+def test_one_layer_is_gathered_at_a_time(arch, remat, monkeypatch):
+    """Every tensor a gather builds (``sharding._build``: a forward's
+    gather, a backward's or a recomputation's gather again) is watched
+    by a weak reference. At each gather the layers' gathered tensors
+    alive are of one layer, with at most the top-level split leaves
+    beside them; when the backward starts none of a layer's is alive
+    (autograd saved how to gather them again, not them)."""
+    cfg = _cfg(arch)
+    mesh = cpu_mesh(2, 2)
+    p0 = _params(arch, seed=2)
+    sp = place(p0, ShardingRules(mesh).tree_shardings(p0))
+    split = {path: x for path, x in lm.flatten(sp).items()
+             if isinstance(x, ShardedTensor)}
+    n_top = sum(not lm.is_stacked(path) for path in split)
+    n_layer_gathers = sum(x.shape[0] for path, x in split.items()
+                          if lm.is_stacked(path))
+    layer_of, live = {}, []
+    gathers = {"forward": 0, "backward": 0}
+    phase = ["forward"]
+    real_layer, real_build, real_grad = (SH.SplitAtUse.layer, SH._build,
+                                         torch.autograd.grad)
+
+    def layer(self, i):
+        plan = self._layers[i][0]
+        layer_of[id(plan)] = (plan, i)    # the plan kept: its id stays
+        return real_layer(self, i)
+
+    def alive():
+        return [k for ref, k in live if ref() is not None]
+
+    def build(plan, blocks):
+        out = real_build(plan, blocks)
+        live.append((weakref.ref(out), layer_of.get(id(plan), (0, None))[1]))
+        gathers[phase[0]] += 1
+        now = alive()
+        assert len({i for i in now if i is not None}) <= 1, remat
+        assert now.count(None) <= n_top
+        return out
+
+    def grad(*args, **kw):
+        assert [k for k in alive() if k is not None] == [], remat
+        phase[0] = "backward"
+        try:
+            return real_grad(*args, **kw)
+        finally:
+            phase[0] = "forward"
+
+    monkeypatch.setattr(SH.SplitAtUse, "layer", layer)
+    monkeypatch.setattr(SH, "_build", build)
+    monkeypatch.setattr(torch.autograd, "grad", grad)
+    make_train_step(cfg, remat=remat)(sp, TO.init(sp), _batch_fn(arch)(0))
+    # two data rows: each gathers the top-level leaves once and every
+    # stacked leaf a layer at a time, and gathers again in its backward
+    assert n_layer_gathers >= 4
+    assert gathers["forward"] == 2 * (n_top + n_layer_gathers)
+    assert gathers["backward"] >= 2
+
+
+@pytest.mark.parametrize("arch", SHARD_ARCHS)
+def test_block_accumulators_are_slices_of_the_accum_accumulator(
+        arch, monkeypatch):
+    """The gradients that ``OPT.update`` takes from a (2, 2) step: each
+    split leaf's is one float32 accumulator a distinct block, of the
+    shard's shape (no whole-leaf accumulator), shared by the positions
+    that hold the block, and bitwise its slice of the ``accum=2``
+    route's whole accumulator; the global norm assembles the split
+    leaves one at a time in one buffer."""
+    cfg = _cfg(arch)
+    p0 = _params(arch, seed=2)
+    batch = _batch_fn(arch)(0)
+    taken, norm_outs = [], []
+    real_update, real_gather = TO.update, ShardedTensor.gather
+
+    def update(params, grads, state, **kw):
+        taken.append(grads)
+        return real_update(params, grads, state, **kw)
+
+    def gather(self, device=None, dtype=None, out=None):
+        if out is not None:
+            norm_outs.append((out.untyped_storage().data_ptr(), out.numel()))
+        return real_gather(self, device, dtype, out)
+
+    monkeypatch.setattr(TO, "update", update)
+    monkeypatch.setattr(ShardedTensor, "gather", gather)
+    ref_p = TO.tree_map(lambda p: p.clone(), p0)
+    make_train_step(cfg, accum=2, remat="none")(ref_p, TO.init(ref_p),
+                                                batch)
+    mesh = cpu_mesh(2, 2)
+    sp = place(TO.tree_map(lambda p: p.clone(), p0),
+               ShardingRules(mesh).tree_shardings(p0))
+    make_train_step(cfg, remat="none")(sp, TO.init(sp), batch)
+    whole, split = taken
+    n_split = 0
+    for g, want, x in zip(split, whole, TO.leaves(sp)):
+        if not isinstance(x, ShardedTensor):
+            assert torch.equal(g, want)
+            continue
+        n_split += 1
+        assert isinstance(g, ShardedTensor) and g.dtype == torch.float32
+        blocks = g.blocks()
+        for k, (index, shard) in enumerate(zip(g.indices, g.shards)):
+            assert shard is blocks[g.block_of[k]]
+            assert shard.shape == x.shards[k].shape
+            assert shard.numel() < want.numel()
+            assert torch.equal(shard, want[index])
+    assert n_split >= 8
+    sizes = [x.numel() for x in TO.leaves(sp) if isinstance(x, ShardedTensor)]
+    assert len(norm_outs) == n_split
+    assert len({ptr for ptr, _ in norm_outs}) == 1
+    assert sorted(n for _, n in norm_outs) == sorted(sizes)
+
+
+@pytest.mark.parametrize("spec", [P("data", None, "model"),
+                                  P(("data", "model"), None, None),
+                                  P(None, "model", "data")])
+def test_a_split_stacked_leaf_gathers_and_differentiates_by_layer(spec):
+    """``SplitAtUse`` on a stacked leaf whose spec may split the layer
+    axis: layer i gathered is the unsplit leaf's ``x[i]`` in the use
+    type, bitwise, and the inputs' gradients of a loss over every layer
+    are the unsplit leaf's gradient (through the same cast), block by
+    block and layer by layer, rounded to float32; a leaf outside the
+    stacks is gathered whole."""
+    rng = np.random.default_rng(0)
+    mesh = cpu_mesh(2, 2)
+    x = torch.from_numpy(rng.normal(size=(4, 6, 8)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(4, 6, 8)).astype(np.float32))
+    sx = place(x, NamedSharding(mesh, spec))
+    assert isinstance(sx, ShardedTensor)
+    leaf = x.clone().requires_grad_()
+    cast = leaf.to(torch.bfloat16)
+    want = torch.autograd.grad(sum(
+        torch.sum(torch.sin(cast[i].float()) * w[i]) for i in range(4)),
+        leaf)[0]
+    at = SplitAtUse(sx, torch.bfloat16, stacked=True)
+    layers = [at.layer(i) for i in range(4)]
+    for i, got in enumerate(layers):
+        assert got.dtype == torch.bfloat16
+        assert torch.equal(got, x[i].to(torch.bfloat16))
+    gs = torch.autograd.grad(sum(
+        torch.sum(torch.sin(layers[i].float()) * w[i]) for i in range(4)),
+        at.inputs)
+    blocks = [sx.indices[k] for k in sx.firsts]
+    assert len(gs) == len(at.slots) == sum(b[0].stop - b[0].start
+                                           for b in blocks)
+    for (b, j), g in zip(at.slots, gs):
+        index = blocks[b]
+        assert g.dtype == torch.float32
+        assert torch.equal(g, want[index][j])
+    whole = SplitAtUse(sx, torch.bfloat16, stacked=False).whole()
+    assert torch.equal(whole, x.to(torch.bfloat16))
 
 
 def test_one_step_follows_its_tree_onto_another_mesh():
