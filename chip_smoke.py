@@ -206,7 +206,8 @@ and audio families), and checks the results. Phases:
    the twin route: the bfloat16 logits reported, each shared-attention
    call held on the kernel route's own q, k, v and each shared block's
    output on its own input, and the logits and greedy tokens held end
-   to end in float32 at full depth (flash on the CUDA cores); (c) the
+   to end in float32, depth cut to 12 layers (flash on the CUDA cores;
+   38 until phase 21 counted launches); (c) the
    block prefill against the reference's token-by-token serving route,
    in float32, depth cut to 12 layers (two shared invocations at the
    published period), a ragged prompt (500 = 3 × 128 + 116): logits,
@@ -3705,12 +3706,17 @@ def training_on_card(dev) -> dict:
 # shared-attention calls of prefill held on the kernel route's own q, k, v
 # against the plain version (FLASH_ATOL, FLASH_REL: the kernel's own
 # limits), and each shared block's output on its own input against the
-# twin's block (LAYER_TOL["twin"], phase 6's kind); and in float32 at full
-# depth (the bfloat16 model's weights unrounded, 7.2 GB; flash on the
-# CUDA cores) the logits and the share of equal greedy tokens, as phase 8
-# holds RWKV-6 (HYBRID_F32_TOL, the same limits as SSM_F32_TOL).
+# twin's block (LAYER_TOL["twin"], phase 6's kind); and in float32 at
+# published width, depth cut to HYBRID_F32_LAYERS (the bfloat16 model's
+# weights unrounded; flash on the CUDA cores) the logits and the share of
+# equal greedy tokens, as phase 8 holds RWKV-6 (HYBRID_F32_TOL, the same
+# limits as SSM_F32_TOL). 12 layers keep the published period of 6 and
+# two shared-block invocations, as (c) does; cut from the published 38
+# (7.2 GB, 4.7 s) for the smoke's time when phase 21 came to count the
+# split training step's launches.
 HYBRID_F32_TOL = (5e-4, 1e-4, 0.85)
 HYBRID_F32_GEN = 8
+HYBRID_F32_LAYERS = 12
 # (c) The block prefill against the reference's token-by-token serving
 # route (repro/launch/serve.py's hybrid branch: decode_step over the
 # prompt), in float32 at published width: arch, batch, prompt, new
@@ -3797,16 +3803,17 @@ def hybrid_attention_check(tag: str, params, prompts, cfg) -> None:
           f"twin's beyond tolerance")
 
 
-def hybrid_float32_full_depth(dev) -> None:
-    """Phase 18(b), float32 at full width and depth: the kernel route
-    (flash on the CUDA cores) against the twin route."""
+def hybrid_float32_run(dev) -> None:
+    """Phase 18(b), float32 at full width, HYBRID_F32_LAYERS deep: the
+    kernel route (flash on the CUDA cores) against the twin route."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.launch import serve as launch_serve
     from repro_torch.models import zamba2 as Z
 
     arch, batch, prompt_len, _ = SERVE["hybrid"]
-    cfg = dataclasses.replace(get_arch(arch), dtype="float32")
+    cfg = dataclasses.replace(get_arch(arch), dtype="float32",
+                              n_layers=HYBRID_F32_LAYERS)
     params = Z.init_lm(cfg, seed=0, device=dev)
     prompts = torch.randint(
         0, cfg.vocab_size, (batch, prompt_len), device=dev,
@@ -3956,7 +3963,7 @@ def hybrid_on_card(dev) -> dict:
     t0 = time.perf_counter()
     served = serve_phase("hybrid", dev)
     t1 = time.perf_counter()
-    hybrid_float32_full_depth(dev)
+    hybrid_float32_run(dev)
     t2 = time.perf_counter()
     hybrid_end_to_end(dev)
     t3 = time.perf_counter()
@@ -4539,6 +4546,11 @@ SHARDED_DRAWS = 1 << 20
 # shards that repeat a block (parameters, m, v) and of the largest
 # layer's and the top-level leaves' gathers.
 SHARDED_STEPS = 3
+# (b) also runs, on (2, 2), SPLIT_TIMED_ROUNDS rounds of one more step of
+# the accum route, the split route and the split route with its
+# gathers-again hooks off, then one profiled step of each: where the
+# split route's time goes (split_step_launches).
+SPLIT_TIMED_ROUNDS = 2
 # (d) launch.train at published width cut to SHARDED_RESTART_LAYERS
 # layers, saved on (2, 2) at step 2 (zlib level 0), resumed onto (4, 1)
 # and onto (1, 1) for 2 more steps, each continuation's losses bitwise
@@ -4626,26 +4638,115 @@ def _replicated_bytes(*trees) -> int:
                for k, s in enumerate(x.shards) if k not in x.firsts)
 
 
-def _layer_gather_bytes(cfg, tree) -> int:
-    """The bytes a split step's gathers hold at once at most: the largest
-    layer's split leaves and the split top-level leaves, each in the type
-    the layers use it in."""
+def _gather_bytes(cfg, tree) -> tuple[int, int]:
+    """(the split leaves' bytes in the type the layers use them in, which
+    the unsplit routes hold cast through the backward; the bytes a split
+    step's gathers hold at once at most: the largest layer's split leaves
+    and the split top-level leaves, in that type)."""
     from repro_torch.models import lm
-    from repro_torch.parallel.sharding import ShardedTensor
+    from repro_torch.parallel.sharding import ShardedTensor, taken_by_layer
     from repro_torch.train import step as TS
 
     use = TS.use_dtypes(cfg)
-    top, layer = 0, {}
+    tree_use, top, layer = 0, 0, {}
     for path, x in lm.flatten(tree).items():
         if not isinstance(x, ShardedTensor):
             continue
         size = x.numel() * torch.empty((), dtype=use[path]).element_size()
-        if lm.is_stacked(path):
+        tree_use += size
+        if taken_by_layer(path):
             stack = path.split("/", 1)[0]
             layer[stack] = layer.get(stack, 0) + size // x.shape[0]
         else:
             top += size
-    return top + max(layer.values(), default=0)
+    return tree_use, top + max(layer.values(), default=0)
+
+
+def _step_launches(step, params, opt, batch) -> tuple[int, float]:
+    """(device launches, device ms) of one ``step(params, opt, batch)``
+    under torch.profiler (CUDA activity: kernels, copies and fills that
+    took device time, counted as phase 4 counts them), read from the
+    profiler's raw events rather than its averages (seconds less at a
+    step's 16k launches)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+    ns = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+          if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0]
+    return len(ns), sum(ns) / 1e6
+
+
+def split_step_launches(tag: str, cfg, ref, got, batch, data: int) -> None:
+    """Where the split route's time goes: SPLIT_TIMED_ROUNDS rounds of one
+    more step of each route in turn, unprofiled (wall and the process's
+    CPU seconds), then one profiled step of each (launches, device ms):
+    the ``accum`` route, the split route, and the split route with
+    ``gathers_not_saved`` off (autograd then keeps the gathered layers,
+    so nothing is gathered again). Counted on the split route's profiled
+    step: its gathers (``gathers``, those again included), the gathers
+    again (``regathers``), the block copies of both, and the autograd
+    inputs of a step (a block's layer each, one gradient copy and one sum
+    a row)."""
+    from functools import partial
+
+    from repro_torch.models import lm
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.parallel.sharding import ShardedTensor
+    from repro_torch.train import step as TS
+
+    counts = dict(gathers=0, regathers=0, block_copies=0)
+    real_build, real_regather = SH._build, SH._regather
+
+    def build(plan, blocks):
+        counts["gathers"] += 1
+        counts["block_copies"] += len(plan.index)
+        return real_build(plan, blocks)
+
+    def regather(plan, blocks):
+        counts["regathers"] += 1
+        return real_regather(plan, blocks)
+
+    split_step = TS.make_train_step(cfg, remat="none")
+    routes = {"accum": (TS.make_train_step(cfg, accum=data, remat="none"),
+                        ref, contextlib.nullcontext),
+              "split": (split_step, got, contextlib.nullcontext),
+              "split_hooks_off": (split_step, got, partial(
+                  patched, (TS, "gathers_not_saved",
+                            contextlib.nullcontext)))}
+    out = {name: dict(step_s=[], cpu_s=[]) for name in routes}
+    for _ in range(SPLIT_TIMED_ROUNDS):
+        for name, (step, state, ctx) in routes.items():
+            with ctx():
+                torch.cuda.synchronize()
+                t0, c0 = time.perf_counter(), time.process_time()
+                step(state[0], state[1], batch)
+                torch.cuda.synchronize()
+                out[name]["step_s"].append(round(time.perf_counter() - t0,
+                                                 6))
+                out[name]["cpu_s"].append(round(time.process_time() - c0,
+                                                6))
+    for name, (step, state, ctx) in routes.items():
+        counts.update(gathers=0, regathers=0, block_copies=0)
+        with ctx(), patched((SH, "_build", build),
+                            (SH, "_regather", regather)):
+            launches, busy_ms = _step_launches(step, state[0], state[1],
+                                               batch)
+        out[name].update(launches=launches, device_ms=round(busy_ms, 3),
+                         **counts)
+    out["split"]["autograd_block_inputs"] = data * sum(
+        len(x.firsts) * (x.shape[0] if SH.taken_by_layer(path) else 1)
+        for path, x in lm.flatten(got[0]).items()
+        if isinstance(x, ShardedTensor))
+    print(f"{tag}/launches: {json.dumps(out)}")
+    check(out["split"]["regathers"] > 0
+          and out["split_hooks_off"]["regathers"] == 0
+          and out["accum"]["gathers"] == 0,
+          f"{tag}: gathers again {out}: the hooks were not on, or off, "
+          f"where they should be")
 
 
 def _trees_equal(got, want) -> bool:
@@ -4704,7 +4805,7 @@ def split_steps(dev) -> None:
         check(all(equal), f"{tag}: parameters, m, v equal {equal} to the "
               f"accum={data} route's after {n} steps")
         replicated = _replicated_bytes(got[0], got[1].m, got[1].v)
-        gathered = _layer_gather_bytes(cfg, got[0])
+        tree_use, gathered = _gather_bytes(cfg, got[0])
         print(f"{tag}: arch={TRAIN_ARCH} layers={cfg.n_layers} "
               f"batch={TRAIN_BATCH} seq={TRAIN_SEQ} steps={n} "
               f"split_leaves={n_split} of {len(OPT.leaves(got[0]))} "
@@ -4714,12 +4815,22 @@ def split_steps(dev) -> None:
               f"peak_mem_bytes={got[5]} accum_peak_mem_bytes={ref[5]} "
               f"replicated_bytes={replicated} "
               f"layer_gather_bytes={gathered} "
+              f"split_use_bytes={tree_use} "
               f"device_peak_bytes={got[6]} accum_device_peak_bytes={ref[6]} "
               f"data_s={data_s:.3f}")
         check(got[5] <= ref[5] + replicated + gathered,
               f"{tag}: peak {got[5]} bytes above the accum={data} route's "
               f"{ref[5]} plus replicated {replicated} and gathered "
               f"{gathered}")
+        # the other route holds the split leaves cast to their use type
+        # through the backward; a gather of the whole tree would too
+        check(got[5] <= ref[5] - tree_use + replicated + gathered,
+              f"{tag}: peak {got[5]} bytes above the accum={data} route's "
+              f"{ref[5]} less the split leaves in their use type "
+              f"{tree_use}, plus replicated {replicated} and gathered "
+              f"{gathered}: more than a layer's gathers held at once")
+        if (data, model) == (2, 2):
+            split_step_launches(tag, cfg, ref, got, batches[0], data)
         del ref, got
         torch.cuda.empty_cache()
 

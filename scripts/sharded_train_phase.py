@@ -10,11 +10,15 @@ and phase 17's batch, 3 steps on a (2, 2) mesh of the one card bitwise 3
 steps of ``make_train_step(accum=2)``; (c) a (1, 2) mesh bitwise the
 unsplit step; each split route's peak at most the other route's plus
 the shards that repeat a block and the largest layer's and top-level
-gathers; (d) ``launch.train`` at 2 layers saved on (2, 2), resumed onto
+gathers, and at most the other route's less the split leaves in their
+use type plus those two; on (2, 2) two rounds of one more step of the
+``accum`` route, the split route and the split route with its
+gathers-again hooks off (wall and CPU seconds), then one profiled step
+of each (launches, device ms, the gathers counted); (d) ``launch.train`` at 2 layers saved on (2, 2), resumed onto
 (4, 1) and (1, 1), each bitwise the ``accum=4`` / ``accum=1`` steps from
 the same checkpoint; (e) ``apply_resize`` (2, 2) → (4, 1) bitwise.
 Prints the card, each part's seconds, the steps' seconds, each route's
-peak bytes and those two counts.
+peak bytes, those counts and the launches.
 Builds no kernel (training takes the plain route). About a minute on an
 H100; a failed check exits non-zero. Needs a CUDA card.
 """

@@ -1,9 +1,8 @@
 """What every language-model family of the port shares: the activation
 type, the padded vocabulary, the parameter tree's layout helpers
 (stacking per-layer specs, flattening to ``{"a/b/c": leaf}`` paths and
-back, filling specs from a seed, taking layer ``i``, gathered where the
-training step splits the leaf over a mesh), and the final norm with the
-unembedding.
+back, filling specs from a seed, taking layer ``i``), and the final norm
+with the unembedding.
 
 Parameters are nested dicts laid out as the reference's: per-layer
 leaves are STACKED on a leading L axis under ``"layers"``, and a Python
@@ -22,7 +21,6 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.parallel.sharding import SplitAtUse
 
 VOCAB_PAD_MULTIPLE = 256
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -143,22 +141,11 @@ def remat_layer(body, remat: str):
     return run
 
 
-STACKS = ("layers", "enc_layers", "dec_layers")
-
-
-def is_stacked(path: str) -> bool:
-    """Whether the leaf at ``path`` is stacked on a leading layer axis
-    that the forwards take a layer at a time (``layer``)."""
-    return path.split("/", 1)[0] in STACKS
-
-
 def layer(layers: dict, i: int) -> dict:
-    """Layer ``i`` of the stacked per-layer parameters: views of plain
-    tensors; a leaf split over a mesh, as a training step reads it
-    (``parallel.sharding.SplitAtUse``), is gathered here, layer ``i``
-    alone."""
-    return {k: layer(v, i) if isinstance(v, dict)
-            else v.layer(i) if isinstance(v, SplitAtUse) else v[i]
+    """Layer ``i`` of the stacked per-layer parameters, as views (a leaf
+    that a training step splits over a mesh gathers layer ``i`` on
+    ``[i]``: ``parallel.sharding.SplitAtUse``)."""
+    return {k: layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in layers.items()}
 
 

@@ -192,6 +192,20 @@ class ShardedTensor:
 # again, so the layers gathered in the forward do not stay alive until
 # the backward.
 
+# The stacks the forwards take a layer at a time (``models.lm.layer``,
+# which indexes a leaf with ``[i]``). Wider than ``ShardingRules``'s
+# stacked test (``layers/`` or ``/layers/``, the reference's rule), which
+# places whisper's ``enc_layers`` and ``dec_layers`` by its fallback rule:
+# placement follows the reference, and the gather follows how the
+# forwards read a leaf, whatever its spec.
+LAYER_STACKS = ("layers", "enc_layers", "dec_layers")
+
+
+def taken_by_layer(path: str) -> bool:
+    """Whether the leaf at ``path`` is stacked on a leading layer axis
+    that the forwards take a layer at a time."""
+    return path.split("/", 1)[0] in LAYER_STACKS
+
 
 class _Plan(NamedTuple):
     """A tensor of ``shape``, ``dtype`` and ``device`` whose part
@@ -244,13 +258,14 @@ class SplitAtUse:
 
     A leaf outside the stacks of layers is gathered whole (``whole``,
     once a data row). A stacked leaf is gathered a layer at a time
-    (``layer(i)``, which ``models.lm.layer`` calls): its inputs are a
-    block's layer each, so layer i's gradient lands in its own inputs and
-    no block-shaped gradient is made a layer. The spec may split any
-    axis, the layer axis too."""
+    (``layer(i)``, or ``[i]`` as ``models.lm.layer`` takes it): its
+    inputs are a block's layer each, so layer i's gradient lands in its
+    own inputs and no block-shaped gradient is made a layer. The spec may
+    split any axis, the layer axis too."""
 
     def __init__(self, x: ShardedTensor, dtype: torch.dtype,
                  stacked: bool):
+        self.dtype = dtype
         self.inputs: list[torch.Tensor] = []
         self.slots: list[tuple] = []
         blocks = [(x.indices[k], x.shards[k]) for k in x.firsts]
@@ -283,6 +298,17 @@ class SplitAtUse:
         out = GatherFn.apply(plan, *inputs)
         out._regather = partial(_regather, plan, inputs)
         return out
+
+    def __getitem__(self, i: int) -> torch.Tensor:
+        return self.layer(i)
+
+    def to(self, dtype: torch.dtype) -> "SplitAtUse":
+        """Itself: its layers are gathered in their use type already
+        (``train.step.params_at_use`` casts every leaf to it)."""
+        if dtype != self.dtype:
+            raise ValueError(f"a leaf split at use in {self.dtype} was "
+                             f"asked for in {dtype}")
+        return self
 
 
 def _pack(t: torch.Tensor):

@@ -38,6 +38,7 @@ step over a (k, m) mesh is bitwise this step with ``accum=k``. The
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from functools import partial
 from typing import Callable
 
@@ -47,7 +48,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm, lm_module
 from repro_torch.parallel.sharding import (ShardedTensor, SplitAtUse,
                                            data_rows, flatten_with_path,
-                                           gathers_not_saved, path_str)
+                                           gathers_not_saved, path_str,
+                                           taken_by_layer)
 from repro_torch.train import optimizer as OPT
 
 
@@ -59,8 +61,7 @@ def params_at_use(params: dict, cfg: ModelConfig) -> dict:
     every other. The cast is differentiable and a no-op for a leaf that
     already has its type."""
     use = use_dtypes(cfg)
-    return lm.unflatten({path: x if isinstance(x, SplitAtUse)
-                         else x.to(use[path])
+    return lm.unflatten({path: x.to(use[path])
                          for path, x in lm.flatten(params).items()})
 
 
@@ -145,29 +146,20 @@ def make_train_step(cfg: ModelConfig, *, accum: int = 1,
         leaf's, in its dtype; for a split leaf, (slot, gradient) pairs of
         its ``SplitAtUse`` inputs, each rounded to the leaf's dtype."""
         ps = OPT.leaves(params)
-        if not any(isinstance(x, ShardedTensor) for x in ps):
-            alias = OPT.tree_map(lambda p: p.detach().requires_grad_(),
-                                 params)
-            xs = OPT.leaves(alias)
-            with torch.enable_grad():
-                l = loss(alias, batch)
-                gs = torch.autograd.grad(l, xs, allow_unused=True)
-            return l.detach(), [torch.zeros(p.shape, dtype=p.dtype,
-                                            device=x.device)
-                                if g is None else g.to(p.dtype)
-                                for p, x, g in zip(ps, xs, gs)]
         at_use = {}
         for path, x in flatten_with_path(params):
             name = path_str(path)
-            at_use[name] = (SplitAtUse(x, use[name], lm.is_stacked(name))
+            at_use[name] = (SplitAtUse(x, use[name], taken_by_layer(name))
                             if isinstance(x, ShardedTensor)
                             else x.detach().requires_grad_())
+        split = any(isinstance(u, SplitAtUse) for u in at_use.values())
         xs = [a for u in at_use.values()
               for a in (u.inputs if isinstance(u, SplitAtUse) else (u,))]
-        with torch.enable_grad(), gathers_not_saved():
+        with torch.enable_grad(), (gathers_not_saved() if split
+                                   else nullcontext()):
             l = loss(lm.unflatten({
                 name: u.whole() if isinstance(u, SplitAtUse)
-                and not lm.is_stacked(name) else u
+                and not taken_by_layer(name) else u
                 for name, u in at_use.items()}), batch)
             gs = iter(torch.autograd.grad(l, xs, allow_unused=True))
         grads = []

@@ -386,9 +386,9 @@ def test_one_layer_is_gathered_at_a_time(arch, remat, monkeypatch):
     sp = place(p0, ShardingRules(mesh).tree_shardings(p0))
     split = {path: x for path, x in lm.flatten(sp).items()
              if isinstance(x, ShardedTensor)}
-    n_top = sum(not lm.is_stacked(path) for path in split)
+    n_top = sum(not SH.taken_by_layer(path) for path in split)
     n_layer_gathers = sum(x.shape[0] for path, x in split.items()
-                          if lm.is_stacked(path))
+                          if SH.taken_by_layer(path))
     layer_of, live = {}, []
     gathers = {"forward": 0, "backward": 0}
     phase = ["forward"]
@@ -523,6 +523,27 @@ def test_a_split_stacked_leaf_gathers_and_differentiates_by_layer(spec):
         assert torch.equal(g, want[index][j])
     whole = SplitAtUse(sx, torch.bfloat16, stacked=False).whole()
     assert torch.equal(whole, x.to(torch.bfloat16))
+
+
+def test_a_split_leaf_reads_as_a_stacked_leaf_in_its_use_type():
+    """The forwards take layer i of a stacked leaf with ``[i]``
+    (``models.lm.layer``) and cast every leaf to its use type
+    (``train.step.params_at_use``): on a ``SplitAtUse`` ``[i]`` is layer
+    i gathered, ``lm.layer`` gathers through it, and the cast to its own
+    type is itself; a cast to another type raises, since its layers are
+    gathered in one type."""
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.normal(size=(4, 6, 8)).astype(np.float32))
+    sx = place(x, NamedSharding(cpu_mesh(2, 2), P("data", None, "model")))
+    at = SplitAtUse(sx, torch.bfloat16, stacked=True)
+    assert at.to(torch.bfloat16) is at
+    with pytest.raises(ValueError, match="split at use"):
+        at.to(torch.float32)
+    for i in range(4):
+        assert torch.equal(at[i], x[i].to(torch.bfloat16))
+        got = lm.layer({"mlp": {"w": at}, "b": x}, i)
+        assert torch.equal(got["mlp"]["w"], x[i].to(torch.bfloat16))
+        assert torch.equal(got["b"], x[i])
 
 
 def test_one_step_follows_its_tree_onto_another_mesh():
