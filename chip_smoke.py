@@ -39,9 +39,10 @@ and audio families), and checks the results. Phases:
    their three paper scales, three workflows, policies 0-2, two seeds
    (108 scenarios of 2313 job slots), through the user-facing entry
    points; the kernel's launches in this run are counted, and all must
-   take the ``fused`` design; one run (phase 13(b) sweeps the grid again
-   and holds it bitwise to this run), so ``scenarios_per_s`` is over the
-   first run; then a profiled window of 16 steps and ``freed_scan`` at
+   take the ``fused`` design; one run (phase 13(b) sweeps 12 of its
+   lanes again and holds them bitwise to this run), so
+   ``scenarios_per_s`` is over the first run; then a profiled window
+   of 16 steps and ``freed_scan`` at
    the sweep's own first input (its running slots a row, both designs'
    times);
 5. serving ``qwen2-0.5b`` at full size (24 layers, d896; batch 8, prompt
@@ -88,7 +89,8 @@ and audio families), and checks the results. Phases:
    scenarios of 73 slots; a fleet warmed one round on the first family's
    grid, shared by the four families) under each robustness family
    (``clean``, ``faulty``, ``elastic``, ``preempt``), kernel path against
-   plain path, bitwise, every launch ``fused``; per family the strategy
+   plain path (run in a worker process on the card while phases 2-9
+   run), bitwise, every launch ``fused``; per family the strategy
    rows (twt, makespan, core-hours, OH hours, misses, restarts) and the
    checks: every workflow done under the step budget, misses and
    over-allocation on some ASA-Naive row, kills under ``faulty`` and
@@ -105,24 +107,27 @@ and audio families), and checks the results. Phases:
    (27 lanes; 9 with ``naive=True``), swept through the kernel and
    through the plain scan: bitwise equal, every launch ``fused``, each
    lane within the reference's tolerances of the port's ``run_*`` on the
-   same simulator; (b) ``sched.runner.run_table1`` at full size (both
-   centers, six scales, three workflows, ASA-Naive and the pilot) with
-   the estimators on the card and on the CPU in one process: every run
-   equal; the normalized averages beside the paper's row, the wall
-   seconds and the estimator's share; (c) ``run_table2(n_submissions=5,
+   same simulator; (b) ``sched.runner.run_table1`` at full size for
+   HPC2N (three scales, three workflows, ASA-Naive and the pilot; both
+   centers until phase 21 took the model split) with the estimators on
+   the card and on the CPU in one process: every run equal; the
+   normalized averages beside the paper's row, the wall seconds and the
+   estimator's share; (c) ``run_table2(n_submissions=5,
    n_warmup=5)`` on the card (the benchmark's 30 submissions and the
    runner's 20 warm-up runs a row cut to 5 each for the smoke's time):
    its 18 rows checked and printed;
-13. traced sweeps (``obs``): (a) phase 10's ``faulty`` setting traced at
+13. traced sweeps (``obs``): (a) phase 10's ``faulty`` run traced at
    the default capacity (``XSimConfig.with_trace()``): kernel path
-   against plain path bitwise with the event rings, the untraced run's
+   against plain path bitwise with the event rings, phase 10's untraced
    state and scan launches bit for bit once the ring is removed, no ring
    overflowed, all six event kinds, ``sweep_summary``'s per-kind
    counters summing to its ``trace_events``, the chain waits replayed
    from each ASA and ASA-Naive lane's ring equal to ``twt_s`` bit for
    bit, a Chrome trace and JSONL written and validated; (b) phase 4's
-   full-size grid traced, one timed run: the state without its ring
-   bitwise phase 4's, the same scan launches, ``sweep_summary`` on the
+   full-size grid traced, one timed run of the 12 lanes phase 4 drained
+   first (all 108 until phase 21 took the model split): the state
+   without its ring bitwise phase 4's same lanes, the scan launches
+   phase 4's loop runs over them, ``sweep_summary`` on the
    card equal to the same summary on the CPU (its peak memory printed),
    ``trace_meta``; then 4 profiled steps untraced and traced (16 until
    phase 17 came);
@@ -150,7 +155,8 @@ and audio families), and checks the results. Phases:
    recipe's geometry (``rl.train.TrainConfig()``: both centers at 1/64,
    three scales, three workflows, 8 seeds; B=144, N=73): a warmed fleet,
    one sampled rollout (``rl.rollout.collect``) through the kernel and
-   through the plain scan, bitwise with the recorded observations and
+   through the plain scan (in the worker process of phase 10's plain
+   paths), bitwise with the recorded observations and
    actions, every launch ``fused``, every workflow done under the step
    budget; the same rollout on the CPU route from the card-built state
    (lanes that part at a near-tie counted and printed with their gaps);
@@ -210,7 +216,7 @@ and audio families), and checks the results. Phases:
    38 until phase 21 counted launches); (c) the
    block prefill against the reference's token-by-token serving route,
    in float32, depth cut to 12 layers (two shared invocations at the
-   published period), a ragged prompt (500 = 3 × 128 + 116): logits,
+   published period), a ragged prompt (244 = 128 + 116): logits,
    conv carries, SSD states and KV rings within limits, greedy tokens
    equal; (d) training at published size (float32 parameters, batch 2,
    sequence 1024): seconds a step after the first, peak memory, data
@@ -252,16 +258,30 @@ and audio families), and checks the results. Phases:
    layers the logits and every greedy token; (d) training at published
    width cut to 4 layers (float32 parameters, batch 2, 1024 patches and
    1024 tokens): seconds a step, peak memory, the loss through the flash
-   kernel against the plain route, a step through it refused, and
-   ``launch.train`` at 1 layer restarted from its step-2 checkpoint,
-   bitwise; (e) the batches' patch embeddings on the card against the
-   CPU route, bitwise; (f) ``core.xla_f32``'s exp, log and logsumexp over
+   kernel against the plain route, a step through it refused (its
+   restart went when phase 21 took the model split: a 16 GB checkpoint;
+   phases 17(a) and 19(c) restart ``launch.train``); (e) the batches'
+   patch embeddings on the card against the CPU route, bitwise; (f)
+   ``core.xla_f32``'s exp, log and logsumexp over
    10^7 inputs on the card against the CPU, bitwise; (g) the dry run's
    plan of qwen2-0.5b's ``train_4k`` on a one-card mesh at a reduced
    batch: its argument bytes against the bytes the card holds once
    ``launch.train``'s parameters, optimizer state and batch are placed
    (the requested bytes equal, the allocated blocks within the
-   allocator's rounding).
+   allocator's rounding);
+21. training with parameters split over a (data, model) mesh whose
+   positions all repeat the card: (a) XLA's float32 ``log1p``, a
+   ``normal`` and an ``exponential`` draw on the card against the CPU,
+   bitwise; (b) qwen2-0.5b at published size on (2, 2), each layer's
+   compute split over ``model`` (``parallel.model_split``), 3 steps
+   against ``accum=2``: losses and grad norms within half a bfloat16
+   step, the parameter, m and v differences printed, the split route's
+   peak held to the other route's plus its repeated shards and gathers,
+   two timed rounds and a profiled step of each route; (c) (1, 2) against
+   the unsplit step likewise; (d)-(e) ``launch.train`` saved on (2, 2)
+   and resumed onto (4, 1) and (1, 1), bitwise the ``accum`` steps, and
+   ``apply_resize`` (2, 2) → (4, 1) bitwise; (f) (2, 1), no compute
+   split, at 4 layers: bitwise ``accum=2``.
 
 Matrix products of the plain versions run in full float32 where their
 inputs are float32: TF32 is switched off for matmuls and cuDNN.
@@ -269,7 +289,7 @@ inputs are float32: TF32 is switched off for matmuls and cuDNN.
 The second-to-last line is a JSON object with one entry per ported
 kernel (``freed_scan``'s launches summed over phases 3, 4 and 10-16, by
 path beside; the model kernels' over phases 5, 6, 8, 17(b), 18(a),
-18(d), 19(a), 19(c), 20(a) and 20(d)); the last
+18(d), 19(a), 19(c), 20(a) and 20(d)'s loss); the last
 line is ``{"ok": true, "device": {...}}``. Any
 failure raises and ends the script with a non-zero exit code; without a CUDA
 device it exits non-zero before printing any result.
@@ -277,6 +297,7 @@ device it exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import json
@@ -482,6 +503,11 @@ CHECK_SHAPES = ((1026, 53), (1026, 73), (1026, 153), (108, 2313))
 # shared by the four families (three rounds a family until the VLM phase
 # came: the smoke's time; the checks hold the runs that follow)
 WARM_ROUNDS = 1
+# phase 10's setting (benchmarks/run.py's xsim leg with ASA-Naive) and its
+# grids' cells
+NAIVE_CFG = dict(n_warm=24, n_backlog=16, n_arrivals=24, max_stages=9,
+                 t0=3600.0)
+NAIVE_GRID = dict(n_seeds=4, shrink=1 / 64.0, policy_ids=(0, 1, 2, 3))
 FAULTY_SEEDS = 2
 FULL_FAULTY_CUTS = (
     "background arrivals stop after 1024 slots (as phase 4)",
@@ -526,8 +552,10 @@ QS_REL, QS_ABS = 0.02, 5.0
 # to their start, took about two thirds of the table's time)
 TABLE2_SUBMISSIONS = 5
 TABLE2_WARMUP = 5
-# (b)'s CPU leg, the card's runs held against it: one center's 45 runs,
-# cut from both centers' 90 when phase 19 came (the smoke's time)
+# (b)'s center: the card's 45 runs held against the CPU's (both centers'
+# 90 on the CPU until phase 19 came, on the card until the model split
+# came: the smoke's time; the other center's were held to nothing but
+# finite values)
 TABLE1_CPU_CENTER = "hpc2n"
 
 FULL_CUTS = (
@@ -1622,9 +1650,135 @@ def strategy_rows(grid, m: dict, tag: str = "table1",
 def states_equal(a, b) -> bool:
     from repro_torch import convert
 
-    x, y = convert.to_numpy(a), convert.to_numpy(b)
+    return numpy_equal(convert.to_numpy(a), convert.to_numpy(b))
+
+
+def numpy_equal(x: dict, y: dict) -> bool:
     return x.keys() == y.keys() and all(
         np.array_equal(x[k], y[k]) for k in x)
+
+
+# Phase 10's plain paths (each family's sweep through the reference scan,
+# no kernel), phase 13(a)'s traced one, phase 15(a)'s plain rollout and
+# phase 16(a)-(b)'s sharded runs on the one card run in a worker process
+# on the card from phase 1's end, while the main process drives phases
+# 2-9: each program is the same on the same card, so the worker's states
+# carry the main process's bits (in the main process, each in its phase,
+# until the model split came: the smoke's time).
+def side_runs(path: str, device: str = "cuda:0") -> None:
+    """The worker: {run: (final state as numpy, seconds, scan launches,
+    extra)} for each family, "faulty_traced" and "rl_rollout" (the plain
+    paths), "sharded_n_shards=1", "sharded_blocks=SHARD_BLOCKS" (extra:
+    the metrics as numpy) and "rollout_sharded" (extra: the trajectory),
+    saved to ``path``."""
+    sys.path.insert(0, str(SRC))
+    from repro_torch import convert
+    from repro_torch.launch.mesh import ScenariosMesh
+    from repro_torch.rl import rollout
+    from repro_torch.xsim import backfill, families, policies
+    from repro_torch.xsim import grid as grid_mod
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = grid_mod.XSimConfig(**NAIVE_CFG)
+    out, fleet = {}, None
+    runs = [(f, cfg) for f in families.FAMILIES]
+    runs.append(("faulty_traced", cfg.with_trace()))
+    for name, c in runs:
+        grid = families.family_grid(c, name.split("_")[0], **NAIVE_GRID,
+                                    device=dev)
+        if fleet is None:   # phase 10's one warm round, first family
+            fleet = grid_mod.warm_fleet(
+                policies.init_fleet(int(grid.geo_idx.max()) + 1,
+                                    device=dev), grid, rounds=WARM_ROUNDS,
+                device=dev)
+        reset_scan_counts(backfill)
+        t0 = time.perf_counter()
+        fin, _ = grid_mod.run_grid(grid, fleet, pred_seed=7,
+                                   freed_mode="ref", device=dev)
+        torch.cuda.synchronize()
+        out[name] = (convert.to_numpy(fin), time.perf_counter() - t0,
+                     backfill.KERNEL_LAUNCHES["freed_scan"], None)
+    grid = families.family_grid(cfg, "faulty", **NAIVE_GRID, device=dev)
+    for tag, kw in (("n_shards=1", dict(n_shards=1)),
+                    (f"blocks={SHARD_BLOCKS}",
+                     dict(mesh=ScenariosMesh([dev] * SHARD_BLOCKS)))):
+        reset_scan_counts(backfill)
+        t0 = time.perf_counter()
+        fin, m = grid_mod.run_grid(grid, fleet, pred_seed=7, device=dev,
+                                   **kw)
+        torch.cuda.synchronize()
+        out[f"sharded_{tag}"] = (
+            convert.to_numpy(fin), time.perf_counter() - t0,
+            dict(backfill.DESIGN_LAUNCHES),
+            {k: v.cpu().numpy() for k, v in m.items()})
+    grid, fleet, params = rl_setting(dev)
+    reset_scan_counts(backfill)
+    t0 = time.perf_counter()
+    fin = rl_rollout(grid, params, fleet, dev, freed_mode="ref")[0]
+    torch.cuda.synchronize()
+    out["rl_rollout"] = (convert.to_numpy(fin), time.perf_counter() - t0,
+                         backfill.KERNEL_LAUNCHES["freed_scan"], None)
+    reset_scan_counts(backfill)
+    t0 = time.perf_counter()
+    fin, _, traj = rollout.collect(
+        grid, params, fleet, pred_seed=1, rl_mode="sample",
+        oh_weight=rl_train_oh_weight(),
+        mesh=ScenariosMesh([dev] * ROLLOUT_SHARD_BLOCKS), device=dev)
+    torch.cuda.synchronize()
+    out["rollout_sharded"] = (convert.to_numpy(fin),
+                              time.perf_counter() - t0,
+                              dict(backfill.DESIGN_LAUNCHES),
+                              [x.cpu() for x in traj])
+    torch.save(out, path)
+
+
+def rl_train_oh_weight() -> float:
+    from repro_torch.rl import train as rl_train
+
+    return rl_train.TrainConfig().oh_weight
+
+
+def rl_setting(dev) -> tuple:
+    """Phase 15(a)'s geometry (``rl.train.TrainConfig()``): (grid, warmed
+    fleet, initial head)."""
+    return (rl_grid(dev),) + rl_fleet_and_head(dev)
+
+
+def rl_fleet_and_head(dev) -> tuple:
+    from repro_torch.core import prng
+    from repro_torch.rl import policy as rl_policy
+    from repro_torch.rl import train as rl_train
+
+    cfg = rl_train.TrainConfig()
+    fleet = rl_train.warmed_fleet(cfg, grid_seed=cfg.seed, device=dev)
+    return fleet, rl_policy.init_params(prng.PRNGKey(cfg.seed, dev),
+                                        hidden=cfg.hidden, device=dev)
+
+
+def rl_grid(dev):
+    from repro_torch.rl import train as rl_train
+    from repro_torch.xsim import families
+    from repro_torch.xsim.state import RL
+
+    cfg = rl_train.TrainConfig()
+    return families.family_grid(
+        cfg.sim, cfg.family, center_names=cfg.center_names,
+        workflows=cfg.workflows, policy_ids=(RL,), n_seeds=cfg.n_seeds,
+        shrink=cfg.shrink, seed=cfg.seed * 10_000 + 1, device=dev)
+
+
+def rl_rollout(grid, params, fleet, dev, freed_mode: str = "auto"):
+    """Phase 15(a)'s sampled rollout -> ``rollout.collect``'s (final
+    state, metrics, trajectory)."""
+    from repro_torch.rl import rollout
+
+    return rollout.collect(grid, params, fleet, pred_seed=1,
+                           rl_mode="sample", freed_mode=freed_mode,
+                           oh_weight=rl_train_oh_weight(), device=dev)
 
 
 def table1_setting(grid_mod, policies, backfill, dev) -> int:
@@ -1699,8 +1853,8 @@ def full_size(grid_mod, policies, backfill, dev, RUNNING) -> dict:
     launches = dict(backfill.KERNEL_LAUNCHES)
     designs = dict(backfill.DESIGN_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    # one run: phase 13(b) sweeps the same grid again and holds its state
-    # bitwise to this one's, which checks repeatability
+    # one run: phase 13(b) sweeps lanes of the same grid again and holds
+    # their state bitwise to this one's, which checks repeatability
 
     m = {k: v.cpu().numpy() for k, v in m.items()}
     steps = final.steps.cpu().numpy()
@@ -1829,21 +1983,21 @@ def check_naive_faults_run(tag: str, family: str, grid, final,
                 restarts=restarts)
 
 
-def table1_families(grid_mod, families, policies, backfill, dev
-                    ) -> tuple[dict, dict]:
+def table1_families(grid_mod, families, policies, backfill, plain: Worker,
+                    dev) -> tuple[dict, dict]:
     """Phase 10: ``benchmarks/run.py``'s xsim leg with ASA-Naive (policies
-    0-3) under every robustness family, kernel path against plain path,
-    bitwise; every launch ``fused``. Returns the kernel paths' launches
-    by family, and the ``faulty`` run (grid, warmed fleet, final state
-    and metrics of its kernel path) that phase 16(a) shards."""
-    cfg = grid_mod.XSimConfig(n_warm=24, n_backlog=16, n_arrivals=24,
-                              max_stages=9, t0=3600.0)
+    0-3) under every robustness family, kernel path against plain path
+    (``side_runs``' worker), bitwise; every launch ``fused``. Returns
+    the kernel paths' launches by family, and the ``faulty`` run (grid,
+    warmed fleet, final state and metrics of its kernel path) that phase
+    16(a) shards."""
+    from repro_torch import convert
+
+    cfg = grid_mod.XSimConfig(**NAIVE_CFG)
     launches, warmed = {}, None
     for family in families.FAMILIES:
         tag = f"table1_naive/{family}"
-        grid = families.family_grid(cfg, family, n_seeds=4,
-                                    shrink=1 / 64.0, policy_ids=(0, 1, 2, 3),
-                                    device=dev)
+        grid = families.family_grid(cfg, family, **NAIVE_GRID, device=dev)
         t0 = time.perf_counter()
         if warmed is None:   # one warm round, on the first family's grid
             fleet = policies.init_fleet(int(grid.geo_idx.max()) + 1,
@@ -1865,15 +2019,9 @@ def table1_families(grid_mod, families, policies, backfill, dev
         check(kern_launches > 0 and designs["fused"] == kern_launches,
               f"{tag}: kernel path launches {kern_launches}, by design "
               f"{designs}")
-        backfill.KERNEL_LAUNCHES["freed_scan"] = 0
-        t0 = time.perf_counter()
-        fin_r, _ = grid_mod.run_grid(grid, fleet, pred_seed=7,
-                                     freed_mode="ref", device=dev)
-        torch.cuda.synchronize()
-        ref_s = time.perf_counter() - t0
-        check(backfill.KERNEL_LAUNCHES["freed_scan"] == 0,
-              f"{tag}: the plain path launched the kernel")
-        check(states_equal(fin_k, fin_r),
+        fin_r, ref_s, ref_launches, _ = plain.get(family)
+        check(ref_launches == 0, f"{tag}: the plain path launched the kernel")
+        check(numpy_equal(convert.to_numpy(fin_k), fin_r),
               f"{tag}: kernel path and plain path differ")
         m = {k: v.cpu().numpy() for k, v in m_k.items()}
         counts = check_naive_faults_run(tag, family, grid, fin_k, m)
@@ -1893,7 +2041,7 @@ def table1_families(grid_mod, families, policies, backfill, dev
               f"before)")
         if family == "faulty":
             faulty = dict(grid=grid, fleet=fleet, final=fin_k, metrics=m_k,
-                          pred_seed=7)
+                          pred_seed=7, launches=kern_launches)
     return launches, faulty
 
 
@@ -2175,31 +2323,27 @@ def run_timed(tag: str, fn):
 
 
 def table1_on_card(dev) -> None:
-    """Phase 12(b): ``run_table1`` at full size (both centers, their six
-    scales, three workflows; BigJob, Per-Stage, ASA, ASA-Naive, pilot)
-    with the estimators on the card, then the runs of
-    ``TABLE1_CPU_CENTER`` again with the estimators on the CPU, in one
-    process (the estimator seeds are ``hash()`` of strings; each (center,
-    scale) has its own estimator and background, so one center's runs do
-    not depend on the other's): every run's metrics equal. Prints the
-    normalized averages as ``benchmarks/table1_strategies.py`` does,
-    beside the paper's row."""
+    """Phase 12(b): ``run_table1`` at full size for ``TABLE1_CPU_CENTER``
+    (its three scales, three workflows; BigJob, Per-Stage, ASA, ASA-Naive,
+    pilot) with the estimators on the card, then again with the
+    estimators on the CPU, in one process (the estimator seeds are
+    ``hash()`` of strings; each (center, scale) has its own estimator and
+    background): every run's metrics equal. Prints the normalized
+    averages as ``benchmarks/table1_strategies.py`` does, beside the
+    paper's row (over both centers)."""
     import dataclasses
 
     from repro_torch.sched import runner
 
     kw = dict(seed=0, include_naive=True, include_pilot=True)
-    res = run_timed("tables/table1_cuda",
-                    lambda: runner.run_table1(**kw, device=dev))
     one = {TABLE1_CPU_CENTER: runner.CENTERS[TABLE1_CPU_CENTER]}
     with patched((runner, "CENTERS", one)):
+        res = run_timed("tables/table1_cuda",
+                        lambda: runner.run_table1(**kw, device=dev))
         cpu = run_timed("tables/table1_cpu",
                         lambda: runner.run_table1(**kw, device="cpu"))
-    check(len(res.runs) == 2 * 3 * 3 * 5,
-          f"tables/table1: {len(res.runs)} runs, expected 90")
-    same = [r for r in res.runs if r.center == TABLE1_CPU_CENTER]
-    check(len(cpu.runs) == len(same) == 3 * 3 * 5
-          and [dataclasses.asdict(r) for r in same]
+    check(len(res.runs) == len(cpu.runs) == 3 * 3 * 5
+          and [dataclasses.asdict(r) for r in res.runs]
           == [dataclasses.asdict(r) for r in cpu.runs],
           f"tables/table1: the card's {TABLE1_CPU_CENTER} runs differ from "
           f"the CPU's")
@@ -2208,8 +2352,8 @@ def table1_on_card(dev) -> None:
                   ("twt_s", "makespan_s", "core_hours", "oh_hours")),
               f"tables/table1: a non-finite metric in {r}")
     naive = [r for r in res.runs if r.strategy == "asa_naive"]
-    print(f"tables/table1: runs={len(res.runs)} runs_equal_cpu="
-          f"{len(cpu.runs)} ({TABLE1_CPU_CENTER}) "
+    print(f"tables/table1: runs={len(res.runs)} ({TABLE1_CPU_CENTER}) "
+          f"runs_equal_cpu={len(cpu.runs)} "
           f"naive_misses={sum(r.misses for r in naive)} "
           f"naive_oh_h={sum(r.oh_hours for r in naive):.6f}")
     for strat, d in sorted(runner.summarize_table1(res).items()):
@@ -2278,29 +2422,27 @@ def check_trace(tag: str, grid, final, m: dict, n_steps: int,
     return h
 
 
-def traced_table1_faulty(grid_mod, families, policies, backfill,
-                         dev) -> int:
-    """Phase 13(a): phase 10's Table-1 setting with ASA-Naive under
-    ``faulty``, traced at the default capacity: kernel path against plain
-    path bitwise (rings included), the untraced run's state and launches
-    bit for bit once the ring is removed, every event kind, the
+def traced_table1_faulty(grid_mod, families, backfill, faulty: dict,
+                         plain: Worker, dev) -> int:
+    """Phase 13(a): phase 10's ``faulty`` run (its grid, warmed fleet and
+    ``pred_seed``), traced at the default capacity: kernel path against
+    plain path bitwise (rings included), phase 10's untraced state and
+    launches bit for bit once the ring is removed, every event kind, the
     replayed chain waits equal to ``twt_s`` on every ASA and ASA-Naive
     lane, a Chrome trace and JSONL written and validated. Returns the
-    kernel path's scan launches."""
+    kernel path's scan launches. (Until the model split came it warmed
+    its own estimators for 3 rounds and ran the untraced sweep again.)"""
     import tempfile
 
+    from repro_torch import convert
     from repro_torch.obs import export as obs_export
     from repro_torch.obs import metrics as obs_metrics
 
     tag = "traced/table1_faulty"
-    cfg = grid_mod.XSimConfig(n_warm=24, n_backlog=16, n_arrivals=24,
-                              max_stages=9, t0=3600.0)
-    kw = dict(n_seeds=4, shrink=1 / 64.0, policy_ids=(0, 1, 2, 3),
-              device=dev)
-    grid = families.family_grid(cfg.with_trace(), "faulty", **kw)
-    plain_grid = families.family_grid(cfg, "faulty", **kw)
-    fleet = policies.init_fleet(int(grid.geo_idx.max()) + 1, device=dev)
-    fleet = grid_mod.warm_fleet(fleet, plain_grid, rounds=3, device=dev)
+    plain_grid = faulty["grid"]
+    grid = families.family_grid(plain_grid.cfg.with_trace(), "faulty",
+                                **NAIVE_GRID, device=dev)
+    fleet = faulty["fleet"]
     torch.cuda.synchronize()
     reset_scan_counts(backfill)
     t0 = time.perf_counter()
@@ -2311,29 +2453,18 @@ def traced_table1_faulty(grid_mod, families, policies, backfill,
     designs = dict(backfill.DESIGN_LAUNCHES)
     check(launches > 0 and designs["fused"] == launches,
           f"{tag}: kernel path launches {launches}, by design {designs}")
-    backfill.KERNEL_LAUNCHES["freed_scan"] = 0
-    t0 = time.perf_counter()
-    fin_r, _ = grid_mod.run_grid(grid, fleet, pred_seed=7, freed_mode="ref",
-                                 device=dev)
-    torch.cuda.synchronize()
-    ref_s = time.perf_counter() - t0
-    check(backfill.KERNEL_LAUNCHES["freed_scan"] == 0,
-          f"{tag}: the plain path launched the kernel")
-    check(states_equal(fin_k, fin_r),
+    fin_r, ref_s, ref_launches, _ = plain.get("faulty_traced")
+    check(ref_launches == 0, f"{tag}: the plain path launched the kernel")
+    check(numpy_equal(convert.to_numpy(fin_k), fin_r),
           f"{tag}: kernel path and plain path differ (rings included)")
-    backfill.KERNEL_LAUNCHES["freed_scan"] = 0
-    t0 = time.perf_counter()
-    fin_u, _ = grid_mod.run_grid(plain_grid, fleet, pred_seed=7, device=dev)
-    torch.cuda.synchronize()
-    untraced_s = time.perf_counter() - t0
-    check(backfill.KERNEL_LAUNCHES["freed_scan"] == launches,
-          f"{tag}: the untraced run launched the scan "
-          f"{backfill.KERNEL_LAUNCHES['freed_scan']} times, the traced "
-          f"{launches}")
+    fin_u = faulty["final"]
+    check(faulty["launches"] == launches,
+          f"{tag}: phase 10's untraced run launched the scan "
+          f"{faulty['launches']} times, the traced {launches}")
     check(fin_u.trace is None and states_equal(fin_u,
                                                fin_k._replace(trace=None)),
-          f"{tag}: without its ring the state differs from the untraced "
-          "run's")
+          f"{tag}: without its ring the state differs from phase 10's "
+          "untraced run's")
     m = {k: v.cpu().numpy() for k, v in m_k.items()}
     counts = check_naive_faults_run(tag, "faulty", grid, fin_k, m)
     h = check_trace(tag, grid, fin_k, m_k, grid.cfg.n_steps,
@@ -2362,8 +2493,8 @@ def traced_table1_faulty(grid_mod, families, policies, backfill,
           f"{tag}: {rows} JSONL rows, {meta['events_total']} events")
     print(f"{tag}: B={grid.n} N={grid.cfg.max_jobs} "
           f"capacity={grid.cfg.trace_capacity} kernel_path_s={kern_s:.3f} "
-          f"plain_path_s={ref_s:.3f} untraced_s={untraced_s:.3f} "
-          f"bitwise_equal=True untraced_equal=True "
+          f"plain_path_s={ref_s:.3f} bitwise_equal=True "
+          f"untraced_equal=True (phase 10's run) "
           f"freed_scan_launches={launches} by_design={designs} "
           f"replayed_lanes={len(lanes)} chrome_events="
           f"{len(chrome['traceEvents'])} chrome_bytes={size} "
@@ -2378,40 +2509,72 @@ def traced_table1_faulty(grid_mod, families, policies, backfill,
 # phase 13(b)'s two profiled windows (untraced and traced), steps each:
 # cut from 16 to 4 for the smoke's time when phase 17 came
 TRACED_PROFILE_STEPS = 4
+# phase 13(b)'s traced sweep runs TRACED_LANES of the grid's 108 lanes,
+# those phase 4 drained in the fewest steps (all 108 until the model
+# split came: the smoke's time), held against the same lanes of phase
+# 4's run
+TRACED_LANES = 12
+
+
+def take_lanes(s, idx: torch.Tensor):
+    """The lanes ``idx`` of a batched port state (a NamedTuple of
+    tensors, ``est`` and ``trace`` NamedTuples of tensors inside)."""
+    return type(s)(*(None if v is None else
+                     type(v)(*(x[idx] for x in v)) if isinstance(v, tuple)
+                     else v[idx] for v in s))
 
 
 def traced_full_size(grid_mod, policies, backfill, events_mod, full: dict,
                      dev) -> int:
     """Phase 13(b): phase 4's full-size grid, traced at the default
-    capacity, one timed run against phase 4's untraced run (the state
-    bitwise once the ring is removed, the same scan launches), the
+    capacity, one timed run of ``TRACED_LANES`` of its lanes against the
+    same lanes of phase 4's untraced run (the state bitwise once the ring
+    is removed, the scan launches phase 4's loop runs over them), the
     summary on the card against the same summary on the CPU, its peak
-    memory, ``trace_meta``; then ``TRACED_PROFILE_STEPS`` profiled steps,
-    untraced and traced. Returns the run's scan launches."""
+    memory, ``trace_meta``; then ``TRACED_PROFILE_STEPS`` profiled steps
+    of the whole grid, untraced and traced. Returns the run's scan
+    launches."""
     from repro_torch.obs import export as obs_export
     from repro_torch.obs import metrics as obs_metrics
+
+    from repro_torch.xsim import compare as compare_mod
 
     tag = "traced/full"
     plain = full["grid"]
     cfg = plain.cfg.with_trace()
     grid = grid_mod.make_grid(cfg, shrink=1.0, policy_ids=(0, 1, 2),
                               n_seeds=2, device=dev)
+    # the lanes phase 4 drained first; the chunked loop runs the steps of
+    # its slowest, to the next chunk's end (events.simulate)
+    steps4 = full["final"].steps
+    lanes = torch.sort(torch.argsort(steps4, stable=True)[:TRACED_LANES]
+                       ).values
+    rem = cfg.n_steps % cfg.chunk_steps
+    want_launches = rem + cfg.chunk_steps * max(0, -(-(int(
+        steps4[lanes].max()) - rem) // cfg.chunk_steps))
+    ests = policies.scenario_estimators(
+        full["fleet"], torch.as_tensor(grid.geo_idx, device=dev), 1)
+    s0 = take_lanes(grid.build(ests), lanes)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_scan_counts(backfill)
     t0 = time.perf_counter()
-    final, m = grid_mod.run_grid(grid, full["fleet"], device=dev)
+    final = events_mod.sweep(s0, n_steps=cfg.n_steps,
+                             chunk_steps=cfg.chunk_steps,
+                             pred_mode=cfg.pred_mode, device=dev)
+    m = compare_mod.batched_metrics(final)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = backfill.KERNEL_LAUNCHES["freed_scan"]
     designs = dict(backfill.DESIGN_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    check(launches == full["launches"]["freed_scan"]
-          and designs == full["designs"],
-          f"{tag}: scan launches {launches} {designs}, untraced "
-          f"{full['launches']['freed_scan']} {full['designs']}")
-    check(states_equal(final._replace(trace=None), full["final"]),
-          f"{tag}: without its ring the state differs from phase 4's")
+    check(launches == want_launches and designs["fused"] == launches,
+          f"{tag}: scan launches {launches} {designs}, phase 4's loop "
+          f"over these lanes {want_launches}")
+    check(states_equal(final._replace(trace=None),
+                       take_lanes(full["final"], lanes)),
+          f"{tag}: without its ring the state differs from phase 4's "
+          f"same lanes")
     h = check_trace(tag, grid, final, m, cfg.n_steps,
                     ("submit", "start", "finish"))
     base = torch.cuda.memory_allocated()
@@ -2438,7 +2601,8 @@ def traced_full_size(grid_mod, policies, backfill, events_mod, full: dict,
                   f"{tag}: summary counter {k}: card {on_card[k]!r}, CPU "
                   f"{on_cpu[k]!r}")
     steps = final.steps.cpu().numpy()
-    print(f"{tag}: B={grid.n} N={cfg.max_jobs} "
+    print(f"{tag}: B={len(lanes)} of {grid.n} (the lanes phase 4 drained "
+          f"first: {lanes.tolist()}) N={cfg.max_jobs} "
           f"capacity={cfg.trace_capacity} run_s={run_s:.6f} "
           f"ms_per_step={run_s * 1e3 / int(steps.max()):.3f} "
           f"steps_max={int(steps.max())} freed_scan_launches={launches} "
@@ -2453,8 +2617,7 @@ def traced_full_size(grid_mod, policies, backfill, events_mod, full: dict,
           + " " + " ".join(f"{k}={on_card[k]}" for k in on_card
                            if k.startswith("ev_")))
     print(f"{tag}/trace_meta: {json.dumps(obs_export.trace_meta(final))}")
-    s0 = grid.build(policies.scenario_estimators(
-        full["fleet"], torch.as_tensor(grid.geo_idx, device=dev), 1))
+    s0 = grid.build(ests)
     t0 = time.perf_counter()
     for what, state in (("untraced", full["state"]), ("traced", s0)):
         device_profile(f"profile_{what}", lambda st=state: events_mod.simulate(
@@ -2996,7 +3159,8 @@ def rl_card_vs_cpu(events_mod, policy_mod, s0, fin_k, params, grid) -> None:
           "rl/card_vs_cpu: observations differ in lanes that agree")
 
 
-def rl_full_recipe(backfill, events_mod, dev) -> tuple[int, dict]:
+def rl_full_recipe(backfill, events_mod, plain: Worker, dev
+                   ) -> tuple[int, dict]:
     """Phase 15(a): ``rl.train.TrainConfig()``'s geometry (B=144, N=73):
     a warmed fleet, one sampled rollout through the kernel and through
     the plain scan, bitwise with the buffers; the card against the CPU
@@ -3006,26 +3170,19 @@ def rl_full_recipe(backfill, events_mod, dev) -> tuple[int, dict]:
     30-iteration recipe. Returns the
     kernel rollout's scan launches, and the rollout (grid, fleet, params,
     final state, trajectory) that phase 16(b) shards."""
-    from repro_torch.core import prng
+    from repro_torch import convert
     from repro_torch.obs import metrics as obs_metrics
     from repro_torch.rl import policy as rl_policy
-    from repro_torch.rl import rollout
     from repro_torch.rl import train as rl_train
-    from repro_torch.xsim import families, policies
-    from repro_torch.xsim.state import RL
+    from repro_torch.xsim import policies
 
     cfg = rl_train.TrainConfig()
     t0 = time.perf_counter()
-    fleet = rl_train.warmed_fleet(cfg, grid_seed=cfg.seed, device=dev)
+    fleet, params = rl_fleet_and_head(dev)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    params = rl_policy.init_params(prng.PRNGKey(cfg.seed, dev),
-                                   hidden=cfg.hidden, device=dev)
     t0 = time.perf_counter()
-    grid = families.family_grid(
-        cfg.sim, cfg.family, center_names=cfg.center_names,
-        workflows=cfg.workflows, policy_ids=(RL,), n_seeds=cfg.n_seeds,
-        shrink=cfg.shrink, seed=cfg.seed * 10_000 + 1, device=dev)
+    grid = rl_grid(dev)
     grid_s = time.perf_counter() - t0
     check(grid.n == 144 and grid.cfg.max_jobs == 73,
           f"rl: the training grid is {grid.n} x {grid.cfg.max_jobs}")
@@ -3034,25 +3191,17 @@ def rl_full_recipe(backfill, events_mod, dev) -> tuple[int, dict]:
 
     reset_scan_counts(backfill)
     t0 = time.perf_counter()
-    fin_k, m_k, traj = rollout.collect(grid, params, fleet, pred_seed=1,
-                                       rl_mode="sample",
-                                       oh_weight=cfg.oh_weight, device=dev)
+    fin_k, m_k, traj = rl_rollout(grid, params, fleet, dev)
     torch.cuda.synchronize()
     rollout_s = time.perf_counter() - t0
     launches = backfill.KERNEL_LAUNCHES["freed_scan"]
     designs = dict(backfill.DESIGN_LAUNCHES)
     check(launches > 0 and designs["fused"] == launches,
           f"rl/rollout: launches {launches}, by design {designs}")
-    backfill.KERNEL_LAUNCHES["freed_scan"] = 0
-    t0 = time.perf_counter()
-    fin_r, _, _ = rollout.collect(grid, params, fleet, pred_seed=1,
-                                  rl_mode="sample", freed_mode="ref",
-                                  device=dev)
-    torch.cuda.synchronize()
-    plain_s = time.perf_counter() - t0
-    check(backfill.KERNEL_LAUNCHES["freed_scan"] == 0,
+    fin_r, plain_s, plain_launches, _ = plain.get("rl_rollout")
+    check(plain_launches == 0,
           "rl/rollout: the plain path launched the kernel")
-    check(states_equal(fin_k, fin_r),
+    check(numpy_equal(convert.to_numpy(fin_k), fin_r),
           "rl/rollout: kernel path and plain path differ")
     m = {k: v.cpu().numpy() for k, v in m_k.items()}
     steps = fin_k.steps.cpu().numpy()
@@ -3197,22 +3346,22 @@ CAMPAIGN_STAGES = (("data-prep", 160, 1800.0, "-"),
 CAMPAIGN_SEEDS = dict(est=1, warm=41, sim=42)
 
 
-def metrics_equal(a: dict, b: dict) -> bool:
-    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
-
-
-def sharded_sweeps(faulty: dict, backfill, dev) -> int:
+def sharded_sweeps(faulty: dict, backfill, side: Worker, dev) -> int:
     """Phase 16(a): phase 10's ``faulty`` run (its grid, warmed fleet and
     ``pred_seed``) through ``run_grid(n_shards=1)`` and over a mesh of
-    ``SHARD_BLOCKS`` blocks on the card: final states and metrics bitwise
-    phase 10's, ``sharded_sweep_summary``'s counters equal to
-    ``sweep_summary``'s; over every card too where the host has more than
-    one. Returns the sharded runs' scan launches (all ``fused``)."""
+    ``SHARD_BLOCKS`` blocks on the card (both in ``side_runs``' worker):
+    final states and metrics bitwise phase 10's, ``sharded_sweep_summary``'s
+    counters equal to ``sweep_summary``'s; over every card too where the
+    host has more than one. Returns the sharded runs' scan launches (all
+    ``fused``)."""
+    from repro_torch import convert
     from repro_torch.launch.mesh import ScenariosMesh, make_scenarios_mesh
     from repro_torch.obs import metrics as obs_metrics
     from repro_torch.xsim import grid as grid_mod
 
     grid, want = faulty["grid"], faulty["final"]
+    want_np = convert.to_numpy(want)
+    want_m = {k: v.cpu().numpy() for k, v in faulty["metrics"].items()}
     meshes = {"n_shards=1": dict(n_shards=1),
               f"blocks={SHARD_BLOCKS}": dict(
                   mesh=ScenariosMesh([dev] * SHARD_BLOCKS))}
@@ -3222,20 +3371,26 @@ def sharded_sweeps(faulty: dict, backfill, dev) -> int:
     else:
         print(f"sharded/multi_card: not run (torch.cuda.device_count() == "
               f"{n_cards}): every block of this phase lies on one card")
-    reset_scan_counts(backfill)
+    designs = {"fused": 0, "presorted": 0}
     for tag, kw in meshes.items():
-        t0 = time.perf_counter()
-        fin, m = grid_mod.run_grid(grid, faulty["fleet"],
-                                   pred_seed=faulty["pred_seed"], device=dev,
-                                   **kw)
-        torch.cuda.synchronize()
-        run_s = time.perf_counter() - t0
-        check(states_equal(fin, want) and metrics_equal(m, faulty["metrics"]),
+        if tag.startswith("cards="):
+            reset_scan_counts(backfill)
+            t0 = time.perf_counter()
+            fin, m = grid_mod.run_grid(grid, faulty["fleet"],
+                                       pred_seed=faulty["pred_seed"],
+                                       device=dev, **kw)
+            torch.cuda.synchronize()
+            fin = convert.to_numpy(fin)
+            m = {k: v.cpu().numpy() for k, v in m.items()}
+            run_s, by = time.perf_counter() - t0, backfill.DESIGN_LAUNCHES
+        else:
+            fin, run_s, by, m = side.get(f"sharded_{tag}")
+        designs = {k: designs[k] + by[k] for k in designs}
+        check(numpy_equal(fin, want_np) and numpy_equal(m, want_m),
               f"sharded/{tag}: the sharded sweep differs from phase 10's")
         print(f"sharded/{tag}: B={grid.n} N={grid.cfg.max_jobs} "
               f"run_s={run_s:.6f} bitwise_equal=True")
-    launches = backfill.KERNEL_LAUNCHES["freed_scan"]
-    designs = dict(backfill.DESIGN_LAUNCHES)
+    launches = sum(designs.values())
     check(launches > 0 and designs["fused"] == launches,
           f"sharded: scan launches {launches}, by design {designs}")
     n_steps = grid.cfg.n_steps
@@ -3257,27 +3412,20 @@ def sharded_sweeps(faulty: dict, backfill, dev) -> int:
     return launches
 
 
-def sharded_rollout(rl_run: dict, backfill, dev) -> int:
+def sharded_rollout(rl_run: dict, side: Worker) -> int:
     """Phase 16(b): phase 15(a)'s rollout over ``ROLLOUT_SHARD_BLOCKS``
-    blocks on the card: bitwise in every field, ``rl_obs``/``rl_act``
-    included, and the trajectory too. Returns its scan launches."""
-    from repro_torch.launch.mesh import ScenariosMesh
-    from repro_torch.rl import rollout
+    blocks on the card (in ``side_runs``' worker): bitwise in every
+    field, ``rl_obs``/``rl_act`` included, and the trajectory too.
+    Returns its scan launches."""
+    from repro_torch import convert
 
-    reset_scan_counts(backfill)
-    t0 = time.perf_counter()
-    fin, _m, traj = rollout.collect(
-        rl_run["grid"], rl_run["params"], rl_run["fleet"], pred_seed=1,
-        rl_mode="sample", oh_weight=rl_run["oh_weight"],
-        mesh=ScenariosMesh([dev] * ROLLOUT_SHARD_BLOCKS), device=dev)
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
-    launches = backfill.KERNEL_LAUNCHES["freed_scan"]
-    designs = dict(backfill.DESIGN_LAUNCHES)
+    fin, run_s, designs, traj = side.get("rollout_sharded")
+    launches = sum(designs.values())
     check(launches > 0 and designs["fused"] == launches,
           f"sharded_rollout: launches {launches}, by design {designs}")
-    check(states_equal(fin, rl_run["final"])
-          and all(torch.equal(a, b) for a, b in zip(traj, rl_run["traj"])),
+    check(numpy_equal(fin, convert.to_numpy(rl_run["final"]))
+          and all(torch.equal(a, b.cpu())
+                  for a, b in zip(traj, rl_run["traj"])),
           "sharded_rollout: the sharded rollout differs from phase 15(a)'s")
     print(f"sharded_rollout: B={rl_run['grid'].n} "
           f"blocks={ROLLOUT_SHARD_BLOCKS} rollout_s={run_s:.6f} "
@@ -3413,13 +3561,13 @@ def campaign_on_card(dev) -> None:
 
 
 def sharded_and_campaign(faulty: dict, rl_run: dict, events, backfill,
-                         dev) -> dict:
+                         side: Worker, dev) -> dict:
     """Phase 16, (a)-(d), each part's seconds printed. Returns the scan's
     launches by path."""
     paths, t0 = {}, time.perf_counter()
-    paths["sweep/sharded"] = sharded_sweeps(faulty, backfill, dev)
+    paths["sweep/sharded"] = sharded_sweeps(faulty, backfill, side, dev)
     t1 = time.perf_counter()
-    paths["rl/rollout_sharded"] = sharded_rollout(rl_run, backfill, dev)
+    paths["rl/rollout_sharded"] = sharded_rollout(rl_run, side)
     t2 = time.perf_counter()
     sharded_service(events, dev)
     t3 = time.perf_counter()
@@ -3479,7 +3627,7 @@ def train_restart(dev, arch: str = TRAIN_ARCH,
                   layers: int | None = TRAIN_RESTART_LAYERS,
                   batch: int = TRAIN_BATCH, tag: str = "train/restart"
                   ) -> None:
-    """Phases 17(a), 19(c) and 20(d): ``launch.train.train`` at published
+    """Phases 17(a) and 19(c): ``launch.train.train`` at published
     width, its depth cut to ``layers`` (None: the published depth),
     restarted from its checkpoint, against the uninterrupted run. The
     checkpoints are written with zlib's stored blocks (level 0): the check
@@ -3722,16 +3870,18 @@ HYBRID_F32_LAYERS = 12
 # prompt), in float32 at published width: arch, batch, prompt, new
 # tokens, depth. 12 layers keep the published period of 6 and give two
 # shared-block invocations, each with its own KV ring (4 layers at that
-# period would have none); 500 = 3 × 128 + 116, so a 384-token block and
-# a 116-token tail taken one token at a time. Held: logits (largest |Δ|,
+# period would have none); 244 = 128 + 116, so a 128-token block and a
+# 116-token tail taken one token at a time (500 = 3 × 128 + 116 until the
+# model split came: the token-by-token route's 500 steps, the smoke's
+# time). Held: logits (largest |Δ|,
 # rms(Δ)/rms), each part of the state after the prompt (its largest |Δ|
 # over its largest |value|), every greedy token equal. Measured on an
 # H100: logits 7.0e-5 and 1.5e-5, states 1.4e-5 (conv) to 6.7e-5 (the
 # keys): the two routes sum in float32 in other orders (chunked SSD and
 # a 2048-wide block against 500 one-step recurrences), which 12 layers
 # at d2048 amplify past the 8.1e-6 the CPU test reads at d64. The limits
-# are about ten times the readings, the float32 limits of (b).
-HYBRID_E2E = ("zamba2-1.2b", 4, 500, 8, 12)
+# are about ten times the readings at 500, the float32 limits of (b).
+HYBRID_E2E = ("zamba2-1.2b", 4, 244, 8, 12)
 HYBRID_E2E_TOL = dict(logits=(5e-4, 1e-4), state=5e-4)
 # (d) Training: arch, depth (None: the published 38), batch; through
 # kernel_route_loss as phase 17(b), seconds a step timed, a step through
@@ -4143,39 +4293,36 @@ def audio_float32_full_depth(dev) -> None:
         f"tolerance")
 
 
-def audio_frames_card_vs_cpu(dev) -> None:
+def audio_frames_card_vs_cpu(dev, cpu: Worker) -> None:
     """Phase 19(d): the training batch's frames on the card (through
-    ``make_batch_fn``) against the same ``prng.normal`` draw on the CPU,
-    bitwise, in bfloat16 and float32."""
+    ``make_batch_fn``) against the same ``prng.normal`` draw on the CPU
+    (``_frames_cpu``, in the CPU references' worker), bitwise, in
+    bfloat16 and float32."""
     from repro_torch.configs import ARCHS, ShapeSpec
-    from repro_torch.core import prng
     from repro_torch.models.lm import act_dtype
     from repro_torch.train.data import make_batch_fn
 
     arch, _, batch = AUDIO_TRAIN
-    seed, step = 0, 1
     for dtype in ("bfloat16", "float32"):
         cfg = dataclasses.replace(ARCHS[arch], dtype=dtype)
         t0 = time.perf_counter()
         got = make_batch_fn(cfg, ShapeSpec("smoke", TRAIN_SEQ, batch,
-                                           "train"), seed=seed,
-                            device=dev)(step)["frames"]
+                                           "train"), seed=0,
+                            device=dev)(1)["frames"]
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        key = prng.fold_in(prng.PRNGKey(seed ^ 7), step)
-        want = prng.normal(key, tuple(got.shape), dtype=act_dtype(cfg))
-        t2 = time.perf_counter()
+        want, cpu_s = cpu.get(f"frames_{dtype}")
         equal = torch.equal(got.cpu(), want)
         print(f"prng/audio_frames_{dtype}: {tuple(got.shape)} "
               f"bitwise_equal_cpu={equal} batch_on_card_s={t1 - t0:.3f} "
-              f"frames_on_cpu_s={t2 - t1:.3f} mean={float(want.mean()):.6f} "
+              f"frames_on_cpu_s={cpu_s:.3f} mean={float(want.mean()):.6f} "
               f"std={float(want.float().std()):.6f}")
         check(got.dtype == want.dtype == act_dtype(cfg) and equal,
               f"prng/audio_frames_{dtype}: the card's frames differ from "
               f"the CPU route's")
 
 
-def audio_on_card(dev) -> dict:
+def audio_on_card(dev, cpu: Worker | None = None) -> dict:
     """Phase 19, row 2d and (a)-(d), each part's seconds printed. Returns
     the flash launches by path (serve/audio, the main path of (a), and
     train/audio_kernel_loss of (c)) and row 2d."""
@@ -4193,7 +4340,7 @@ def audio_on_card(dev) -> dict:
                   tag="train/audio_restart")
     torch.cuda.empty_cache()
     t4 = time.perf_counter()
-    audio_frames_card_vs_cpu(dev)
+    audio_frames_card_vs_cpu(dev, cpu or Worker(cpu_references))
     t5 = time.perf_counter()
     print(f"phase19/seconds: row_2d={t1 - t0:.3f} a_b_bf16={t2 - t1:.3f} "
           f"b_f32={t3 - t2:.3f} c={t4 - t3:.3f} d={t5 - t4:.3f}")
@@ -4219,16 +4366,14 @@ def audio_on_card(dev) -> dict:
 # limits) and every greedy token equal. (d) Training at published width
 # cut to 4 layers (2.43 G parameters: 39 GB of float32 parameters,
 # gradients, m and v), batch 2, 1024 patches and 1024 tokens, through
-# kernel_route_loss as phase 17(b); then launch.train restarted from its
-# step-2 checkpoint at VLM_RESTART_LAYERS layers: the untied embedding and
-# head alone are 1.34 G parameters, a 16 GB checkpoint of parameters, m
-# and v at any depth, so the restart keeps none of the 40 layers (one
-# until the split-mesh phase came: its 3.3 GB of the checkpoint, about
-# 15 s of the smoke's time; the layers are qwen2's, restarted in phase
-# 17(a)) and writes its checkpoint with zlib's stored blocks (level 0).
-# The restart still runs the VLM route: the patch embeddings of each
-# step's batch prepended, the loss over the token rows. (e) The batches' patch embeddings on the card against the CPU
-# route, bitwise, in bfloat16 and float32. (f) core.xla_f32 over
+# kernel_route_loss as phase 17(b). Its launch.train restart went when
+# the model split came (the smoke's time: the untied embedding and head
+# alone make a 16 GB checkpoint of parameters, m and v at any depth, about
+# 68 s to save and restore): launch.train's restart is held on the card
+# by phases 17(a) and 19(c), the VLM route's by
+# tests/test_torch_vlm.py. (e) The batches' patch embeddings on the card
+# against the CPU route, bitwise, in bfloat16 and float32. (f)
+# core.xla_f32 over
 # XLA_F32_N inputs on the card against the CPU, bitwise. (g) The dry
 # run's plan of qwen2-0.5b's train_4k on a (1, 1) mesh at a batch of
 # DRYRUN_BATCH: its argument bytes against the bytes the card's allocator
@@ -4240,7 +4385,6 @@ VLM_PREFILL = ("pixtral-12b", 4, 1024, 1024)     # batch, patches, prompt
 VLM_F32 = ("pixtral-12b", 4, 1024, 8, 4)         # batch, prompt, gen, depth
 VLM_F32_TOL = AUDIO_F32_TOL
 VLM_TRAIN = ("pixtral-12b", 4, 2)
-VLM_RESTART_LAYERS = 0
 TIMED_TRAIN_ARCHS = (TRAIN_ARCH, HYBRID_TRAIN[0], AUDIO_TRAIN[0],
                      VLM_TRAIN[0])
 XLA_F32_N = 10 ** 7
@@ -4367,33 +4511,27 @@ def vlm_float32_cut(dev) -> None:
         f"tolerance")
 
 
-def vlm_patches_card_vs_cpu(dev) -> None:
+def vlm_patches_card_vs_cpu(dev, cpu: Worker) -> None:
     """Phase 20(e): the training batch's patch embeddings on the card
-    (through ``make_batch_fn``) against the same draw on the CPU,
-    bitwise, in bfloat16 and float32."""
-    from repro_torch.configs import ARCHS, ShapeSpec
-    from repro_torch.train.data import make_batch_fn
+    (through ``make_batch_fn``) against the same draw on the CPU (in the
+    CPU references' worker), bitwise, in bfloat16 and float32."""
+    from repro_torch.configs import ARCHS
 
-    arch = VLM_TRAIN[0]
-    batch = 1        # the CPU's draw of a row takes about 4 s
-    shape = ShapeSpec("smoke", 32, batch, "train")
     for dtype in ("bfloat16", "float32"):
-        cfg = dataclasses.replace(ARCHS[arch], dtype=dtype)
+        cfg = dataclasses.replace(ARCHS[VLM_TRAIN[0]], dtype=dtype)
         t0 = time.perf_counter()
-        got = make_batch_fn(cfg, shape, seed=0, device=dev)(1)
+        got = _vlm_batch(dtype, dev)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        want = make_batch_fn(cfg, shape, seed=0, device="cpu")(1)
-        t2 = time.perf_counter()
+        want, cpu_s = cpu.get(f"patches_{dtype}")
         equal = all(torch.equal(got[k].cpu(), want[k]) for k in want)
         pe = want["patch_embeds"]
         print(f"prng/vlm_patch_embeds_{dtype}: {tuple(pe.shape)} "
               f"bitwise_equal_cpu={equal} batch_on_card_s={t1 - t0:.3f} "
-              f"batch_on_cpu_s={t2 - t1:.3f} "
+              f"batch_on_cpu_s={cpu_s:.3f} "
               f"mean={float(pe.float().mean()):.6f} "
               f"std={float(pe.float().std()):.6f}")
-        check(equal and pe.shape == (batch, cfg.encoder.n_frames,
-                                     cfg.d_model),
+        check(equal and pe.shape == (1, cfg.encoder.n_frames, cfg.d_model),
               f"prng/vlm_patch_embeds_{dtype}: the card's batch differs "
               f"from the CPU route's")
 
@@ -4493,7 +4631,7 @@ def dryrun_vs_card(dev) -> None:
           f"plan's {want}")
 
 
-def vlm_on_card(dev) -> dict:
+def vlm_on_card(dev, cpu: Worker | None = None) -> dict:
     """Phase 20, (a)-(g), each part's seconds printed. Returns the flash
     launches by path (serve/vlm, the main path of (a), and
     train/vlm_kernel_loss of (d)) and row 2e."""
@@ -4507,16 +4645,12 @@ def vlm_on_card(dev) -> dict:
     arch, layers, batch = VLM_TRAIN
     print(f"train/vlm/cut: {layers} of 40 layers at published width (the "
           f"float32 parameters, gradients, m and v of 40 layers, about 195 "
-          f"GB, do not fit one card); the restart at {VLM_RESTART_LAYERS} "
-          f"layers (the untied embedding and head make a 16 GB checkpoint "
-          f"at any depth)")
+          f"GB, do not fit one card); no restart (a 16 GB checkpoint at "
+          f"any depth; phases 17(a) and 19(c) restart launch.train)")
     launches = kernel_route_loss(arch, layers, batch, dev)
     torch.cuda.empty_cache()
-    train_restart(dev, arch=arch, layers=VLM_RESTART_LAYERS, batch=batch,
-                  tag="train/vlm_restart")
-    torch.cuda.empty_cache()
     t4 = time.perf_counter()
-    vlm_patches_card_vs_cpu(dev)
+    vlm_patches_card_vs_cpu(dev, cpu or Worker(cpu_references))
     t5 = time.perf_counter()
     xla_f32_card_vs_cpu(dev)
     t6 = time.perf_counter()
@@ -4526,6 +4660,104 @@ def vlm_on_card(dev) -> dict:
           f"c_f32={t3 - t2:.3f} d={t4 - t3:.3f} e={t5 - t4:.3f} "
           f"f={t6 - t5:.3f} g={t7 - t6:.3f}")
     return dict(served=served, train=launches, flash_row=row)
+
+
+# The CPU sides of phases 19(d), 20(e) and 21(a) (the batches' frames and
+# patch embeddings and XLA's log1p, a normal and an exponential draw, on
+# the CPU: about 33 s of the card's host) run in a worker process that
+# starts after phase 1 and takes CPU_REF_THREADS threads, while the main
+# process drives the card (in the main process, each beside its card leg,
+# until the model split came: the smoke's time).
+CPU_REF_THREADS = 2
+
+
+def _frames_cpu(dtype: str) -> torch.Tensor:
+    """Phase 19(d)'s frames, drawn on the CPU as ``make_batch_fn`` draws
+    them on the card."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import prng
+    from repro_torch.models.lm import act_dtype
+
+    arch, _, batch = AUDIO_TRAIN
+    cfg = dataclasses.replace(ARCHS[arch], dtype=dtype)
+    key = prng.fold_in(prng.PRNGKey(0 ^ 7), 1)   # seed 0, step 1
+    return prng.normal(key, (batch, cfg.encoder.n_frames, cfg.d_model),
+                       dtype=act_dtype(cfg))
+
+
+def _vlm_batch(dtype: str, device) -> dict:
+    """Phase 20(e)'s batch (1 row, step 1) of ``make_batch_fn``."""
+    from repro_torch.configs import ARCHS, ShapeSpec
+    from repro_torch.train.data import make_batch_fn
+
+    cfg = dataclasses.replace(ARCHS[VLM_TRAIN[0]], dtype=dtype)
+    return make_batch_fn(cfg, ShapeSpec("smoke", 32, 1, "train"), seed=0,
+                         device=device)(1)
+
+
+def _log1p_inputs() -> torch.Tensor:
+    return torch.from_numpy(np.arange(0, 1 << 32, SHARDED_LOG1P_STRIDE,
+                                      dtype=np.uint64).astype(np.uint32)
+                            .view(np.float32))
+
+
+def cpu_references(path: str) -> None:
+    """The worker: each CPU side and its seconds, saved to ``path``."""
+    sys.path.insert(0, str(SRC))
+    torch.set_num_threads(CPU_REF_THREADS)
+    from repro_torch.core import prng, xla_f32
+
+    refs = {}
+    work = [(f"frames_{d}", lambda d=d: _frames_cpu(d))
+            for d in ("bfloat16", "float32")]
+    work += [(f"patches_{d}", lambda d=d: _vlm_batch(d, "cpu"))
+             for d in ("bfloat16", "float32")]
+    work += [("log1p", lambda: xla_f32.log1p(_log1p_inputs()))]
+    work += [(draw.__name__, lambda draw=draw: draw(prng.PRNGKey(29),
+                                                    (SHARDED_DRAWS,)))
+             for draw in (prng.normal, prng.exponential)]
+    for name, fn in work:
+        t0 = time.perf_counter()
+        refs[name] = (fn(), time.perf_counter() - t0)
+    torch.save(refs, path)
+
+
+class Worker:
+    """``target(path)`` in a worker process (spawned, a daemon: it ends
+    with the smoke) that saves a dict of results to ``path``;
+    ``get(name)`` waits for the worker at the first call and returns the
+    result ``name``."""
+
+    def __init__(self, target):
+        import multiprocessing
+        import tempfile
+
+        self.name = target.__name__
+        self.path = str(Path(tempfile.gettempdir()) /
+                        f"chip_smoke_{self.name}_{time.time_ns()}.pt")
+        self.proc = multiprocessing.get_context("spawn").Process(
+            target=target, args=(self.path,), daemon=True)
+        self.proc.start()
+        self.results = None
+
+    def get(self, name: str):
+        if self.results is None:
+            t0 = time.perf_counter()
+            self.proc.join(timeout=900)
+            check(self.proc.exitcode == 0,
+                  f"the {self.name} worker ended with {self.proc.exitcode}")
+            self.results = torch.load(self.path, weights_only=False)
+            Path(self.path).unlink()
+            print(f"{self.name}: waited_s={time.perf_counter() - t0:.3f} "
+                  + " ".join(f"{k}_s={v[1]:.3f}"
+                             for k, v in self.results.items()))
+        return self.results[name]
+
+    def close(self) -> None:
+        if self.proc.is_alive():
+            self.proc.terminate()
+            self.proc.join(timeout=30)
+        Path(self.path).unlink(missing_ok=True)
 
 
 # phase 21: training with parameters split over a (data, model) mesh of
@@ -4538,25 +4770,35 @@ SHARDED_LOG1P_STRIDE = 256
 SHARDED_DRAWS = 1 << 20
 # (b) qwen2-0.5b at published width and depth, phase 17's batch: 3 steps
 # on a (2, 2) mesh against 3 steps of make_train_step(accum=2) on the
-# unsplit card route, from the same weights and batches (drawn once),
-# bitwise (losses, grad norms, then every parameter, m and v); (c) a
-# (1, 2) mesh against the unsplit step, 2 steps, bitwise. The split step
-# gathers a layer at a time and sums each gradient into its blocks, so
-# its peak is held to at most the other route's plus the bytes of the
-# shards that repeat a block (parameters, m, v) and of the largest
-# layer's and the top-level leaves' gathers.
+# unsplit card route, from the same weights and batches (drawn once);
+# (c) a (1, 2) mesh against the unsplit step, 2 steps. On both each
+# layer's compute is split over ``model`` (parallel.model_split: the
+# positions' partial sums added in position order), so the losses and
+# grad norms are held within TRAIN_KERNEL_REL (phase 17(b)'s gate) of
+# the other route's and the largest parameter, m and v differences are
+# printed. The split step gathers a (layer, position) block at a time and
+# sums each gradient into its blocks, so its peak is held to at most the
+# other route's plus the bytes of the shards that repeat a block
+# (parameters, m, v) and of the largest layer's and the top-level
+# leaves' gathers. (f) A (2, 1) mesh, no compute split, at
+# SPLIT_ROWS_LAYERS layers: 2 steps bitwise accum=2 (losses, grad norms,
+# parameters, m, v).
 SHARDED_STEPS = 3
+SPLIT_ROWS_LAYERS = 4
 # (b) also runs, on (2, 2), SPLIT_TIMED_ROUNDS rounds of one more step of
 # the accum route, the split route and the split route with its
 # gathers-again hooks off, then one profiled step of each: where the
 # split route's time goes (split_step_launches).
 SPLIT_TIMED_ROUNDS = 2
 # (d) launch.train at published width cut to SHARDED_RESTART_LAYERS
-# layers, saved on (2, 2) at step 2 (zlib level 0), resumed onto (4, 1)
-# and onto (1, 1) for 2 more steps, each continuation's losses bitwise
-# the accum=4 / accum=1 steps from the same checkpoint; (e) apply_resize
-# (2, 2) -> (4, 1) of that state, every shard bitwise.
+# layers and sequences of SHARDED_RESTART_SEQ (1024 until the model split
+# came: a batch's draws over the vocabulary took 0.74 s, eight batches
+# of the smoke's time), saved on (2, 2) at step 2 (zlib level 0), resumed
+# onto (4, 1) and onto (1, 1) for 2 more steps, each continuation's
+# losses bitwise the accum=4 / accum=1 steps from the same checkpoint;
+# (e) apply_resize (2, 2) -> (4, 1) of that state, every shard bitwise.
 SHARDED_RESTART_LAYERS = 2
+SHARDED_RESTART_SEQ = 256
 
 
 def card_mesh(dev, data: int, model: int):
@@ -4567,25 +4809,23 @@ def card_mesh(dev, data: int, model: int):
     return DeviceMesh(grid, ("data", "model"))
 
 
-def log1p_card_vs_cpu(dev) -> None:
+def log1p_card_vs_cpu(dev, cpu: Worker) -> None:
     """Phase 21(a)."""
     from repro_torch.core import prng, xla_f32
 
-    x = torch.from_numpy(np.arange(0, 1 << 32, SHARDED_LOG1P_STRIDE,
-                                   dtype=np.uint64).astype(np.uint32)
-                         .view(np.float32))
+    x = _log1p_inputs()
     t0 = time.perf_counter()
     got = xla_f32.log1p(x.to(dev))
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    want = xla_f32.log1p(x)
-    t2 = time.perf_counter()
+    want, cpu_s = cpu.get("log1p")
     got = got.cpu()
     same = (got.view(torch.int32) == want.view(torch.int32)) | (
         torch.isnan(got) & torch.isnan(want))
     print(f"xla_f32/log1p: inputs={x.numel()} (every "
           f"{SHARDED_LOG1P_STRIDE}th bit pattern) bitwise_equal_cpu="
-          f"{bool(same.all())} card_s={t1 - t0:.3f} cpu_s={t2 - t1:.3f}")
+          f"{bool(same.all())} card_s={t1 - t0:.3f} cpu_s={cpu_s:.3f} "
+          f"(the worker's)")
     check(bool(same.all()), f"xla_f32/log1p: {int((~same).sum())} results "
           f"differ between the card and the CPU")
     for draw in (prng.normal, prng.exponential):
@@ -4594,12 +4834,11 @@ def log1p_card_vs_cpu(dev) -> None:
         got = draw(key.to(dev), (SHARDED_DRAWS,))
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        want = draw(key, (SHARDED_DRAWS,))
-        t2 = time.perf_counter()
+        want, cpu_s = cpu.get(draw.__name__)
         equal = torch.equal(got.cpu(), want)
         print(f"prng/{draw.__name__}: draws={SHARDED_DRAWS} "
               f"bitwise_equal_cpu={equal} card_s={t1 - t0:.3f} "
-              f"cpu_s={t2 - t1:.3f}")
+              f"cpu_s={cpu_s:.3f}")
         check(equal, f"prng/{draw.__name__}: the card's draw differs from "
               f"the CPU's")
 
@@ -4757,6 +4996,61 @@ def _trees_equal(got, want) -> bool:
         OPT.leaves(gather_tree(got)), OPT.leaves(want)))
 
 
+def _trees_diff(got, want) -> float:
+    """The largest |Δ| over every leaf of a split tree and a whole one."""
+    from repro_torch.parallel.sharding import gather_tree
+    from repro_torch.train import optimizer as OPT
+
+    return max(float((a.float() - b.float()).abs().max()) for a, b in zip(
+        OPT.leaves(gather_tree(got)), OPT.leaves(want)))
+
+
+def split_rows_bitwise(dev) -> None:
+    """Phase 21(f): no ``model`` split, so the split step is bitwise the
+    accumulating one."""
+    from repro_torch.configs import ARCHS, ShapeSpec
+    from repro_torch.parallel.sharding import ShardingRules, place
+    from repro_torch.train import optimizer as OPT
+    from repro_torch.train import step as TS
+    from repro_torch.train.data import make_batch_fn
+
+    tag = "train/split_2x1"
+    cfg = dataclasses.replace(ARCHS[TRAIN_ARCH], n_layers=SPLIT_ROWS_LAYERS)
+    base = OPT.tree_map(lambda p: p.float(),
+                        TS.init_params(cfg, seed=0, device=dev))
+    batch_fn = make_batch_fn(cfg, ShapeSpec("smoke", TRAIN_SEQ, TRAIN_BATCH,
+                                            "train"), seed=0, device=dev)
+    batches = [batch_fn(i) for i in range(2)]
+    mesh = card_mesh(dev, 2, 1)
+
+    def unsplit():
+        p = OPT.tree_map(lambda x: x.clone(), base)
+        return p, OPT.init(p)
+
+    def split():
+        sp = place(OPT.tree_map(lambda x: x.clone(), base),
+                   ShardingRules(mesh).tree_shardings(base))
+        return sp, OPT.init(sp)
+
+    ref = _timed_steps(TS.make_train_step(cfg, accum=2, remat="none"),
+                       unsplit, batches)
+    got = _timed_steps(TS.make_train_step(cfg, remat="none"), split,
+                       batches)
+    same = (all(torch.equal(a, b) for i in (2, 3)
+                for a, b in zip(got[i], ref[i]))
+            and all(_trees_equal(g, r) for g, r in (
+                (got[0], ref[0]), (got[1].m, ref[1].m),
+                (got[1].v, ref[1].v))))
+    print(f"{tag}: arch={TRAIN_ARCH} layers={cfg.n_layers} "
+          f"batch={TRAIN_BATCH} seq={TRAIN_SEQ} steps=2 "
+          f"losses={[float(x) for x in got[2]]} bitwise_accum_2={same} "
+          f"step_s={[round(t, 6) for t in got[4]]} "
+          f"accum_step_s={[round(t, 6) for t in ref[4]]}")
+    check(same, f"{tag}: the (2, 1) split step is not bitwise accum=2")
+    del ref, got
+    torch.cuda.empty_cache()
+
+
 def split_steps(dev) -> None:
     """Phase 21(b) and (c)."""
     from repro_torch.configs import ARCHS, ShapeSpec
@@ -4795,21 +5089,26 @@ def split_steps(dev) -> None:
         n_split = sum(isinstance(x, ShardedTensor)
                       for x in OPT.leaves(got[0]))
         losses = [float(x) for x in got[2]]
-        check(all(torch.equal(a, b) for a, b in zip(got[2], ref[2]))
-              and all(torch.equal(a, b) for a, b in zip(got[3], ref[3])),
-              f"{tag}: losses {losses} or grad norms differ from the "
-              f"accum={data} route's {[float(x) for x in ref[2]]}")
-        equal = [_trees_equal(g, r) for g, r in ((got[0], ref[0]),
-                                                 (got[1].m, ref[1].m),
-                                                 (got[1].v, ref[1].v))]
-        check(all(equal), f"{tag}: parameters, m, v equal {equal} to the "
-              f"accum={data} route's after {n} steps")
+        rel = max(abs(float(a) - float(b)) / abs(float(b))
+                  for i in (2, 3) for a, b in zip(got[i], ref[i]))
+        check(rel <= TRAIN_KERNEL_REL,
+              f"{tag}: losses {losses} or grad norms "
+              f"{[float(x) for x in got[3]]} lie {rel:.3g} from the "
+              f"accum={data} route's {[float(x) for x in ref[2]]} "
+              f"{[float(x) for x in ref[3]]}")
+        diffs = [_trees_diff(g, r) for g, r in ((got[0], ref[0]),
+                                                (got[1].m, ref[1].m),
+                                                (got[1].v, ref[1].v))]
         replicated = _replicated_bytes(got[0], got[1].m, got[1].v)
         tree_use, gathered = _gather_bytes(cfg, got[0])
         print(f"{tag}: arch={TRAIN_ARCH} layers={cfg.n_layers} "
               f"batch={TRAIN_BATCH} seq={TRAIN_SEQ} steps={n} "
               f"split_leaves={n_split} of {len(OPT.leaves(got[0]))} "
-              f"losses={losses} bitwise_accum_{data}=True "
+              f"losses={losses} accum_{data}_losses="
+              f"{[float(x) for x in ref[2]]} grad_norms="
+              f"{[float(x) for x in got[3]]} accum_{data}_grad_norms="
+              f"{[float(x) for x in ref[3]]} largest_rel={rel:.3g} "
+              f"max_abs_diff_params_m_v={diffs} "
               f"step_s={[round(t, 6) for t in got[4]]} "
               f"accum_step_s={[round(t, 6) for t in ref[4]]} "
               f"peak_mem_bytes={got[5]} accum_peak_mem_bytes={ref[5]} "
@@ -4853,8 +5152,8 @@ def elastic_restart(dev) -> None:
 
     cfg = dataclasses.replace(ARCHS[TRAIN_ARCH],
                               n_layers=SHARDED_RESTART_LAYERS)
-    run = dict(reduced=False, batch=TRAIN_BATCH, seq=TRAIN_SEQ, log_every=1,
-               device=str(dev))
+    run = dict(reduced=False, batch=TRAIN_BATCH, seq=SHARDED_RESTART_SEQ,
+               log_every=1, device=str(dev))
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_split_"))
     try:
         with patched((launch_train, "ARCHS",
@@ -4874,9 +5173,9 @@ def elastic_restart(dev) -> None:
             o = OPT.init(p)
             state = ckpt.restore({"params": p, "m": o.m, "v": o.v,
                                   "step": o.step}, tmp / "a", 2, device=dev)
-            batch_fn = make_batch_fn(cfg, ShapeSpec("custom", TRAIN_SEQ,
-                                                    TRAIN_BATCH, "train"),
-                                     seed=0, device=dev)
+            batch_fn = make_batch_fn(cfg, ShapeSpec(
+                "custom", SHARDED_RESTART_SEQ, TRAIN_BATCH, "train"), seed=0,
+                device=dev)
             batches = [batch_fn(s) for s in (2, 3)]
             for (data, model), accum in (((4, 1), 4), ((1, 1), 1)):
                 tag = f"train/elastic_2x2_to_{data}x{model}"
@@ -4904,7 +5203,8 @@ def elastic_restart(dev) -> None:
                       f"{tag}: the continuation's losses {got['losses']} "
                       f"differ from the accum={accum} steps' {want}")
                 print(f"{tag}: layers={cfg.n_layers} batch={TRAIN_BATCH} "
-                      f"seq={TRAIN_SEQ} first_losses={first['losses']} "
+                      f"seq={SHARDED_RESTART_SEQ} "
+                      f"first_losses={first['losses']} "
                       f"losses={got['losses']} bitwise_accum_{accum}=True "
                       f"resume_s={resume_s:.3f} save_run_s={save_s:.3f} "
                       f"checkpoint_bytes={ckpt_bytes}")
@@ -4935,18 +5235,20 @@ def elastic_restart(dev) -> None:
           f"bitwise=True resize_s={resize_s:.3f}")
 
 
-def sharded_training_on_card(dev) -> None:
-    """Phase 21, (a)-(e), each part's seconds printed."""
+def sharded_training_on_card(dev, cpu: Worker | None = None) -> None:
+    """Phase 21, (a)-(f), each part's seconds printed."""
     t0 = time.perf_counter()
-    log1p_card_vs_cpu(dev)
+    log1p_card_vs_cpu(dev, cpu or Worker(cpu_references))
     t1 = time.perf_counter()
     split_steps(dev)
     t2 = time.perf_counter()
     elastic_restart(dev)
     torch.cuda.empty_cache()
     t3 = time.perf_counter()
+    split_rows_bitwise(dev)
+    t4 = time.perf_counter()
     print(f"phase21/seconds: a={t1 - t0:.3f} b_c={t2 - t1:.3f} "
-          f"d_e={t3 - t2:.3f}")
+          f"d_e={t3 - t2:.3f} f={t4 - t3:.3f}")
 
 
 class Phases:
@@ -4999,6 +5301,11 @@ def main() -> None:
             if "warning" in line.lower():
                 print(f"build/{name}/warning: {line.strip()[:200]}")
     phases.done("1_build")
+    # the CPU sides of phases 19(d), 20(e) and 21(a), while the card works
+    cpu = Worker(cpu_references)
+    atexit.register(cpu.close)
+    plain = Worker(side_runs)
+    atexit.register(plain.close)
 
     # phase 2: kernels against their plain versions
     checks = kernel_vs_plain(backfill, dev)
@@ -5060,7 +5367,7 @@ def main() -> None:
     # phase 11: that program at full size under the faulty family (counts
     # reset inside, per path)
     by_family, faulty = table1_families(grid_mod, families, policies,
-                                        backfill, dev)
+                                        backfill, plain, dev)
     for family, n in by_family.items():
         scan_paths[f"sweep/table1_naive_{family}"] = n
     phases.done("10_table1_families")
@@ -5080,7 +5387,7 @@ def main() -> None:
     # phase 13: traced sweeps (obs) through the scan kernel (counts reset
     # inside, per path)
     scan_paths["sweep/table1_naive_faulty_traced"] = traced_table1_faulty(
-        grid_mod, families, policies, backfill, dev)
+        grid_mod, families, backfill, faulty, plain, dev)
     scan_paths["sweep/full_traced"] = traced_full_size(
         grid_mod, policies, backfill, events_mod, full, dev)
     phases.done("13_traced")
@@ -5094,14 +5401,14 @@ def main() -> None:
     # phase 15: the learned submission policy (counts reset inside, per
     # path): the training geometry's rollout, then the acceptance recipe
     scan_paths["rl/rollout"], rl_run = rl_full_recipe(backfill, events_mod,
-                                                      dev)
+                                                      plain, dev)
     scan_paths["rl/train"] = rl_acceptance(backfill, dev)
     phases.done("15_rl")
 
     # phase 16: the sharded paths over blocks on the card and the ASA
     # campaign (counts reset inside, per path)
     scan_paths.update(sharded_and_campaign(faulty, rl_run, events, backfill,
-                                           dev))
+                                           plain, dev))
     phases.done("16_sharded_campaign")
 
     # phase 17: training on the card (counts reset inside, per path)
@@ -5118,7 +5425,7 @@ def main() -> None:
 
     # phase 19: the audio family, served and trained (counts reset inside,
     # per path), flash at its three prefill shapes, the frames' draw
-    audio = audio_on_card(dev)
+    audio = audio_on_card(dev, cpu)
     served["audio"] = audio["served"]
     train_paths["flash_attention"]["train/audio_kernel_loss"] = \
         audio["train"]["flash_attention"]
@@ -5127,7 +5434,7 @@ def main() -> None:
     # phase 20: the VLM prefix, served and trained (counts reset inside,
     # per path), flash at its 1024-patch prefill shape (row 2e), the
     # estimator's float32 functions and the dry run against the card
-    vlm = vlm_on_card(dev)
+    vlm = vlm_on_card(dev, cpu)
     served["vlm"] = vlm["served"]
     train_paths["flash_attention"]["train/vlm_kernel_loss"] = \
         vlm["train"]["flash_attention"]
@@ -5136,7 +5443,7 @@ def main() -> None:
     # phase 21: training with parameters split over a (data, model) mesh
     # of the card, bitwise the accumulating one-device step; an elastic
     # restart onto other meshes; XLA's float32 log1p on the card
-    sharded_training_on_card(dev)
+    sharded_training_on_card(dev, cpu)
     phases.done("21_train_split")
     scan_paths["sweep/full"] = full["launches"]["freed_scan"]
     entry.update(launches=sum(scan_paths.values()),

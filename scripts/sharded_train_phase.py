@@ -6,9 +6,11 @@ a (data, model) mesh of the card) alone.
 Runs phase 21 with its checks, as the smoke runs it: (a) XLA's float32
 ``log1p`` on the card against the CPU over 2^24 bit patterns, and a
 ``normal`` and an ``exponential`` draw; (b) qwen2-0.5b at published size
-and phase 17's batch, 3 steps on a (2, 2) mesh of the one card bitwise 3
-steps of ``make_train_step(accum=2)``; (c) a (1, 2) mesh bitwise the
-unsplit step; each split route's peak at most the other route's plus
+and phase 17's batch, 3 steps on a (2, 2) mesh of the one card, each
+layer's compute split over ``model``, against 3 steps of
+``make_train_step(accum=2)``: losses and grad norms within 2^-9
+relative, the parameter, m and v differences printed; (c) a (1, 2) mesh
+against the unsplit step likewise; each split route's peak at most the other route's plus
 the shards that repeat a block and the largest layer's and top-level
 gathers, and at most the other route's less the split leaves in their
 use type plus those two; on (2, 2) two rounds of one more step of the
@@ -16,7 +18,8 @@ use type plus those two; on (2, 2) two rounds of one more step of the
 gathers-again hooks off (wall and CPU seconds), then one profiled step
 of each (launches, device ms, the gathers counted); (d) ``launch.train`` at 2 layers saved on (2, 2), resumed onto
 (4, 1) and (1, 1), each bitwise the ``accum=4`` / ``accum=1`` steps from
-the same checkpoint; (e) ``apply_resize`` (2, 2) → (4, 1) bitwise.
+the same checkpoint; (e) ``apply_resize`` (2, 2) → (4, 1) bitwise; (f)
+a (2, 1) mesh at 4 layers, no compute split, bitwise ``accum=2``.
 Prints the card, each part's seconds, the steps' seconds, each route's
 peak bytes, those counts and the launches.
 Builds no kernel (training takes the plain route). About a minute on an

@@ -18,10 +18,17 @@ the same thing:
 * ``memory.temp_size_in_bytes``: the peak of the bytes that one step of
   the step function allocates (``LiveBytes``: each op's new outputs added,
   taken off when the last tensor on their storage dies), the step run on
-  meta tensors at the per-device batch. The port's model code does not
-  split a layer over ``model``, so layers split there are counted at full
-  width, and the step's gradients and new parameters and moments at full
-  size: an upper bound on one device's working memory.
+  meta tensors at the per-device batch. A train step on a mesh whose
+  ``model`` axis is m > 1 runs split over a (1, m) mesh of meta devices,
+  each layer's compute split over ``model`` (``parallel.model_split``),
+  and counts one position: a position's share (its gathered blocks, its
+  heads', columns' or experts' activations, its logits' block, the
+  backward's buffers of its nodes, its blocks' gradients) at that
+  position alone, the rest (replicated work, leaves no rule splits over
+  ``model``, the global norm's buffer) at every position. Leaves split
+  over the FSDP axes only are gathered whole and their gradients kept
+  whole, so the count is still an upper bound on one device's working
+  memory.
 * ``cost.flops``: ``torch.utils.flop_counter.FlopCounterMode`` over the
   same step at the global shape (matrix products and attention; a
   recomputing ``remat`` counts its recomputation).
@@ -47,6 +54,7 @@ import traceback
 import weakref
 from pathlib import Path
 
+import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
@@ -54,10 +62,12 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs import ARCHS, cells
 from repro_torch.launch import specs as SPECS
-from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.mesh import DeviceMesh, make_production_mesh
 from repro_torch.models import lm, lm_module
+from repro_torch.parallel import model_split as MS
 from repro_torch.parallel.sharding import (NamedSharding, PartitionSpec as P,
-                                           ShardingRules, flatten_with_path)
+                                           ShardingRules, flatten_with_path,
+                                           place)
 from repro_torch.serve.step import make_decode_step, make_prefill_step
 from repro_torch.train import optimizer as OPT
 from repro_torch.train.step import make_train_step, params_at_use
@@ -66,38 +76,50 @@ OUT_DIR = Path(__file__).resolve().parents[3] / "experiments" / "dryrun_torch"
 HBM_BYTES = 80 * 10 ** 9
 META = torch.device("meta")
 NO_COLLECTIVES = ("no HLO to read collectives from: one process gathers "
-                  "split parameters and adds row gradients itself "
-                  "(train.step); copies between cards and the model "
-                  "axis's compute split are later work (ROADMAP Queue 1, "
-                  "after item 11)")
+                  "split parameters, sums the model positions' partial "
+                  "outputs (parallel.model_split) and adds row gradients "
+                  "itself (train.step); copies between cards and one "
+                  "process a position are later work (ROADMAP Queue 1 "
+                  "item 12(e)-(f), item 11's follow-ups)")
 TEMP_NOTE = ("peak bytes one step allocates on meta tensors at the "
-             "per-device batch; layers split over 'model' are counted at "
-             "full width, gradients and new parameters at full size: an "
-             "upper bound")
+             "per-device batch, at one 'model' position: a layer split "
+             "over 'model' at one position's width and its gradients at "
+             "their block size; leaves split over the FSDP axes alone are "
+             "gathered whole and their gradients kept whole: an upper "
+             "bound")
 
 
 class LiveBytes(TorchDispatchMode):
     """Counts the bytes that ops allocate while the mode is on: an op's
     output on a storage that no input shares is a new allocation; the
-    bytes come off when the last tensor seen on that storage dies.
-    ``peak`` is the most that was live at once."""
+    bytes come off when the last tensor seen on that storage dies. An
+    allocation made as one ``model`` position's share
+    (``model_split.position()``, or in the backward by a node that share
+    made) counts for that position alone, the others for every position:
+    ``peak`` is the most that was live at once at one position."""
 
-    def __init__(self):
+    def __init__(self, node_position=lambda node: None):
         super().__init__()
-        self.live = self.peak = 0
+        self.peak = 0
+        self.live: dict = {}                # position (None: all) -> bytes
         self._refs: dict[int, int] = {}     # storage -> live tensors on it
+        self._node_position = node_position
 
-    def _release(self, key: int, nbytes: int) -> None:
+    def _release(self, key: int, nbytes: int, j) -> None:
         self._refs[key] -= 1
         if not self._refs[key]:
             del self._refs[key]
-            self.live -= nbytes
+            self.live[j] -= nbytes
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
         inputs = {t.untyped_storage()._cdata
                   for t in tree_leaves((args, kwargs))
                   if isinstance(t, torch.Tensor)}
+        j = MS.position()
+        node = torch._C._current_autograd_node()
+        if j is None and node is not None:      # a backward's buffer
+            j = self._node_position(node)
         for t in tree_leaves(out):
             if not isinstance(t, torch.Tensor):
                 continue
@@ -107,10 +129,12 @@ class LiveBytes(TorchDispatchMode):
                 if key in inputs:
                     continue            # a view of memory from outside
                 self._refs[key] = 0
-                self.live += nbytes
-                self.peak = max(self.peak, self.live)
+                self.live[j] = self.live.get(j, 0) + nbytes
+                self.peak = max(self.peak, self.live.get(None, 0) + max(
+                    (v for k, v in self.live.items() if k is not None),
+                    default=0))
             self._refs[key] += 1
-            weakref.finalize(t, self._release, key, nbytes)
+            weakref.finalize(t, self._release, key, nbytes, j)
         return out
 
 
@@ -154,11 +178,19 @@ def _prefill_step(cfg):
     return make_prefill_step(cfg)
 
 
-def _step(cfg, shape, *, remat: str, accum: int):
+def _step(cfg, shape, *, remat: str, accum: int, model: int = 1):
     """(run, args): one step of ``shape.kind`` on meta stand-ins at
-    ``shape``'s batch, with the arguments it was given."""
+    ``shape``'s batch, with the arguments it was given. A train step with
+    ``model`` > 1 runs on parameters split over a (1, ``model``) mesh of
+    meta devices: the split step, a layer's compute split over ``model``
+    (``parallel.model_split``)."""
     params = param_specs(cfg)
     if shape.kind == "train":
+        if model > 1:
+            grid = np.empty((1, model), dtype=object)
+            grid.fill(META)
+            mesh = DeviceMesh(grid, ("data", "model"))
+            params = place(params, ShardingRules(mesh).tree_shardings(params))
         opt = OPT.init(params)
         batch = SPECS.train_batch_specs(cfg, shape)
         step = make_train_step(cfg, accum=accum, remat=remat)
@@ -211,8 +243,10 @@ def plan_cell(cfg, shape, mesh, mesh_name: str, *, remat: str = "dots",
     B = shape.global_batch
     n = rules.n_fsdp if rules.fsdp and B % rules.n_fsdp == 0 else 1
     local = dataclasses.replace(shape, global_batch=B // n)
-    run, args = _step(cfg, local, remat=remat, accum=accum)
-    with LiveBytes() as live:
+    run, args = _step(cfg, local, remat=remat, accum=accum,
+                      model=mesh.shape.get("model", 1))
+    with MS.recording_nodes() as node_position, \
+            LiveBytes(node_position) as live:
         out = run()
         del out
     del run, args

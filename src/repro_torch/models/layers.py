@@ -16,6 +16,11 @@ type the reference applies them in.
 Prefill and cross attention with ``use_flash`` go through
 ``kernels.flash_attention.ops.flash_attention`` (the CUDA kernel on CUDA
 tensors); everything else (decode, ``use_flash=False``) is plain torch.
+
+In a training step over a mesh whose ``model`` axis splits a layer's
+heads, d_ff or vocabulary, a leaf arrives as ``model_split.Blocks``:
+``attention``, ``apply_mlp`` and ``embed`` compute each position's share
+and join the shares there (``parallel.model_split``).
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.moe_gmm.ref import activation
+from repro_torch.parallel import model_split as MS
 
 
 class Leaf(NamedTuple):
@@ -188,15 +194,54 @@ def attention(
     sequence's keys and values. q is projected (with its bias, no rope)
     and attends to every key, without a causal mask or window, through
     the flash kernel under ``use_flash``. Returns (out, None).
+
+    Query heads split over ``model`` (``model_split.Blocks``, training's
+    split step; prefill and cross shapes): position j attends with its
+    query heads and the KV heads they read, by global head index where
+    the KV heads are not split, and the partial outputs of ``wo`` are
+    summed across positions. Returns (out, None). Head counts come from
+    the leaves' shapes.
     """
+    n = MS.positions(p["wq"])
+    if n > 1:
+        kv_split = isinstance(p["wk"], MS.Blocks) and cross_kv is None
+
+        def share(j):
+            q = MS.at(p, j)
+            hq = q["wq"].shape[1]
+            n_kv = (cross_kv[0].shape[2] if cross_kv is not None
+                    else q["wk"].shape[1] * (n if kv_split else 1))
+            kv_heads = None if kv_split else (
+                (j * hq + torch.arange(hq, device=x.device))
+                // (hq * n // n_kv))
+            return _attention(q, x, cfg, causal=causal, positions=positions,
+                              cross_kv=cross_kv, use_flash=use_flash,
+                              kv_heads=kv_heads)[0]
+
+        return MS.psum(MS.shares(n, share)), None
+    return _attention(p, x, cfg, causal=causal, positions=positions,
+                      kv_cache=kv_cache, cache_index=cache_index,
+                      cross_kv=cross_kv, use_flash=use_flash)
+
+
+def _expand_kv(k: torch.Tensor, n_heads: int, kv_heads) -> torch.Tensor:
+    """k's KV heads for each of ``n_heads`` query heads: repeated in
+    groups, or the heads ``kv_heads`` names (global indices)."""
+    if kv_heads is not None:
+        return k.index_select(2, kv_heads)
+    return repeat_kv(k, n_heads // k.shape[2])
+
+
+def _attention(p, x, cfg, *, causal, positions, kv_cache=None,
+               cache_index=None, cross_kv=None, use_flash=False,
+               kv_heads=None):
     B, S, _ = x.shape
-    n_rep = cfg.n_heads // cfg.n_kv_heads
     wo = p["wo"].reshape(-1, p["wo"].shape[-1])             # (H*hd, D)
     if cross_kv is not None:
         q = _proj(x, p["wq"])
         if "bq" in p:
             q = q + p["bq"]
-        kf, vf = (repeat_kv(t, n_rep) for t in cross_kv)
+        kf, vf = (_expand_kv(t, q.shape[2], kv_heads) for t in cross_kv)
         if use_flash:
             out = flash_ops.flash_attention(q, kf, vf, causal=False,
                                             window=0)
@@ -212,8 +257,8 @@ def attention(
         k = apply_rope(k, positions, cfg.rope_theta)
 
     if kv_cache is None:
-        kf = repeat_kv(k, n_rep)
-        vf = repeat_kv(v, n_rep)
+        kf = _expand_kv(k, q.shape[2], kv_heads)
+        vf = _expand_kv(v, q.shape[2], kv_heads)
         if use_flash:
             out = flash_ops.flash_attention(q, kf, vf, causal=causal,
                                             window=cfg.sliding_window)
@@ -227,8 +272,8 @@ def attention(
     ck[:, idx:idx + S] = k
     cv[:, idx:idx + S] = v
     Sk = ck.shape[1]
-    kf = repeat_kv(ck, n_rep)
-    vf = repeat_kv(cv, n_rep)
+    kf = _expand_kv(ck, q.shape[2], kv_heads)
+    vf = _expand_kv(cv, q.shape[2], kv_heads)
     hd = q.shape[-1]
     logits = torch.einsum("bqhk,bshk->bhqs", q, kf) / math.sqrt(hd)
     kpos = torch.arange(Sk, device=x.device)
@@ -261,12 +306,25 @@ def init_mlp(cfg: ModelConfig, d_ff: Optional[int] = None) -> dict:
 
 
 def apply_mlp(p: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
+    """The MLP. Its d_ff columns split over ``model``
+    (``model_split.Blocks``): each position's partial output of
+    ``w_down`` from its columns (``b_up`` with them), summed across
+    positions, ``b_down`` added once after the sum."""
+    n = MS.positions(p["w_up"])
+    if n > 1:
+        y = MS.psum(MS.shares(n, lambda j: _mlp(MS.at(p, j), x, kind)))
+    else:
+        y = _mlp(p, x, kind)
+    return y + p["b_down"] if "b_down" in p else y
+
+
+def _mlp(p: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind in ("swiglu", "geglu"):
         g = activation(kind)(x @ p["w_gate"])
         u = x @ p["w_up"]
         return (g * u) @ p["w_down"]
     h = F.gelu(x @ p["w_up"] + p["b_up"], approximate="tanh")
-    return h @ p["w_down"] + p["b_down"]
+    return h @ p["w_down"]
 
 
 # ------------------------------------------------------------- embeddings
@@ -280,4 +338,8 @@ def init_embedding(cfg: ModelConfig, padded_vocab: int) -> dict:
 
 
 def embed(p: dict, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    """Rows ``tokens`` of the table; a table split over its vocabulary
+    (``model_split.Blocks``) by the vocab-parallel lookup."""
+    if isinstance(p["table"], MS.Blocks):
+        return MS.vocab_lookup(p["table"], tokens).to(dtype)
     return p["table"][tokens].to(dtype)

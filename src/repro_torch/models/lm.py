@@ -8,7 +8,9 @@ Parameters are nested dicts laid out as the reference's: per-layer
 leaves are STACKED on a leading L axis under ``"layers"``, and a Python
 loop over layers takes the place of ``maybe_scan`` (``layer(stacked,
 i)`` is a dict of views). ``remat_layer`` wraps a training forward's
-layer body in the reference's activation-checkpoint policies.
+layer body in the reference's activation-checkpoint policies. ``xent``
+is the cross-entropy every family's training loss takes, over the whole
+vocabulary or, split over ``model``, over its blocks.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.parallel import model_split as MS
 
 VOCAB_PAD_MULTIPLE = 256
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -144,21 +147,48 @@ def remat_layer(body, remat: str):
 def layer(layers: dict, i: int) -> dict:
     """Layer ``i`` of the stacked per-layer parameters, as views (a leaf
     that a training step splits over a mesh gathers layer ``i`` on
-    ``[i]``: ``parallel.sharding.SplitAtUse``)."""
+    ``[i]``, or hands out its ``model`` positions' blocks:
+    ``parallel.sharding.SplitAtUse``)."""
     return {k: layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in layers.items()}
 
 
-def unembed(params: dict, x: torch.Tensor, cfg: ModelConfig
-            ) -> torch.Tensor:
+def unembed(params: dict, x: torch.Tensor, cfg: ModelConfig):
     """The final norm (``cfg.norm``) and the unembedding (the tied table
-    or ``lm_head``) -> logits (..., V_padded), the padding masked."""
+    or ``lm_head``) -> logits (..., V_padded), the padding masked. A head
+    split over its vocabulary (``model_split.Blocks``) gives each
+    position's block of the logits, a list in position order, the
+    padding masked at the position that holds it (``xent`` reads
+    either)."""
     x = L.apply_norm(params["final_norm"], x, cfg.norm_eps, cfg.norm)
-    if cfg.tie_embeddings:
-        logits = x @ params["embed"]["table"].T
-    else:
-        logits = x @ params["lm_head"]
+    head = (params["embed"]["table"] if cfg.tie_embeddings
+            else params["lm_head"])
+    if isinstance(head, MS.Blocks):
+        return MS.shares(head.n, lambda j: head_logits(
+            x, head.block(j), cfg, j))
+    return head_logits(x, head, cfg, 0)
+
+
+def head_logits(x: torch.Tensor, head: torch.Tensor, cfg: ModelConfig,
+                j: int) -> torch.Tensor:
+    """``x``'s logits over block ``j`` of the vocabulary that ``head``
+    holds (the tied table's rows or ``lm_head``'s columns; block 0 the
+    whole), the ids past ``cfg.vocab_size`` (the padding) masked."""
+    logits = x @ head.T if cfg.tie_embeddings else x @ head
+    v = logits.shape[-1]
+    pad = cfg.vocab_size - j * v
     # mask vocab padding so the softmax ignores it
-    if logits.shape[-1] != cfg.vocab_size:
-        logits[..., cfg.vocab_size:] = -1e30
+    if pad < v:
+        logits[..., max(pad, 0):] = -1e30
     return logits
+
+
+def xent(logits, labels: torch.Tensor) -> torch.Tensor:
+    """The mean cross-entropy of ``labels`` from the float32 log-softmax
+    of ``logits`` (``unembed``'s; over a vocabulary split over ``model``,
+    ``model_split.vocab_xent`` on its blocks)."""
+    if isinstance(logits, list):
+        return MS.vocab_xent(logits, labels)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(logp, -1, labels[..., None].long())[..., 0]
+    return -torch.mean(ll)

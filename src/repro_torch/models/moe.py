@@ -27,6 +27,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.moe_gmm import ops as gmm_ops
 from repro_torch.kernels.moe_gmm.ref import activation
 from repro_torch.models.layers import _dense_init
+from repro_torch.parallel import model_split as MS
 
 
 def init_moe(cfg: ModelConfig) -> dict:
@@ -77,7 +78,15 @@ def dispatch(expert_idx: torch.Tensor, C: int, n_experts: int):
 
 def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig,
               use_kernel: bool = False) -> torch.Tensor:
-    """x: (B, S, D) -> (B, S, D)."""
+    """x: (B, S, D) -> (B, S, D). Experts split over ``model``
+    (``model_split.Blocks``): the router and the dispatch run once;
+    position j runs its experts' rows of the dispatch buffer and combines
+    each token's rows that they hold (in ascending expert order, zeros
+    for the rows of other positions' experts), and the positions' partial
+    outputs are summed in position order. Positions hold contiguous,
+    ascending expert ranges, so a token's rows keep their order; the sum
+    is exact where no later position holds two or more of a token's
+    rows (top-k of 2: always)."""
     m = cfg.moe
     B, S, D = x.shape
     N, E, k = B * S, m.n_experts, m.top_k
@@ -92,28 +101,45 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig,
     buf = torch.zeros((E * C + 1, D), dtype=x.dtype, device=x.device)
     buf[dest] = xt[stok] * keep[:, None].to(x.dtype)   # row E·C is dropped
     eb = buf[:-1].view(E, C, D)
-
-    # ---- grouped expert FFN (hot spot)
-    if use_kernel:
-        h = gmm_ops.grouped_ffn(eb, p["w_gate"], p["w_up"], p["w_down"],
-                                mlp=cfg.mlp)
-    else:
-        g = activation(cfg.mlp)(torch.einsum("ecd,edf->ecf", eb,
-                                             p["w_gate"]))
-        u = torch.einsum("ecd,edf->ecf", eb, p["w_up"])
-        h = torch.einsum("ecf,efd->ecd", g * u, p["w_down"])
-
-    # ---- combine: each token's k weighted rows, in ascending expert order
-    rows = torch.cat([h.reshape(E * C, D),
-                      torch.zeros((1, D), dtype=x.dtype, device=x.device)])
-    contrib = rows[dest] * sg[:, None]                 # (N·k, D), sorted
     rank = torch.empty_like(order)
     rank[order] = torch.arange(order.numel(), device=order.device)
     per_tok = rank.view(N, k).sort(dim=1).values       # ascending expert
-    out = contrib[per_tok[:, 0]]
-    for j in range(1, k):
-        out = out + contrib[per_tok[:, j]]
-    return out.reshape(B, S, D)
+
+    def rows_of(q, lo: int, n_e: int, slots):
+        # ---- grouped expert FFN (hot spot) over experts lo .. lo + n_e
+        eb_q = eb if n_e == E else eb[lo:lo + n_e]
+        if use_kernel:
+            h = gmm_ops.grouped_ffn(eb_q, q["w_gate"], q["w_up"],
+                                    q["w_down"], mlp=cfg.mlp)
+        else:
+            g = activation(cfg.mlp)(torch.einsum("ecd,edf->ecf", eb_q,
+                                                 q["w_gate"]))
+            u = torch.einsum("ecd,edf->ecf", eb_q, q["w_up"])
+            h = torch.einsum("ecf,efd->ecd", g * u, q["w_down"])
+        # ---- combine: each token's k weighted rows, in ascending expert
+        # order (row n_e·C, zeros, for the rows this call does not hold)
+        rows = torch.cat([h.reshape(n_e * C, D),
+                          torch.zeros((1, D), dtype=x.dtype,
+                                      device=x.device)])
+        contrib = rows[slots] * sg[:, None]            # (N·k, D), sorted
+        out = contrib[per_tok[:, 0]]
+        for j in range(1, k):
+            out = out + contrib[per_tok[:, j]]
+        return out
+
+    n = MS.positions(p["w_gate"])
+    if n == 1:
+        return rows_of(p, 0, E, dest).reshape(B, S, D)
+
+    def share(j):
+        q = MS.at(p, j)
+        n_e = q["w_gate"].shape[0]
+        local = dest - j * n_e * C
+        slots = torch.where((local >= 0) & (local < n_e * C), local,
+                            n_e * C)
+        return rows_of(q, j * n_e, n_e, slots)
+
+    return MS.psum(MS.shares(n, share)).reshape(B, S, D)
 
 
 def aux_load_balance_loss(logits: torch.Tensor, expert_idx: torch.Tensor,

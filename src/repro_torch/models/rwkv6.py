@@ -32,6 +32,7 @@ from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
 from repro_torch.kernels.rwkv6_scan import ref as wkv_ref
 from repro_torch.models import layers as L
 from repro_torch.models import lm
+from repro_torch.parallel import model_split as MS
 
 
 def n_heads(cfg: ModelConfig) -> int:
@@ -120,12 +121,15 @@ def _project(p, x, xs, dtype):
     k = _mix(x, xs, p["mu_k"].to(dtype)) @ p["wk"].to(dtype)
     v = _mix(x, xs, p["mu_v"].to(dtype)) @ p["wv"].to(dtype)
     g = _mix(x, xs, p["mu_g"].to(dtype)) @ p["wg"].to(dtype)
+    return r, k, v, g, _decay(p, x, xs, dtype)
+
+
+def _decay(p, x, xs, dtype):
     xw = _mix(x, xs, p["mu_w"].to(dtype))
     decay = (p["decay_base"].float()
              + torch.tanh(xw.float() @ p["decay_A"].float())
              @ p["decay_B"].float())
-    w = torch.exp(-torch.exp(decay))   # (B, S, D) in (0, 1), float32
-    return r, k, v, g, w
+    return torch.exp(-torch.exp(decay))   # (B, S, D) in (0, 1), float32
 
 
 def wkv_chunked(r, k, v, w, u, chunk: int, state0=None,
@@ -154,11 +158,47 @@ def wkv_step(r, k, v, w, u, state):
 def time_mix(p, x, cfg: ModelConfig, *, shift_prev=None, state0=None,
              use_kernel: bool = False):
     """Full RWKV6 time-mix block. x: (B, S, D), already normed. Returns
-    (y, (shift_carry, state)); the shift carry is x's last position."""
-    B, S, D = x.shape
-    H, K = n_heads(cfg), cfg.rwkv.head_dim
+    (y, (shift_carry, state)); the shift carry is x's last position.
+    Heads split over ``model`` (``model_split.Blocks``: ``bonus_u`` and
+    the projections' output columns): the decay LoRA runs whole once,
+    position j mixes its heads' r, k, v, g, its columns of the decay and
+    of ``ln_x`` (per head, so local), and the partial outputs of ``wo``
+    are summed across positions; the state is the positions' heads in
+    order. Projections split on columns that do not line up with heads
+    are taken whole."""
     xs = _token_shift(x, shift_prev)
-    r, k, v, g, w = _project(p, x, xs, x.dtype)
+    n = MS.positions(p["wr"])
+    if n > 1 and isinstance(p["bonus_u"], MS.Blocks):
+        mixed = {name: _mix(x, xs, p["mu_" + name].to(x.dtype))
+                 for name in "rkvg"}
+        w = _decay(p, x, xs, x.dtype)
+
+        def share(j):
+            q = MS.at({k: p[k] for k in ("wr", "wk", "wv", "wg", "wo",
+                                         "bonus_u")}, j)
+            r, k, v, g = (mixed[c] @ q["w" + c].to(x.dtype)
+                          for c in "rkvg")
+            cols = slice(j * r.shape[-1], (j + 1) * r.shape[-1])
+            h = q["bonus_u"].shape[0]
+            return _heads_out(q, x, cfg, (r, k, v, g, w[..., cols]),
+                              p["ln_x"][cols], None if state0 is None
+                              else state0[:, j * h:(j + 1) * h], use_kernel)
+
+        ys, states = zip(*MS.shares(n, share))
+        return MS.psum(list(ys)), (x[:, -1:], torch.cat(states, 1))
+    if n > 1:
+        p = MS.whole(p)
+    y, state = _heads_out(p, x, cfg, _project(p, x, xs, x.dtype), p["ln_x"],
+                          state0, use_kernel)
+    return y, (x[:, -1:], state)
+
+
+def _heads_out(p, x, cfg, rkvgw, ln_x, state0, use_kernel):
+    """The WKV scan over the heads of ``p["bonus_u"]`` (H, K), the
+    per-head group norm (``ln_x``), the gate and ``wo`` -> (y, state)."""
+    B, S, _ = x.shape
+    H, K = p["bonus_u"].shape
+    r, k, v, g, w = rkvgw
     rh, kh, vh, wh = (a.reshape(B, S, H, K) for a in (r, k, v, w))
     if S == 1 and state0 is not None:
         o, state = wkv_step(rh[:, 0], kh[:, 0], vh[:, 0], wh[:, 0],
@@ -171,16 +211,25 @@ def time_mix(p, x, cfg: ModelConfig, *, shift_prev=None, state0=None,
     # per-head group norm (ln_x)
     o32 = o.float()
     o32 = o32 * torch.rsqrt((o32 * o32).mean(-1, keepdim=True) + 1e-5)
-    o = (o32.reshape(B, S, D) * p["ln_x"]).to(x.dtype)
-    y = (o * F.silu(g)) @ p["wo"].to(x.dtype)
-    return y, (x[:, -1:], state)
+    o = (o32.reshape(B, S, H * K) * ln_x).to(x.dtype)
+    return (o * F.silu(g)) @ p["wo"].to(x.dtype), state
 
 
 def channel_mix(p, x, *, shift_prev=None):
+    """The channel mix. Its d_ff columns split over ``model``
+    (``model_split.Blocks``): each position's partial output of
+    ``w_out``, summed across positions."""
     xs = _token_shift(x, shift_prev)
     xk = _mix(x, xs, p["mu_k"].to(x.dtype))
-    h = torch.square(torch.relu(xk @ p["w_in"].to(x.dtype)))
-    return h @ p["w_out"].to(x.dtype), x[:, -1:]
+
+    def out(q):
+        h = torch.square(torch.relu(xk @ q["w_in"].to(x.dtype)))
+        return h @ q["w_out"].to(x.dtype)
+
+    n = MS.positions(p["w_in"])
+    if n > 1:
+        return MS.psum(MS.shares(n, lambda j: out(MS.at(p, j)))), x[:, -1:]
+    return out(p), x[:, -1:]
 
 
 # ----------------------------------------------------------------- full LM

@@ -23,9 +23,12 @@ embeddings (the reference's "ViT" is a stub that supplies them), cast to
 the activation type and prepended to the token embeddings; positions run
 over all P + S rows, and the loss drops the prefix's P rows.
 
-The losses: ``loss_fn`` (log-softmax of the float32 logits) and
-``vocab_parallel_xent`` (the cross-entropy from the final hidden state
-without a gather over the vocabulary), with ``unembed_matrix``.
+The losses: ``loss_fn`` (log-softmax of the float32 logits, ``lm.xent``)
+and ``vocab_parallel_xent`` (the cross-entropy from the final hidden state
+without a gather over the vocabulary), with ``unembed_matrix``. Over a
+split training step's tree a layer computes each ``model`` position's
+share (``models.layers``, ``models.moe``) and the vocabulary's blocks
+meet in ``parallel.model_split``.
 """
 
 from __future__ import annotations
@@ -39,9 +42,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
-from repro_torch.models.lm import (act_dtype, fill_specs, flatten, layer,
-                                   padded_vocab, remat_layer, stacked,
-                                   unembed)
+from repro_torch.models.lm import (act_dtype, fill_specs, flatten,
+                                   head_logits, layer, padded_vocab,
+                                   remat_layer, stacked, unembed, xent)
+from repro_torch.parallel import model_split as MS
 
 
 def _layer_specs(cfg: ModelConfig) -> dict:
@@ -196,10 +200,10 @@ def loss_fn(params: dict, tokens: torch.Tensor, labels: torch.Tensor,
                      use_flash=use_flash, remat=remat,
                      use_moe_kernel=use_moe_kernel)
     if prefix_embeds is not None:
-        logits = logits[:, prefix_embeds.shape[1]:]
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    ll = torch.gather(logp, -1, labels[..., None].long())[..., 0]
-    return -torch.mean(ll)
+        rows = slice(prefix_embeds.shape[1], None)
+        logits = ([b[:, rows] for b in logits] if isinstance(logits, list)
+                  else logits[:, rows])
+    return xent(logits, labels)
 
 
 def unembed_matrix(params: dict, cfg: ModelConfig, dtype) -> torch.Tensor:
@@ -216,7 +220,15 @@ def vocab_parallel_xent(hidden: torch.Tensor, params: dict,
     """Cross-entropy without gathering over the vocabulary axis: the
     reductions (max, sum-exp, the label's logit by a one-hot einsum) run
     over it, and the vocab padding is masked additively, as the
-    reference's (whose vocab axis is sharded over ``model``)."""
+    reference's (whose vocab axis is sharded over ``model``). A head
+    split over ``model`` (``model_split.Blocks``) takes each position's
+    block of the logits (``lm.head_logits``) and reduces across them
+    (``lm.xent``)."""
+    head = (params["embed"]["table"] if cfg.tie_embeddings
+            else params["lm_head"])
+    if isinstance(head, MS.Blocks):
+        return xent(MS.shares(head.n, lambda j: head_logits(
+            hidden, head.block(j), cfg, j)), labels)
     w = unembed_matrix(params, cfg, hidden.dtype)        # (D, Vp)
     logits = (hidden @ w).float()                        # (B, S, Vp)
     pv, v = logits.shape[-1], cfg.vocab_size

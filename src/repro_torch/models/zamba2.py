@@ -35,6 +35,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import lm
+from repro_torch.parallel import model_split as MS
 
 
 def dims(cfg: ModelConfig):
@@ -190,9 +191,56 @@ def mamba2_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                  conv_carry=None, ssm_state=None):
     """x: (B, S, D), already normed -> (y, (conv carry, SSD state)). One
     token with a state takes ``ssd_step``; a block ``ssd_chunked`` in
-    chunks of ``min(cfg.ssm.chunk, S)``."""
+    chunks of ``min(cfg.ssm.chunk, S)``. The sizes come from the leaves'
+    shapes. d_inner and the heads split over ``model``
+    (``model_split.Blocks``): position j runs its channels and heads up
+    to the out-norm; the out-norm's RMS over the whole d_inner takes the
+    positions' sums of squares summed across them; then each position
+    normalises and gates its channels, and the partial outputs of
+    ``w_out`` are summed. Carries and states are the positions' channels
+    and heads in order. Channels split without their heads are taken
+    whole."""
+    n = MS.positions(p["w_in_x"])
+    if n > 1 and isinstance(p["A_log"], MS.Blocks):
+        inner = {k: v for k, v in p.items() if k not in ("out_norm", "w_out")}
+
+        def scan(j):
+            q = MS.at(inner, j)
+            h, c = q["A_log"].shape[0], q["conv_x"].shape[1]
+            return _inner(q, x, cfg,
+                          None if conv_carry is None
+                          else conv_carry[..., j * c:(j + 1) * c],
+                          None if ssm_state is None
+                          else ssm_state[:, j * h:(j + 1) * h])
+
+        ys, zs, convs, states = zip(*MS.shares(n, scan))
+        yfs = [y.float() for y in ys]
+        # each position's sum of squares in float64 (a float32 square is
+        # exact there), summed in position order: the whole d_inner's sum
+        # rounds once, to float32, whatever the split
+        ss = MS.psum(MS.shares(n, lambda j: torch.square(
+            yfs[j].double()).sum(-1, keepdim=True))).float()
+        rms = torch.rsqrt(ss / (yfs[0].shape[-1] * n) + 1e-5)
+        outer = {k: p[k] for k in ("out_norm", "w_out")}
+        y = MS.psum(MS.shares(n, lambda j: _gate_out(
+            MS.at(outer, j), yfs[j] * rms, zs[j], x.dtype)))
+        return y, (torch.cat(convs, -1), torch.cat(states, 1))
+    if n > 1:
+        p = MS.whole(p)
+    y, z, new_conv, state = _inner(p, x, cfg, conv_carry, ssm_state)
+    # RMS out-norm, then the gate
+    yf = y.float()
+    yf = yf * torch.rsqrt((yf * yf).mean(-1, keepdim=True) + 1e-5)
+    return _gate_out(p, yf, z, x.dtype), (new_conv, state)
+
+
+def _inner(p: dict, x: torch.Tensor, cfg: ModelConfig, conv_carry,
+           ssm_state):
+    """The block up to its out-norm, over the channels and heads of
+    ``p`` -> (y (B, S, d_inner), the gate's input z, conv carry, SSD
+    state)."""
     B, S, _ = x.shape
-    d_inner, H, P, N = dims(cfg)
+    H, P = p["D_skip"].shape
     dtype = x.dtype
     z = x @ p["w_in_z"].to(dtype)
     xi = x @ p["w_in_x"].to(dtype)
@@ -210,12 +258,15 @@ def mamba2_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
         y, state = ssd_chunked(xh, Bh, Ch, dt, A, chunk=min(cfg.ssm.chunk, S),
                                state0=ssm_state)
     y = y + xh * p["D_skip"].to(dtype)
-    y = y.reshape(B, S, d_inner)
-    # RMS out-norm, then the gate
-    yf = y.float()
-    yf = yf * torch.rsqrt((yf * yf).mean(-1, keepdim=True) + 1e-5)
-    y = (yf * p["out_norm"]).to(dtype) * F.silu(z)
-    return y @ p["w_out"].to(dtype), (new_conv, state)
+    return y.reshape(B, S, H * P), z, new_conv, state
+
+
+def _gate_out(p: dict, yn: torch.Tensor, z: torch.Tensor, dtype
+              ) -> torch.Tensor:
+    """The normalised ``yn`` (float32) scaled by ``out_norm``, gated by
+    silu(z), through ``w_out``."""
+    y = (yn * p["out_norm"]).to(dtype) * F.silu(z)
+    return y @ p["w_out"].to(dtype)
 
 
 # ---------------------------------------------------------------- model

@@ -33,6 +33,11 @@ split runs on one card or on the CPU too. ``train.step.make_train_step``
 trains on such trees, a microbatch each of ``data_rows``, reading each
 split leaf through ``SplitAtUse``: gathered at use (a stacked leaf a
 layer at a time) by ``GatherFn``, whose backward is the reduce-scatter.
+The per-position plan (``model_dim``) names the leaves whose spec splits
+a compute dimension over ``model``; ``SplitAtUse`` hands each ``model``
+position its block of such a leaf (``model_split.Blocks``), gathered
+over the FSDP axes only, and the layers compute a position's share at a
+time (``parallel.model_split``).
 """
 
 from __future__ import annotations
@@ -43,6 +48,8 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.parallel import model_split as MS
 
 
 class PartitionSpec(tuple):
@@ -173,9 +180,15 @@ class ShardedTensor:
     def block_zeros(self, dtype: torch.dtype) -> "ShardedTensor":
         """Zeros of ``dtype`` split as this leaf, one tensor a distinct
         block: the positions that hold a block share its tensor (a
-        gradient accumulator; see ``blocks``)."""
-        zeros = [torch.zeros(x.shape, dtype=dtype, device=x.device)
-                 for x in self.blocks()]
+        gradient accumulator; see ``blocks``). A block of a leaf split
+        over ``model`` is made as its position's (``model_split``)."""
+        d = model_dim(self.sharding.spec)
+        zeros = []
+        for k, x in zip(self.firsts, self.blocks()):
+            with MS.at_position(None if d is None else
+                                self.indices[k][d].start // x.shape[d]):
+                zeros.append(torch.zeros(x.shape, dtype=dtype,
+                                         device=x.device))
         return ShardedTensor([zeros[b] for b in self.block_of],
                              self.sharding, self.shape, dtype)
 
@@ -207,19 +220,31 @@ def taken_by_layer(path: str) -> bool:
     return path.split("/", 1)[0] in LAYER_STACKS
 
 
+def model_dim(spec: PartitionSpec, stacked: bool = False) -> int | None:
+    """The per-position plan of a leaf: the dimension that ``spec``
+    splits over ``model`` alone, a compute dimension (heads, d_ff,
+    experts, d_inner or the vocabulary: ``ShardingRules``' 'm' role), or
+    None. A stacked leaf's layer axis is never one."""
+    return next((d for d, part in enumerate(spec)
+                 if part == "model" and d >= stacked), None)
+
+
 class _Plan(NamedTuple):
     """A tensor of ``shape``, ``dtype`` and ``device`` whose part
-    ``index[b]`` is input block b (``_build``)."""
+    ``index[b]`` is input block b (``_build``); ``position``: the
+    ``model`` position whose block it is (None: the whole leaf)."""
     shape: torch.Size
     dtype: torch.dtype
     device: torch.device
     index: tuple
+    position: int | None = None
 
 
 def _build(plan: _Plan, blocks) -> torch.Tensor:
-    out = torch.empty(plan.shape, dtype=plan.dtype, device=plan.device)
-    for index, block in zip(plan.index, blocks):
-        out[index].copy_(block)      # the cast of ``block.to(dtype)``
+    with MS.at_position(plan.position):
+        out = torch.empty(plan.shape, dtype=plan.dtype, device=plan.device)
+        for index, block in zip(plan.index, blocks):
+            out[index].copy_(block)  # the cast of ``block.to(dtype)``
     return out
 
 
@@ -243,9 +268,11 @@ class GatherFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        return (None, *(grad[index].to(device=dev, dtype=dtype, copy=True)
-                        for index, (dtype, dev) in zip(ctx.plan.index,
-                                                       ctx.blocks)))
+        with MS.at_position(ctx.plan.position):
+            return (None, *(grad[index].to(device=dev, dtype=dtype,
+                                           copy=True)
+                            for index, (dtype, dev) in zip(ctx.plan.index,
+                                                           ctx.blocks)))
 
 
 class SplitAtUse:
@@ -261,7 +288,15 @@ class SplitAtUse:
     (``layer(i)``, or ``[i]`` as ``models.lm.layer`` takes it): its
     inputs are a block's layer each, so layer i's gradient lands in its
     own inputs and no block-shaped gradient is made a layer. The spec may
-    split any axis, the layer axis too."""
+    split any axis, the layer axis too.
+
+    A leaf whose spec splits a compute dimension over ``model``
+    (``model_dim``) is read as ``model_split.Blocks``: ``top()`` outside
+    the stacks (each position's block gathered once a data row),
+    ``layer(i)`` in them, where position j's block of layer i is gathered
+    over the FSDP axes only when a layer asks for it, and carries how to
+    gather it again (``gathers_not_saved``); ``whole()`` on those blocks
+    gathers the leaf or the layer whole."""
 
     def __init__(self, x: ShardedTensor, dtype: torch.dtype,
                  stacked: bool):
@@ -269,12 +304,18 @@ class SplitAtUse:
         self.inputs: list[torch.Tensor] = []
         self.slots: list[tuple] = []
         blocks = [(x.indices[k], x.shards[k]) for k in x.firsts]
+        d = model_dim(x.sharding.spec, stacked)
+        self.n = x.sharding.mesh.shape["model"] if d is not None else 1
         if not stacked:
             for b, (_, block) in enumerate(blocks):
                 self.slots.append((b, None))
                 self.inputs.append(block.detach().requires_grad_())
             self._whole = _Plan(x.shape, dtype, x.device,
                                 tuple(index for index, _ in blocks))
+            self._positions = [_position_plan(x, dtype, d, j, list(
+                zip([index for index, _ in blocks], self.inputs)))
+                for j in range(self.n)] if d is not None else None
+            self._dim = d
             return
         parts = [[] for _ in range(x.shape[0])]   # a layer's blocks
         for b, (index, block) in enumerate(blocks):
@@ -287,19 +328,43 @@ class SplitAtUse:
             (_Plan(x.shape[1:], dtype, x.device,
                    tuple(index for index, _ in part)),
              [self.inputs[n] for _, n in part]) for part in parts]
+        self._dim = None if d is None else d - 1
+        self._positions = None if d is None else [
+            [_position_plan(x, dtype, d, j, [
+                (index, self.inputs[n]) for index, n in part], layer=True)
+             for j in range(self.n)] for part in parts]
 
     def whole(self) -> torch.Tensor:
         return GatherFn.apply(self._whole, *self.inputs)
 
-    def layer(self, i: int) -> torch.Tensor:
-        """Layer ``i``, gathered. The tensor carries how to gather it
-        again (``_regather``, read by ``gathers_not_saved``)."""
-        plan, inputs = self._layers[i]
-        out = GatherFn.apply(plan, *inputs)
-        out._regather = partial(_regather, plan, inputs)
+    def top(self):
+        """The leaf outside the stacks as the loss reads it: gathered
+        whole, or, split over ``model``, each position's block gathered
+        (a ``Blocks``)."""
+        if self._positions is None:
+            return self.whole()
+        got = [GatherFn.apply(plan, *inputs)
+               for plan, inputs in self._positions]
+        return MS.Blocks(self.n, self._dim, self.dtype, got.__getitem__)
+
+    def layer(self, i: int):
+        """Layer ``i``, gathered, or its ``Blocks`` (see the class). A
+        gathered tensor carries how to gather it again (``_regather``,
+        read by ``gathers_not_saved``)."""
+        if self._positions is not None:
+            return MS.Blocks(self.n, self._dim, self.dtype,
+                             partial(self._gather, *zip(*self._positions[i])),
+                             partial(self._gather, (self._layers[i][0],),
+                                     (self._layers[i][1],), 0))
+        return self._gather((self._layers[i][0],), (self._layers[i][1],), 0)
+
+    @staticmethod
+    def _gather(plans, inputs, j: int) -> torch.Tensor:
+        out = GatherFn.apply(plans[j], *inputs[j])
+        out._regather = partial(_regather, plans[j], inputs[j])
         return out
 
-    def __getitem__(self, i: int) -> torch.Tensor:
+    def __getitem__(self, i: int):
         return self.layer(i)
 
     def to(self, dtype: torch.dtype) -> "SplitAtUse":
@@ -309,6 +374,28 @@ class SplitAtUse:
             raise ValueError(f"a leaf split at use in {self.dtype} was "
                              f"asked for in {dtype}")
         return self
+
+
+def _position_plan(x: ShardedTensor, dtype, d: int, j: int, parts,
+                   layer: bool = False):
+    """(plan, inputs): position j's block of ``x`` (dimension ``d`` split
+    over ``model``), or of one layer of it (``layer``: ``parts`` index
+    the layer's dimensions), from the ``(index, input)`` ``parts`` that
+    lie in it, each placed at its index within the block."""
+    n = x.sharding.mesh.shape["model"]
+    width = x.shape[d] // n
+    lo = j * width
+    shape = list(x.shape[1:] if layer else x.shape)
+    dd = d - layer
+    shape[dd] = width
+    index, inputs = [], []
+    for idx, t in parts:
+        if idx[dd].start // width == j:
+            idx = list(idx)
+            idx[dd] = slice(idx[dd].start - lo, idx[dd].stop - lo)
+            index.append(tuple(idx))
+            inputs.append(t)
+    return _Plan(torch.Size(shape), dtype, x.device, tuple(index), j), inputs
 
 
 def _pack(t: torch.Tensor):

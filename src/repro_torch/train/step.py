@@ -27,13 +27,20 @@ layers use it in, a stacked leaf one layer at a time (``lm.layer``, as
 the reference's ``lax.scan`` over layers gathers a layer an iteration),
 and under ``sharding.gathers_not_saved`` autograd keeps how to gather a
 layer again rather than the gathered layer, under every ``remat``
-policy. The gather's backward hands each block its part of the gradient
-(the reduce-scatter), which is summed, rows in order, into float32
-accumulators of the block's shape; no split leaf's gradient is held
-whole, and AdamW updates each shard in place from its block's. So a
-step over a (k, m) mesh is bitwise this step with ``accum=k``. The
-``model`` axis splits storage only: each row's layer is computed whole
-(ROADMAP Queue 1 item 12(d)).
+policy. A leaf whose spec splits a compute dimension over ``model``
+(heads, d_ff, experts, d_inner, the vocabulary) reaches the layers as
+``model_split.Blocks``: each layer computes each ``model`` position's
+share from that position's block, gathered over the FSDP axes only when
+the share is computed, and the positions' partial outputs are summed in
+position order (``parallel.model_split``), as the reference's SPMD step
+splits every compute dimension over ``model``. The gather's backward
+hands each block its part of the gradient (the reduce-scatter), which is
+summed, rows in order, into float32 accumulators of the block's shape;
+no split leaf's gradient is held whole, and AdamW updates each shard in
+place from its block's. So a step over a (k, 1) mesh is bitwise this
+step with ``accum=k``; over a (k, m) mesh with m > 1 it agrees with it to
+float32 rounding (the row-parallel products add partial sums), and is
+bitwise among itself across runs, restarts and ``remat`` policies.
 """
 
 from __future__ import annotations
@@ -91,17 +98,17 @@ def model_loss(params, batch: dict, cfg: ModelConfig, *, remat: str = "dots",
         from repro_torch.models import encdec as E
         logits = E.forward(p, batch["tokens"], batch["frames"], cfg,
                            remat=remat, use_flash=use_flash)
-        return _xent(logits, batch["labels"], cfg)
+        return lm.xent(logits, batch["labels"])
     if fam == "hybrid":
         from repro_torch.models import zamba2 as Z
         logits = Z.forward(p, batch["tokens"], cfg, remat=remat,
                            use_flash=use_flash)
-        return _xent(logits, batch["labels"], cfg)
+        return lm.xent(logits, batch["labels"])
     if fam == "ssm":
         from repro_torch.models import rwkv6 as R
         logits = R.forward(p, batch["tokens"], cfg, remat=remat,
                            use_kernel=use_kernel)
-        return _xent(logits, batch["labels"], cfg)
+        return lm.xent(logits, batch["labels"])
     from repro_torch.models import transformer as T
     if fam == "vlm":
         return T.loss_fn(p, batch["tokens"], batch["labels"], cfg,
@@ -116,12 +123,6 @@ def model_loss(params, batch: dict, cfg: ModelConfig, *, remat: str = "dots",
     return T.loss_fn(p, batch["tokens"], batch["labels"], cfg,
                      use_flash=use_flash, remat=remat,
                      use_moe_kernel=use_moe_kernel)
-
-
-def _xent(logits, labels, cfg) -> torch.Tensor:
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    ll = torch.gather(logp, -1, labels[..., None].long())[..., 0]
-    return -torch.mean(ll)
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0,
@@ -158,7 +159,7 @@ def make_train_step(cfg: ModelConfig, *, accum: int = 1,
         with torch.enable_grad(), (gathers_not_saved() if split
                                    else nullcontext()):
             l = loss(lm.unflatten({
-                name: u.whole() if isinstance(u, SplitAtUse)
+                name: u.top() if isinstance(u, SplitAtUse)
                 and not taken_by_layer(name) else u
                 for name, u in at_use.items()}), batch)
             gs = iter(torch.autograd.grad(l, xs, allow_unused=True))

@@ -1755,9 +1755,16 @@ def _card_mesh(cuda_device, data: int, model: int):
 def test_split_train_step_on_the_card_is_the_accum_step(cuda_device, data,
                                                         model):
     """Two steps of the reduced qwen2-0.5b and moonshot over a (data,
-    model) mesh of the one card, bitwise ``make_train_step(accum=data)``
-    on the card from the same state (tests/test_torch_train_sharded.py on
-    the CPU)."""
+    model) mesh of the one card against ``make_train_step(accum=data)``
+    on the card from the same state: bitwise on (4, 1); where the mesh
+    splits each layer's compute over ``model`` (which adds the positions'
+    partial sums), in float32, the losses within 3 float32 steps and the
+    parameters within 1.4e-7 (tests/test_torch_train_model_split.py's
+    limits on the CPU)."""
+    import dataclasses
+
+    import numpy as np
+
     from repro_torch.configs import ARCHS
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.parallel.sharding import (ShardedTensor, ShardingRules,
@@ -1771,6 +1778,8 @@ def test_split_train_step_on_the_card_is_the_accum_step(cuda_device, data,
         cfg = ARCHS[arch].reduced()
         p0 = OPT.tree_map(lambda p: p.float(),
                           TS.init_params(cfg, seed=2, device=mesh.device))
+        if model > 1:
+            cfg = dataclasses.replace(cfg, dtype="float32")
         ref_p = OPT.tree_map(lambda p: p.clone(), p0)
         ref_o = OPT.init(ref_p)
         sp = place(OPT.tree_map(lambda p: p.clone(), p0),
@@ -1785,7 +1794,17 @@ def test_split_train_step_on_the_card_is_the_accum_step(cuda_device, data,
             b = batch_fn(i)
             ref_p, ref_o, rm = step(ref_p, ref_o, b)
             sp, so, sm = sstep(sp, so, b)
-            assert torch.equal(rm["loss"], sm["loss"]), arch
+            if model == 1:
+                assert torch.equal(rm["loss"], sm["loss"]), arch
+            else:
+                ulps = abs(float(rm["loss"]) - float(sm["loss"])) / float(
+                    np.spacing(np.float32(abs(float(rm["loss"])))))
+                assert ulps <= 3, (arch, rm["loss"], sm["loss"])
+        if model > 1:
+            worst = max(float((a - b).abs().max()) for a, b in zip(
+                OPT.leaves(gather_tree(sp)), OPT.leaves(ref_p)))
+            assert worst <= 1.4e-7, (arch, worst)
+            continue
         for got, want in ((sp, ref_p), (so.m, ref_o.m), (so.v, ref_o.v)):
             assert all(torch.equal(a, b) for a, b in zip(
                 OPT.leaves(gather_tree(got)), OPT.leaves(want))), arch

@@ -276,3 +276,39 @@ def test_placing_on_the_production_mesh_splits_into_meta_shards(mesh_name):
                          else x).shape, x.dtype)
               for _, x in flatten_with_path(placed))
     assert D.local_bytes(args, shardings) == got
+
+
+def test_train_temp_counts_one_model_position():
+    """On a mesh whose ``model`` axis is m > 1 a train cell's temporaries
+    are one position's: ``LiveBytes`` counts an allocation made as a
+    position's share for that position alone, and the reduced qwen2-0.5b
+    cell's peak falls as m grows, by at least the share of its MLPs'
+    saved activations that the other positions hold."""
+    from repro_torch.parallel import model_split as MS
+
+    with D.LiveBytes() as live:
+        shared = torch.empty(1000, device="meta")
+        with MS.at_position(0):
+            a = torch.empty(300, device="meta")
+        with MS.at_position(1):
+            b = torch.empty(200, device="meta")
+    assert live.peak == 4 * (1000 + 300)
+    del shared, a, b
+
+    cfg = ARCHS["qwen2-0.5b"].reduced()
+    batch, seq = 8, 64
+    temps = []
+    for m in (1, 2, 4):
+        grid = np.empty((2, m), dtype=object)
+        grid.fill(torch.device("meta"))
+        rec = D.plan_cell(cfg, ShapeSpec("t", seq, batch, "train"),
+                          DeviceMesh(grid, ("data", "model")), f"2x{m}",
+                          remat="none")
+        assert rec["status"] == "ok" and "one 'model' position" \
+            in rec["memory"]["temp_note"]
+        temps.append(rec["memory"]["temp_size_in_bytes"])
+    assert temps[0] > temps[1] > temps[2]
+    # a layer's SwiGLU keeps x @ w_gate, its activation, x @ w_up and
+    # their product, (local batch, seq, d_ff) each, in bfloat16
+    mlp = cfg.n_layers * 4 * (batch // 2) * seq * cfg.d_ff * 2
+    assert temps[0] - temps[2] >= mlp * 3 // 4

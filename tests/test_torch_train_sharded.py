@@ -19,21 +19,26 @@ fails at its embedding gather.
   whisper's ``frames``, pixtral's ``patch_embeds``) that the split step
   gives each data row are the reference's blocks of the batch at that
   row's positions.
-* The step: on a (k, m) mesh, bitwise ``make_train_step(accum=k)`` on
+* The step: on a (k, 1) mesh, bitwise ``make_train_step(accum=k)`` on
   one device from the same state (loss, grad norm, parameters, m, v
   after 2 steps), for all six families under ``remat`` "none" and
-  "dots" (and "full" for the hybrid); on a (1, m) mesh bitwise the
-  unsplit step under the same policies. One step function follows its
-  tree onto another mesh: it reads the data rows from the leaves.
+  "dots" (and "full" for the hybrid). A mesh with a ``model`` axis m > 1
+  splits each layer's compute over it and adds the positions' partial
+  sums (ROADMAP Queue 1 item 12(d); ``tests/test_torch_train_model_split.py``):
+  on (1, m) the step is held in float32 to the unsplit step, the losses
+  within ``LOSS_ULPS`` and the parameters within ``PARAM_ATOL``, under
+  the same policies. One step function follows its tree onto another
+  mesh: it reads the data rows from the leaves.
 * One layer at a time: during a step's forward and backward, under each
   ``remat`` policy, the gathered tensors alive at any gather are one
-  layer's and the top-level leaves'; none of a layer's is alive when the
-  backward starts. Each split leaf's gradient is summed in block
-  accumulators, each bitwise its slice of the ``accum=k`` route's whole
-  accumulator, the positions that hold a block sharing its accumulator;
-  the global norm assembles one leaf at a time in one buffer. A spec
-  that splits the layer axis gathers and differentiates as the unsplit
-  leaf.
+  layer's, of its leaves split over ``model`` one position's block, and
+  the top-level leaves'; none of a layer's is alive when the backward
+  starts. Each split leaf's gradient is summed in block accumulators
+  (on (2, 1) each bitwise its slice of the ``accum=2`` route's whole
+  accumulator, on (2, 2) bitwise its rows' block gradients summed), the
+  positions that hold a block sharing its accumulator; the global norm
+  assembles one leaf at a time in one buffer. A spec that splits the
+  layer axis gathers and differentiates as the unsplit leaf.
 * Checkpoints both ways, in float32: the reference's ``train`` with
   ``model_parallel=2`` saves at step 2, the port resumes on its (2, 2)
   mesh, and the other way round; the losses of steps 2 and 3 within
@@ -71,6 +76,7 @@ from repro_torch.launch import dryrun as D
 from repro_torch.launch import train as ttrain
 from repro_torch.launch.mesh import DeviceMesh, make_production_mesh
 from repro_torch.models import lm
+from repro_torch.parallel import model_split as MS
 from repro_torch.parallel import sharding as SH
 from repro_torch.parallel.sharding import (NamedSharding, PartitionSpec as P,
                                            ShardedTensor, ShardingRules,
@@ -308,8 +314,13 @@ def test_data_rows_take_the_reference_batch_blocks(packages, arch,
 def _steps(arch: str, data: int, model: int, n: int = 2,
            remat: str = "none"):
     """``n`` steps on a (data, model) mesh and ``accum=data`` on one
-    device from the same state and batches."""
-    cfg = _cfg(arch)
+    device from the same state and batches: bitwise where ``model`` is
+    1; over a ``model`` split, which adds the positions' partial sums
+    (ROADMAP Queue 1 item 12(d)), in float32, the losses within
+    ``LOSS_ULPS`` and the parameters within ``PARAM_ATOL``. Either way
+    each shard holds its block of the split route's own leaves."""
+    cfg = _cfg(arch) if model == 1 else dataclasses.replace(_cfg(arch),
+                                                           dtype="float32")
     batch_fn = _batch_fn(arch)
     p0 = _params(arch, seed=2)
     ref_p = TO.tree_map(lambda p: p.clone(), p0)
@@ -325,19 +336,31 @@ def _steps(arch: str, data: int, model: int, n: int = 2,
         b = batch_fn(i)
         ref_p, ref_o, rm = step(ref_p, ref_o, b)
         sp, so, sm = sstep(sp, so, b)
-        assert torch.equal(rm["loss"], sm["loss"]), (rm, sm)
-        assert torch.equal(rm["grad_norm"], sm["grad_norm"])
+        if model == 1:
+            assert torch.equal(rm["loss"], sm["loss"]), (rm, sm)
+            assert torch.equal(rm["grad_norm"], sm["grad_norm"])
+        else:
+            assert _ulps(sm["loss"], rm["loss"]) <= LOSS_ULPS, (rm, sm)
     for name, got, want in (("params", sp, ref_p), ("m", so.m, ref_o.m),
                             ("v", so.v, ref_o.v)):
         for a, b in zip(TO.leaves(gather_tree(got)), TO.leaves(want)):
-            assert torch.equal(a, b), name
+            if model == 1:
+                assert torch.equal(a, b), name
+            elif name == "params":
+                assert float((a - b).abs().max()) <= PARAM_ATOL, name
     assert int(so.step) == n
     # the shards hold their blocks of the updated leaves, and the
     # positions that a spec replicates hold equal copies
-    for x, whole in zip(TO.leaves(sp), TO.leaves(ref_p)):
+    for x, whole in zip(TO.leaves(sp), TO.leaves(gather_tree(sp))):
         if isinstance(x, ShardedTensor):
             for index, shard in zip(x.indices, x.shards):
                 assert torch.equal(shard, whole[index])
+
+
+def _ulps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """|got − want| in float32 steps at ``want``."""
+    return abs(float(got) - float(want)) / float(
+        np.spacing(np.float32(abs(float(want)))))
 
 
 REMATS = [(arch, "dots") for arch in SHARD_ARCHS] + [("zamba2-1.2b",
@@ -346,12 +369,12 @@ REMATS = [(arch, "dots") for arch in SHARD_ARCHS] + [("zamba2-1.2b",
 
 @pytest.mark.parametrize("arch", SHARD_ARCHS)
 def test_split_step_is_the_accum_step_bitwise(arch):
-    _steps(arch, 2, 2)
+    _steps(arch, 2, 1)
 
 
 @pytest.mark.parametrize("arch,remat", REMATS)
 def test_split_step_under_remat_is_the_accum_step_bitwise(arch, remat):
-    _steps(arch, 2, 2, remat=remat)
+    _steps(arch, 2, 1, remat=remat)
 
 
 def test_four_data_rows_are_accum_four_bitwise():
@@ -377,27 +400,39 @@ def test_one_layer_is_gathered_at_a_time(arch, remat, monkeypatch):
     """Every tensor a gather builds (``sharding._build``: a forward's
     gather, a backward's or a recomputation's gather again) is watched
     by a weak reference. At each gather the layers' gathered tensors
-    alive are of one layer, with at most the top-level split leaves
-    beside them; when the backward starts none of a layer's is alive
-    (autograd saved how to gather them again, not them)."""
+    alive are of one layer and, of its leaves split over ``model``, one
+    position's block (gathered over the FSDP axes), with at most the
+    top-level gathers beside them; when the backward starts none of a
+    layer's is alive (autograd saved how to gather them again, not
+    them)."""
     cfg = _cfg(arch)
     mesh = cpu_mesh(2, 2)
     p0 = _params(arch, seed=2)
     sp = place(p0, ShardingRules(mesh).tree_shardings(p0))
     split = {path: x for path, x in lm.flatten(sp).items()
              if isinstance(x, ShardedTensor)}
-    n_top = sum(not SH.taken_by_layer(path) for path in split)
-    n_layer_gathers = sum(x.shape[0] for path, x in split.items()
+
+    def per_use(path, x):      # gathers a use: a block a model position
+        stacked = SH.taken_by_layer(path)
+        return (2 if SH.model_dim(x.sharding.spec, stacked) is not None
+                else 1) * (x.shape[0] if stacked else 1)
+
+    n_top = sum(per_use(path, x) for path, x in split.items()
+                if not SH.taken_by_layer(path))
+    n_layer_gathers = sum(per_use(path, x) for path, x in split.items()
                           if SH.taken_by_layer(path))
-    layer_of, live = {}, []
+    key_of, live = {}, []
     gathers = {"forward": 0, "backward": 0}
     phase = ["forward"]
     real_layer, real_build, real_grad = (SH.SplitAtUse.layer, SH._build,
                                          torch.autograd.grad)
 
     def layer(self, i):
-        plan = self._layers[i][0]
-        layer_of[id(plan)] = (plan, i)    # the plan kept: its id stays
+        plans = [(self._layers[i][0], None)] + [
+            (plan, j) for j, (plan, _) in enumerate(
+                self._positions[i] if self._positions else ())]
+        for plan, j in plans:      # the plans kept: their ids stay
+            key_of[id(plan)] = (plan, (i, j))
         return real_layer(self, i)
 
     def alive():
@@ -405,10 +440,12 @@ def test_one_layer_is_gathered_at_a_time(arch, remat, monkeypatch):
 
     def build(plan, blocks):
         out = real_build(plan, blocks)
-        live.append((weakref.ref(out), layer_of.get(id(plan), (0, None))[1]))
+        live.append((weakref.ref(out), key_of.get(id(plan), (0, None))[1]))
         gathers[phase[0]] += 1
         now = alive()
-        assert len({i for i in now if i is not None}) <= 1, remat
+        layers = [k for k in now if k is not None]
+        assert len({i for i, _ in layers}) <= 1, remat
+        assert len({j for _, j in layers if j is not None}) <= 1, remat
         assert now.count(None) <= n_top
         return out
 
@@ -424,8 +461,9 @@ def test_one_layer_is_gathered_at_a_time(arch, remat, monkeypatch):
     monkeypatch.setattr(SH, "_build", build)
     monkeypatch.setattr(torch.autograd, "grad", grad)
     make_train_step(cfg, remat=remat)(sp, TO.init(sp), _batch_fn(arch)(0))
-    # two data rows: each gathers the top-level leaves once and every
-    # stacked leaf a layer at a time, and gathers again in its backward
+    # two data rows: each gathers the top-level leaves once (a block a
+    # position where split over model) and every stacked leaf a layer
+    # (and a position) at a time, and gathers again in its backward
     assert n_layer_gathers >= 4
     assert gathers["forward"] == 2 * (n_top + n_layer_gathers)
     assert gathers["backward"] >= 2
@@ -434,17 +472,21 @@ def test_one_layer_is_gathered_at_a_time(arch, remat, monkeypatch):
 @pytest.mark.parametrize("arch", SHARD_ARCHS)
 def test_block_accumulators_are_slices_of_the_accum_accumulator(
         arch, monkeypatch):
-    """The gradients that ``OPT.update`` takes from a (2, 2) step: each
+    """The gradients that ``OPT.update`` takes from a split step: each
     split leaf's is one float32 accumulator a distinct block, of the
     shard's shape (no whole-leaf accumulator), shared by the positions
-    that hold the block, and bitwise its slice of the ``accum=2``
-    route's whole accumulator; the global norm assembles the split
-    leaves one at a time in one buffer."""
+    that hold the block; the global norm assembles the split leaves one
+    at a time in one buffer. On a (2, 1) mesh each accumulator is
+    bitwise its slice of the ``accum=2`` route's whole accumulator; on
+    (2, 2), whose ``model`` split computes other partial sums, it is
+    bitwise the rows' block gradients of the split route's own run,
+    summed in row order and divided by the rows."""
     cfg = _cfg(arch)
     p0 = _params(arch, seed=2)
     batch = _batch_fn(arch)(0)
-    taken, norm_outs = [], []
+    taken, norm_outs, added = [], [], []
     real_update, real_gather = TO.update, ShardedTensor.gather
+    real_add = TS._add_blocks
 
     def update(params, grads, state, **kw):
         taken.append(grads)
@@ -455,34 +497,57 @@ def test_block_accumulators_are_slices_of_the_accum_accumulator(
             norm_outs.append((out.untyped_storage().data_ptr(), out.numel()))
         return real_gather(self, device, dtype, out)
 
+    def add_blocks(blocks, grads):
+        added.append((blocks, [(slot, g.clone()) for slot, g in grads
+                               if g is not None]))
+        return real_add(blocks, grads)
+
     monkeypatch.setattr(TO, "update", update)
     monkeypatch.setattr(ShardedTensor, "gather", gather)
+    monkeypatch.setattr(TS, "_add_blocks", add_blocks)
     ref_p = TO.tree_map(lambda p: p.clone(), p0)
     make_train_step(cfg, accum=2, remat="none")(ref_p, TO.init(ref_p),
                                                 batch)
-    mesh = cpu_mesh(2, 2)
-    sp = place(TO.tree_map(lambda p: p.clone(), p0),
-               ShardingRules(mesh).tree_shardings(p0))
-    make_train_step(cfg, remat="none")(sp, TO.init(sp), batch)
-    whole, split = taken
-    n_split = 0
-    for g, want, x in zip(split, whole, TO.leaves(sp)):
-        if not isinstance(x, ShardedTensor):
-            assert torch.equal(g, want)
-            continue
-        n_split += 1
-        assert isinstance(g, ShardedTensor) and g.dtype == torch.float32
-        blocks = g.blocks()
-        for k, (index, shard) in enumerate(zip(g.indices, g.shards)):
-            assert shard is blocks[g.block_of[k]]
-            assert shard.shape == x.shards[k].shape
-            assert shard.numel() < want.numel()
-            assert torch.equal(shard, want[index])
-    assert n_split >= 8
-    sizes = [x.numel() for x in TO.leaves(sp) if isinstance(x, ShardedTensor)]
-    assert len(norm_outs) == n_split
-    assert len({ptr for ptr, _ in norm_outs}) == 1
-    assert sorted(n for _, n in norm_outs) == sorted(sizes)
+    whole = taken.pop()
+    for data, model in ((2, 1), (2, 2)):
+        added.clear()
+        norm_outs.clear()
+        mesh = cpu_mesh(data, model)
+        sp = place(TO.tree_map(lambda p: p.clone(), p0),
+                   ShardingRules(mesh).tree_shardings(p0))
+        make_train_step(cfg, remat="none")(sp, TO.init(sp), batch)
+        split = taken.pop()
+        # the split route's own rows, summed in order into fresh blocks
+        own = {}
+        for blocks, grads in added:
+            acc = own.setdefault(id(blocks[0]), [torch.zeros_like(b)
+                                                 for b in blocks])
+            for (b, j), g in grads:
+                (acc[b] if j is None else acc[b][j]).add_(g)
+        n_split = 0
+        for g, want, x in zip(split, whole, TO.leaves(sp)):
+            if not isinstance(x, ShardedTensor):
+                if model == 1:
+                    assert torch.equal(g, want)
+                continue
+            n_split += 1
+            assert isinstance(g, ShardedTensor) and g.dtype == torch.float32
+            blocks = g.blocks()
+            for k, (index, shard) in enumerate(zip(g.indices, g.shards)):
+                assert shard is blocks[g.block_of[k]]
+                assert shard.shape == x.shards[k].shape
+                assert shard.numel() < want.numel()
+                if model == 1:
+                    assert torch.equal(shard, want[index])
+                else:
+                    assert torch.equal(
+                        shard, own[id(blocks[0])][g.block_of[k]] / 2)
+        assert n_split >= 8
+        sizes = [x.numel() for x in TO.leaves(sp)
+                 if isinstance(x, ShardedTensor)]
+        assert len(norm_outs) == n_split
+        assert len({ptr for ptr, _ in norm_outs}) == 1
+        assert sorted(n for _, n in norm_outs) == sorted(sizes)
 
 
 @pytest.mark.parametrize("spec", [P("data", None, "model"),
@@ -491,10 +556,12 @@ def test_block_accumulators_are_slices_of_the_accum_accumulator(
 def test_a_split_stacked_leaf_gathers_and_differentiates_by_layer(spec):
     """``SplitAtUse`` on a stacked leaf whose spec may split the layer
     axis: layer i gathered is the unsplit leaf's ``x[i]`` in the use
-    type, bitwise, and the inputs' gradients of a loss over every layer
-    are the unsplit leaf's gradient (through the same cast), block by
-    block and layer by layer, rounded to float32; a leaf outside the
-    stacks is gathered whole."""
+    type, bitwise (whole, where the spec splits a dimension over
+    ``model`` and layer i is handed out as its positions' blocks), and
+    the inputs' gradients of a loss over every layer are the unsplit
+    leaf's gradient (through the same cast), block by block and layer by
+    layer, rounded to float32; a leaf outside the stacks is gathered
+    whole."""
     rng = np.random.default_rng(0)
     mesh = cpu_mesh(2, 2)
     x = torch.from_numpy(rng.normal(size=(4, 6, 8)).astype(np.float32))
@@ -507,7 +574,7 @@ def test_a_split_stacked_leaf_gathers_and_differentiates_by_layer(spec):
         torch.sum(torch.sin(cast[i].float()) * w[i]) for i in range(4)),
         leaf)[0]
     at = SplitAtUse(sx, torch.bfloat16, stacked=True)
-    layers = [at.layer(i) for i in range(4)]
+    layers = [_whole(at.layer(i)) for i in range(4)]
     for i, got in enumerate(layers):
         assert got.dtype == torch.bfloat16
         assert torch.equal(got, x[i].to(torch.bfloat16))
@@ -525,13 +592,20 @@ def test_a_split_stacked_leaf_gathers_and_differentiates_by_layer(spec):
     assert torch.equal(whole, x.to(torch.bfloat16))
 
 
+def _whole(x):
+    """A layer as ``SplitAtUse`` hands it out, whole (``model_split.Blocks``
+    gathered whole)."""
+    return x.whole() if isinstance(x, MS.Blocks) else x
+
+
 def test_a_split_leaf_reads_as_a_stacked_leaf_in_its_use_type():
     """The forwards take layer i of a stacked leaf with ``[i]``
     (``models.lm.layer``) and cast every leaf to its use type
     (``train.step.params_at_use``): on a ``SplitAtUse`` ``[i]`` is layer
-    i gathered, ``lm.layer`` gathers through it, and the cast to its own
-    type is itself; a cast to another type raises, since its layers are
-    gathered in one type."""
+    i gathered (here as its ``model`` positions' blocks, whole on
+    ``whole()``), ``lm.layer`` gathers through it, and the cast to its
+    own type is itself; a cast to another type raises, since its layers
+    are gathered in one type."""
     rng = np.random.default_rng(1)
     x = torch.from_numpy(rng.normal(size=(4, 6, 8)).astype(np.float32))
     sx = place(x, NamedSharding(cpu_mesh(2, 2), P("data", None, "model")))
@@ -540,27 +614,36 @@ def test_a_split_leaf_reads_as_a_stacked_leaf_in_its_use_type():
     with pytest.raises(ValueError, match="split at use"):
         at.to(torch.float32)
     for i in range(4):
-        assert torch.equal(at[i], x[i].to(torch.bfloat16))
+        assert torch.equal(_whole(at[i]), x[i].to(torch.bfloat16))
         got = lm.layer({"mlp": {"w": at}, "b": x}, i)
-        assert torch.equal(got["mlp"]["w"], x[i].to(torch.bfloat16))
+        assert torch.equal(_whole(got["mlp"]["w"]), x[i].to(torch.bfloat16))
         assert torch.equal(got["b"], x[i])
 
 
 def test_one_step_follows_its_tree_onto_another_mesh():
     """A step function built once takes its data rows from the tree it is
     given: a step on (2, 2), then parameters, m and v moved by
-    ``apply_resize`` onto (4, 1) and a step there, bitwise ``accum=2``
-    then ``accum=4`` on one device."""
+    ``apply_resize`` onto (4, 1) and a step there, bitwise a separate
+    run of the (2, 2) split step (its ``model`` split computes its own
+    partial sums) gathered onto one device and then ``accum=4``."""
     cfg = ARCHS["qwen2-0.5b"].reduced()
     batch_fn = make_batch_fn(cfg, ShapeSpec("t", 32, 4, "train"), seed=1,
                              device="cpu")
     p0 = _params("qwen2-0.5b", seed=2)
-    ref_p = TO.tree_map(lambda p: p.clone(), p0)
-    ref_o = TO.init(ref_p)
     old, new = cpu_mesh(2, 2), cpu_mesh(4, 1)
-    sp = place(TO.tree_map(lambda p: p.clone(), p0),
-               ShardingRules(old).tree_shardings(p0))
-    so = TO.init(sp)
+
+    def on_old():
+        sp = place(TO.tree_map(lambda p: p.clone(), p0),
+                   ShardingRules(old).tree_shardings(p0))
+        return sp, TO.init(sp)
+
+    ref_p, ref_o = on_old()
+    ref_p, ref_o, first = make_train_step(cfg, remat="none")(
+        ref_p, ref_o, batch_fn(0))
+    ref_p, ref_m, ref_v = (gather_tree(t) for t in (ref_p, ref_o.m,
+                                                    ref_o.v))
+    ref_o = TO.AdamWState(ref_o.step, ref_m, ref_v)
+    sp, so = on_old()
     sstep = make_train_step(cfg, remat="none")
     for i, accum in enumerate((2, 4)):
         if accum == 4:
@@ -568,10 +651,11 @@ def test_one_step_follows_its_tree_onto_another_mesh():
             sp = apply_resize(sp, new, rules)
             so = TO.AdamWState(so.step, apply_resize(so.m, new, rules),
                                apply_resize(so.v, new, rules))
-        b = batch_fn(i)
-        ref_p, ref_o, rm = make_train_step(cfg, accum=accum, remat="none")(
-            ref_p, ref_o, b)
-        sp, so, sm = sstep(sp, so, b)
+            ref_p, ref_o, rm = make_train_step(cfg, accum=4, remat="none")(
+                ref_p, ref_o, batch_fn(i))
+        else:
+            rm = first
+        sp, so, sm = sstep(sp, so, batch_fn(i))
         assert torch.equal(rm["loss"], sm["loss"]), accum
         assert torch.equal(rm["grad_norm"], sm["grad_norm"]), accum
     assert all(x.sharding.mesh is new for x in TO.leaves(sp)
