@@ -39,7 +39,7 @@ and audio families), and checks the results. Phases:
    their three paper scales, three workflows, policies 0-2, two seeds
    (108 scenarios of 2313 job slots), through the user-facing entry
    points; the kernel's launches in this run are counted, and all must
-   take the ``fused`` design; one run (phase 13(b) sweeps 12 of its
+   take the ``fused`` design; one run (phase 13(b) sweeps 4 of its
    lanes again and holds them bitwise to this run), so
    ``scenarios_per_s`` is over the first run; then a profiled window
    of 16 steps and ``freed_scan`` at
@@ -89,13 +89,13 @@ and audio families), and checks the results. Phases:
    scenarios of 73 slots; a fleet warmed one round on the first family's
    grid, shared by the four families) under each robustness family
    (``clean``, ``faulty``, ``elastic``, ``preempt``), kernel path against
-   plain path (run in a worker process on the card while phases 2-9
-   run), bitwise, every launch ``fused``; per family the strategy
-   rows (twt, makespan, core-hours, OH hours, misses, restarts) and the
-   checks: every workflow done under the step budget, misses and
-   over-allocation on some ASA-Naive row, kills under ``faulty`` and
-   ``preempt``, and at the end ``free == total``, ``cap_debt >= 0`` and
-   every fault event consumed on every lane;
+   plain path (run in a worker process on the card while phases 10
+   and 11 run, held after phase 11), bitwise, every launch ``fused``;
+   per family the strategy rows (twt, makespan, core-hours, OH hours,
+   misses, restarts) and the checks: every workflow done under the step
+   budget, misses and over-allocation on some ASA-Naive row, kills under
+   ``faulty`` and ``preempt``, and at the end ``free == total``,
+   ``cap_debt >= 0`` and every fault event consumed on every lane;
 11. that naive-and-faults program at full size: phase 4's geometry under
    the ``faulty`` family, policies 2-3 (72 scenarios of 2313 slots), one
    timed run with the same checks and the counts of misses, cancels,
@@ -124,8 +124,8 @@ and audio families), and checks the results. Phases:
    counters summing to its ``trace_events``, the chain waits replayed
    from each ASA and ASA-Naive lane's ring equal to ``twt_s`` bit for
    bit, a Chrome trace and JSONL written and validated; (b) phase 4's
-   full-size grid traced, one timed run of the 12 lanes phase 4 drained
-   first (all 108 until phase 21 took the model split): the state
+   full-size grid traced, one timed run of the 4 lanes phase 4 drained
+   first (all 108 until phase 21 took the model split, then 12): the state
    without its ring bitwise phase 4's same lanes, the scan launches
    phase 4's loop runs over them, ``sweep_summary`` on the
    card equal to the same summary on the CPU (its peak memory printed),
@@ -239,8 +239,9 @@ and audio families), and checks the results. Phases:
    cores); (c) training at published size (float32 parameters, batch 4,
    sequence 1024): seconds a step, peak memory, data seconds a batch,
    the loss through the flash kernel against the plain route, a step
-   through the kernel refused, and ``launch.train`` restarted from its
-   step-2 checkpoint, bitwise the uninterrupted run; (d) the batches'
+   through the kernel refused (its ``launch.train`` restart went when
+   phase 21 took the model split: phase 17(a) restarts ``launch.train``
+   on the card); (d) the batches'
    frames on the card against the CPU route, bitwise, in bfloat16 and
    float32;
 20. the VLM prefix (``pixtral-12b``: mistral-nemo's decoder, 40 layers,
@@ -260,7 +261,7 @@ and audio families), and checks the results. Phases:
    1024 tokens): seconds a step, peak memory, the loss through the flash
    kernel against the plain route, a step through it refused (its
    restart went when phase 21 took the model split: a 16 GB checkpoint;
-   phases 17(a) and 19(c) restart ``launch.train``); (e) the batches'
+   phase 17(a) restarts ``launch.train``); (e) the batches'
    patch embeddings on the card against the CPU route, bitwise; (f)
    ``core.xla_f32``'s exp, log and logsumexp over
    10^7 inputs on the card against the CPU, bitwise; (g) the dry run's
@@ -279,7 +280,8 @@ and audio families), and checks the results. Phases:
    peak held to the other route's plus its repeated shards and gathers,
    two timed rounds and a profiled step of each route; (c) (1, 2) against
    the unsplit step likewise; (d)-(e) ``launch.train`` saved on (2, 2)
-   and resumed onto (4, 1) and (1, 1), bitwise the ``accum`` steps, and
+   after one step and resumed onto (4, 1) and (1, 1) for one more,
+   bitwise the ``accum`` steps, and
    ``apply_resize`` (2, 2) → (4, 1) bitwise; (f) (2, 1), no compute
    split, at 4 layers: bitwise ``accum=2``.
 
@@ -1661,10 +1663,12 @@ def numpy_equal(x: dict, y: dict) -> bool:
 # Phase 10's plain paths (each family's sweep through the reference scan,
 # no kernel), phase 13(a)'s traced one, phase 15(a)'s plain rollout and
 # phase 16(a)-(b)'s sharded runs on the one card run in a worker process
-# on the card from phase 1's end, while the main process drives phases
-# 2-9: each program is the same on the same card, so the worker's states
-# carry the main process's bits (in the main process, each in its phase,
-# until the model split came: the smoke's time).
+# on the card while the main process drives phases 10 and 11, after the
+# last reading of phases 2-9 (kernel times, serving rates), so no second
+# context shares the card under those: each program is the same on the
+# same card, so the worker's states carry the main process's bits (in
+# the main process, each in its phase, until the model split came: the
+# smoke's time).
 def side_runs(path: str, device: str = "cuda:0") -> None:
     """The worker: {run: (final state as numpy, seconds, scan launches,
     extra)} for each family, "faulty_traced" and "rl_rollout" (the plain
@@ -1983,18 +1987,18 @@ def check_naive_faults_run(tag: str, family: str, grid, final,
                 restarts=restarts)
 
 
-def table1_families(grid_mod, families, policies, backfill, plain: Worker,
-                    dev) -> tuple[dict, dict]:
+def table1_families(grid_mod, families, policies, backfill, dev
+                    ) -> tuple[dict, dict, dict]:
     """Phase 10: ``benchmarks/run.py``'s xsim leg with ASA-Naive (policies
-    0-3) under every robustness family, kernel path against plain path
-    (``side_runs``' worker), bitwise; every launch ``fused``. Returns
-    the kernel paths' launches by family, and the ``faulty`` run (grid,
+    0-3) under every robustness family; every launch ``fused``. Returns
+    the kernel paths' launches by family, the ``faulty`` run (grid,
     warmed fleet, final state and metrics of its kernel path) that phase
-    16(a) shards."""
+    16(a) shards, and each family's final state as numpy, which
+    ``table1_families_vs_plain`` holds against the plain path."""
     from repro_torch import convert
 
     cfg = grid_mod.XSimConfig(**NAIVE_CFG)
-    launches, warmed = {}, None
+    launches, finals, warmed = {}, {}, None
     for family in families.FAMILIES:
         tag = f"table1_naive/{family}"
         grid = families.family_grid(cfg, family, **NAIVE_GRID, device=dev)
@@ -2019,17 +2023,13 @@ def table1_families(grid_mod, families, policies, backfill, plain: Worker,
         check(kern_launches > 0 and designs["fused"] == kern_launches,
               f"{tag}: kernel path launches {kern_launches}, by design "
               f"{designs}")
-        fin_r, ref_s, ref_launches, _ = plain.get(family)
-        check(ref_launches == 0, f"{tag}: the plain path launched the kernel")
-        check(numpy_equal(convert.to_numpy(fin_k), fin_r),
-              f"{tag}: kernel path and plain path differ")
+        finals[family] = convert.to_numpy(fin_k)
         m = {k: v.cpu().numpy() for k, v in m_k.items()}
         counts = check_naive_faults_run(tag, family, grid, fin_k, m)
         print(f"{tag}: B={grid.n} N={grid.cfg.max_jobs} "
               f"n_faults={grid.fault_t.shape[1]} "
               f"n_steps_budget={grid.cfg.n_steps} "
               f"warm_fleet_s={warm_s:.3f} kernel_path_s={kern_s:.3f} "
-              f"plain_path_s={ref_s:.3f} bitwise_equal=True "
               f"freed_scan_launches={kern_launches} by_design={designs} "
               + " ".join(f"{k}={v}" for k, v in counts.items()))
         strategy_rows(grid, m, tag=tag,
@@ -2042,7 +2042,19 @@ def table1_families(grid_mod, families, policies, backfill, plain: Worker,
         if family == "faulty":
             faulty = dict(grid=grid, fleet=fleet, final=fin_k, metrics=m_k,
                           pred_seed=7, launches=kern_launches)
-    return launches, faulty
+    return launches, faulty, finals
+
+
+def table1_families_vs_plain(finals: dict, plain: Worker) -> None:
+    """Phase 10's kernel paths against the plain paths of ``side_runs``'
+    worker, bitwise, once the worker is done (after phase 11)."""
+    for family, fin_k in finals.items():
+        tag = f"table1_naive/{family}"
+        fin_r, ref_s, ref_launches, _ = plain.get(family)
+        check(ref_launches == 0, f"{tag}: the plain path launched the kernel")
+        check(numpy_equal(fin_k, fin_r),
+              f"{tag}: kernel path and plain path differ")
+        print(f"{tag}/plain: plain_path_s={ref_s:.3f} bitwise_equal=True")
 
 
 def counting_drain(events_mod, counts: dict):
@@ -2329,8 +2341,8 @@ def table1_on_card(dev) -> None:
     estimators on the CPU, in one process (the estimator seeds are
     ``hash()`` of strings; each (center, scale) has its own estimator and
     background): every run's metrics equal. Prints the normalized
-    averages as ``benchmarks/table1_strategies.py`` does, beside the
-    paper's row (over both centers)."""
+    averages as ``benchmarks/table1_strategies.py`` does, over this one
+    center's runs, beside the paper's row (over both centers)."""
     import dataclasses
 
     from repro_torch.sched import runner
@@ -2357,10 +2369,10 @@ def table1_on_card(dev) -> None:
           f"naive_misses={sum(r.misses for r in naive)} "
           f"naive_oh_h={sum(r.oh_hours for r in naive):.6f}")
     for strat, d in sorted(runner.summarize_table1(res).items()):
-        print(f"table1_strategies/{strat},0,"
+        print(f"table1_strategies/{TABLE1_CPU_CENTER}_only/{strat},0,"
               f"twt=+{d['twt']*100:.0f}%;makespan=+{d['makespan']*100:.0f}%;"
               f"ch=+{d['ch']*100:.0f}%")
-    print("table1_strategies/paper_ref,0,"
+    print("table1_strategies/paper_ref_both_centers,0,"
           "bigjob_ch=+53%;per_stage_makespan=+34%;asa_makespan=+2%")
 
 
@@ -2511,9 +2523,9 @@ def traced_table1_faulty(grid_mod, families, backfill, faulty: dict,
 TRACED_PROFILE_STEPS = 4
 # phase 13(b)'s traced sweep runs TRACED_LANES of the grid's 108 lanes,
 # those phase 4 drained in the fewest steps (all 108 until the model
-# split came: the smoke's time), held against the same lanes of phase
-# 4's run
-TRACED_LANES = 12
+# split came, then 12: the smoke's time), held against the same lanes of
+# phase 4's run
+TRACED_LANES = 4
 
 
 def take_lanes(s, idx: torch.Tensor):
@@ -3627,7 +3639,7 @@ def train_restart(dev, arch: str = TRAIN_ARCH,
                   layers: int | None = TRAIN_RESTART_LAYERS,
                   batch: int = TRAIN_BATCH, tag: str = "train/restart"
                   ) -> None:
-    """Phases 17(a) and 19(c): ``launch.train.train`` at published
+    """Phase 17(a): ``launch.train.train`` at published
     width, its depth cut to ``layers`` (None: the published depth),
     restarted from its checkpoint, against the uninterrupted run. The
     checkpoints are written with zlib's stored blocks (level 0): the check
@@ -4144,8 +4156,9 @@ def hybrid_on_card(dev) -> dict:
 # sequence 1024, remat none, through kernel_route_loss as phase 17(b)
 # (seconds a step, data seconds a batch, the loss through the kernel
 # against the plain route within TRAIN_KERNEL_REL, a step through it
-# refused), and launch.train restarted from its step-2 checkpoint,
-# bitwise the uninterrupted 5-step run, as phase 17(a). (d) The batches'
+# refused); its launch.train restart (from a step-2 checkpoint, bitwise
+# the uninterrupted 5-step run, as phase 17(a)) went when the model split
+# came, for the smoke's time. (d) The batches'
 # frames (prng.normal at the training batch's shape) on the card against
 # the CPU route, bitwise, in bfloat16 and float32. Row 2d of PERF.md: the
 # flash kernel at the three prefill shapes (FLASH_WHISPER_SHAPES: part,
@@ -4336,9 +4349,9 @@ def audio_on_card(dev, cpu: Worker | None = None) -> dict:
     arch, layers, batch = AUDIO_TRAIN
     launches = kernel_route_loss(arch, layers, batch, dev)
     torch.cuda.empty_cache()
-    train_restart(dev, arch=arch, layers=layers, batch=batch,
-                  tag="train/audio_restart")
-    torch.cuda.empty_cache()
+    print("train/audio_restart/cut: no launch.train restart (it went when "
+          "phase 21 took the model split: the smoke's time; phase 17(a) "
+          "restarts launch.train on the card)")
     t4 = time.perf_counter()
     audio_frames_card_vs_cpu(dev, cpu or Worker(cpu_references))
     t5 = time.perf_counter()
@@ -4370,7 +4383,7 @@ def audio_on_card(dev, cpu: Worker | None = None) -> dict:
 # the model split came (the smoke's time: the untied embedding and head
 # alone make a 16 GB checkpoint of parameters, m and v at any depth, about
 # 68 s to save and restore): launch.train's restart is held on the card
-# by phases 17(a) and 19(c), the VLM route's by
+# by phase 17(a), the VLM route's by
 # tests/test_torch_vlm.py. (e) The batches' patch embeddings on the card
 # against the CPU route, bitwise, in bfloat16 and float32. (f)
 # core.xla_f32 over
@@ -4646,7 +4659,7 @@ def vlm_on_card(dev, cpu: Worker | None = None) -> dict:
     print(f"train/vlm/cut: {layers} of 40 layers at published width (the "
           f"float32 parameters, gradients, m and v of 40 layers, about 195 "
           f"GB, do not fit one card); no restart (a 16 GB checkpoint at "
-          f"any depth; phases 17(a) and 19(c) restart launch.train)")
+          f"any depth; phase 17(a) restarts launch.train)")
     launches = kernel_route_loss(arch, layers, batch, dev)
     torch.cuda.empty_cache()
     t4 = time.perf_counter()
@@ -4665,7 +4678,7 @@ def vlm_on_card(dev, cpu: Worker | None = None) -> dict:
 # The CPU sides of phases 19(d), 20(e) and 21(a) (the batches' frames and
 # patch embeddings and XLA's log1p, a normal and an exponential draw, on
 # the CPU: about 33 s of the card's host) run in a worker process that
-# starts after phase 1 and takes CPU_REF_THREADS threads, while the main
+# starts after phase 9 and takes CPU_REF_THREADS threads, while the main
 # process drives the card (in the main process, each beside its card leg,
 # until the model split came: the smoke's time).
 CPU_REF_THREADS = 2
@@ -4793,12 +4806,15 @@ SPLIT_TIMED_ROUNDS = 2
 # (d) launch.train at published width cut to SHARDED_RESTART_LAYERS
 # layers and sequences of SHARDED_RESTART_SEQ (1024 until the model split
 # came: a batch's draws over the vocabulary took 0.74 s, eight batches
-# of the smoke's time), saved on (2, 2) at step 2 (zlib level 0), resumed
-# onto (4, 1) and onto (1, 1) for 2 more steps, each continuation's
-# losses bitwise the accum=4 / accum=1 steps from the same checkpoint;
-# (e) apply_resize (2, 2) -> (4, 1) of that state, every shard bitwise.
+# of the smoke's time), saved on (2, 2) at step SHARDED_RESTART_AT (zlib
+# level 0), resumed onto (4, 1) and onto (1, 1) for as many more steps
+# (2 and 2 until the model split came, for the smoke's time), each
+# continuation's losses bitwise the accum=4 / accum=1 steps from the same
+# checkpoint; (e) apply_resize (2, 2) -> (4, 1) of that state, every
+# shard bitwise.
 SHARDED_RESTART_LAYERS = 2
 SHARDED_RESTART_SEQ = 256
+SHARDED_RESTART_AT = 1
 
 
 def card_mesh(dev, data: int, model: int):
@@ -5155,35 +5171,37 @@ def elastic_restart(dev) -> None:
     run = dict(reduced=False, batch=TRAIN_BATCH, seq=SHARDED_RESTART_SEQ,
                log_every=1, device=str(dev))
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_split_"))
+    at = SHARDED_RESTART_AT
     try:
         with patched((launch_train, "ARCHS",
                       dict(ARCHS, **{TRAIN_ARCH: cfg})),
                      (ckpt, "save_async", partial(ckpt.save_async,
                                                   level=0))):
             t0 = time.perf_counter()
-            first = launch_train.train(TRAIN_ARCH, steps=2,
+            first = launch_train.train(TRAIN_ARCH, steps=at,
                                        ckpt_dir=str(tmp / "a"),
-                                       ckpt_every=2,
+                                       ckpt_every=at,
                                        mesh=card_mesh(dev, 2, 2), **run)
             save_s = time.perf_counter() - t0
             ckpt_bytes = sum(f.stat().st_size
-                             for f in (tmp / "a" / "step_2").iterdir())
+                             for f in (tmp / "a" / f"step_{at}").iterdir())
             p = OPT.tree_map(lambda x: x.float(),
                              TS.init_params(cfg, device=dev))
             o = OPT.init(p)
             state = ckpt.restore({"params": p, "m": o.m, "v": o.v,
-                                  "step": o.step}, tmp / "a", 2, device=dev)
+                                  "step": o.step}, tmp / "a", at, device=dev)
             batch_fn = make_batch_fn(cfg, ShapeSpec(
                 "custom", SHARDED_RESTART_SEQ, TRAIN_BATCH, "train"), seed=0,
                 device=dev)
-            batches = [batch_fn(s) for s in (2, 3)]
+            batches = [batch_fn(s) for s in range(at, 2 * at)]
             for (data, model), accum in (((4, 1), 4), ((1, 1), 1)):
                 tag = f"train/elastic_2x2_to_{data}x{model}"
                 d = tmp / f"{data}x{model}"
                 d.mkdir()
-                shutil.copytree(tmp / "a" / "step_2", d / "step_2")
+                shutil.copytree(tmp / "a" / f"step_{at}",
+                                d / f"step_{at}")
                 t0 = time.perf_counter()
-                got = launch_train.train(TRAIN_ARCH, steps=4,
+                got = launch_train.train(TRAIN_ARCH, steps=2 * at,
                                          ckpt_dir=str(d), ckpt_every=100,
                                          mesh=card_mesh(dev, data, model),
                                          **run)
@@ -5196,7 +5214,7 @@ def elastic_restart(dev) -> None:
                                                  state["v"]))
                 step = TS.make_train_step(cfg, accum=accum, remat="none")
                 want = []
-                for s, b in zip((2, 3), batches):
+                for s, b in zip(range(at, 2 * at), batches):
                     rp, ro, m = step(rp, ro, b)
                     want.append((s, float(m["loss"])))
                 check(got["losses"] == want,
@@ -5301,11 +5319,6 @@ def main() -> None:
             if "warning" in line.lower():
                 print(f"build/{name}/warning: {line.strip()[:200]}")
     phases.done("1_build")
-    # the CPU sides of phases 19(d), 20(e) and 21(a), while the card works
-    cpu = Worker(cpu_references)
-    atexit.register(cpu.close)
-    plain = Worker(side_runs)
-    atexit.register(plain.close)
 
     # phase 2: kernels against their plain versions
     checks = kernel_vs_plain(backfill, dev)
@@ -5363,16 +5376,25 @@ def main() -> None:
     ssm_end_to_end(dev)
     phases.done("9_ssm_end_to_end")
 
+    # the workers start after the last reading of phases 2-9: the plain
+    # paths of phases 10, 13(a), 15(a) and 16(a)-(b) on the card, the CPU
+    # sides of phases 19(d), 20(e) and 21(a), while phases 10 and 11 run
+    cpu = Worker(cpu_references)
+    atexit.register(cpu.close)
+    plain = Worker(side_runs)
+    atexit.register(plain.close)
+
     # phase 10: the Table-1 setting with ASA-Naive under every family;
     # phase 11: that program at full size under the faulty family (counts
-    # reset inside, per path)
-    by_family, faulty = table1_families(grid_mod, families, policies,
-                                        backfill, plain, dev)
+    # reset inside, per path); then phase 10 against the plain paths
+    by_family, faulty, finals = table1_families(grid_mod, families,
+                                                policies, backfill, dev)
     for family, n in by_family.items():
         scan_paths[f"sweep/table1_naive_{family}"] = n
     phases.done("10_table1_families")
     scan_paths["sweep/full_faulty"] = full_faulty(
         grid_mod, families, policies, backfill, events_mod, dev)
+    table1_families_vs_plain(finals, plain)
     phases.done("11_full_faulty")
 
     # phase 12: the paper's tables: the QueueSim differentials through the

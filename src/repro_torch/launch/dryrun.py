@@ -21,14 +21,14 @@ the same thing:
   meta tensors at the per-device batch. A train step on a mesh whose
   ``model`` axis is m > 1 runs split over a (1, m) mesh of meta devices,
   each layer's compute split over ``model`` (``parallel.model_split``),
-  and counts one position: a position's share (its gathered blocks, its
-  heads', columns' or experts' activations, its logits' block, the
-  backward's buffers of its nodes, its blocks' gradients) at that
-  position alone, the rest (replicated work, leaves no rule splits over
-  ``model``, the global norm's buffer) at every position. Leaves split
-  over the FSDP axes only are gathered whole and their gradients kept
-  whole, so the count is still an upper bound on one device's working
-  memory.
+  and counts one position: a tensor made from one position's blocks (its
+  gathered blocks, its heads', columns' or experts' activations, its
+  logits' block, the backward's buffers of its share, its blocks'
+  gradients and new blocks) at that position alone, the rest (replicated
+  work, the sums across positions, leaves no rule splits over ``model``,
+  the global norm's buffer) at every position. Leaves split over the
+  FSDP axes only are gathered whole and their gradients kept whole, so
+  the count is still an upper bound on one device's working memory.
 * ``cost.flops``: ``torch.utils.flop_counter.FlopCounterMode`` over the
   same step at the global shape (matrix products and attention; a
   recomputing ``remat`` counts its recomputation).
@@ -64,10 +64,10 @@ from repro_torch.configs import ARCHS, cells
 from repro_torch.launch import specs as SPECS
 from repro_torch.launch.mesh import DeviceMesh, make_production_mesh
 from repro_torch.models import lm, lm_module
-from repro_torch.parallel import model_split as MS
 from repro_torch.parallel.sharding import (NamedSharding, PartitionSpec as P,
-                                           ShardingRules, flatten_with_path,
-                                           place)
+                                           ShardedTensor, ShardingRules,
+                                           flatten_with_path, model_dim,
+                                           place, taken_by_layer)
 from repro_torch.serve.step import make_decode_step, make_prefill_step
 from repro_torch.train import optimizer as OPT
 from repro_torch.train.step import make_train_step, params_at_use
@@ -92,23 +92,26 @@ TEMP_NOTE = ("peak bytes one step allocates on meta tensors at the "
 class LiveBytes(TorchDispatchMode):
     """Counts the bytes that ops allocate while the mode is on: an op's
     output on a storage that no input shares is a new allocation; the
-    bytes come off when the last tensor seen on that storage dies. An
-    allocation made as one ``model`` position's share
-    (``model_split.position()``, or in the backward by a node that share
-    made) counts for that position alone, the others for every position:
-    ``peak`` is the most that was live at once at one position."""
+    bytes come off when the last tensor seen on that storage dies.
+    ``positions`` names the ``model`` position of some tensors (a
+    position's blocks); an op whose inputs are of one position makes
+    tensors of that position, counted for it alone, and the others count
+    for every position: ``peak`` is the most that was live at once at one
+    position."""
 
-    def __init__(self, node_position=lambda node: None):
+    def __init__(self, positions=()):
         super().__init__()
         self.peak = 0
         self.live: dict = {}                # position (None: all) -> bytes
         self._refs: dict[int, int] = {}     # storage -> live tensors on it
-        self._node_position = node_position
+        self._position = {t.untyped_storage()._cdata: j   # storage -> j
+                          for t, j in positions}
 
     def _release(self, key: int, nbytes: int, j) -> None:
         self._refs[key] -= 1
         if not self._refs[key]:
             del self._refs[key]
+            self._position.pop(key, None)
             self.live[j] -= nbytes
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -116,10 +119,8 @@ class LiveBytes(TorchDispatchMode):
         inputs = {t.untyped_storage()._cdata
                   for t in tree_leaves((args, kwargs))
                   if isinstance(t, torch.Tensor)}
-        j = MS.position()
-        node = torch._C._current_autograd_node()
-        if j is None and node is not None:      # a backward's buffer
-            j = self._node_position(node)
+        of = {self._position[k] for k in inputs if k in self._position}
+        j = of.pop() if len(of) == 1 else None
         for t in tree_leaves(out):
             if not isinstance(t, torch.Tensor):
                 continue
@@ -129,6 +130,8 @@ class LiveBytes(TorchDispatchMode):
                 if key in inputs:
                     continue            # a view of memory from outside
                 self._refs[key] = 0
+                if j is not None:
+                    self._position[key] = j
                 self.live[j] = self.live.get(j, 0) + nbytes
                 self.peak = max(self.peak, self.live.get(None, 0) + max(
                     (v for k, v in self.live.items() if k is not None),
@@ -164,6 +167,25 @@ def local_bytes(tree, shardings) -> int:
     leaves of ``shardings``."""
     return sum(_nbytes(s.shard_shape(tuple(x.shape)), x.dtype)
                for x, s in local_leaves(tree, shardings).values())
+
+
+def position_blocks(tree) -> list:
+    """(block, j) for each block of a leaf of ``tree`` (parameters, or
+    trees holding them such as the AdamW state) that its spec splits over
+    ``model`` (``sharding.model_dim``): the blocks of ``model`` position
+    j."""
+    out = []
+    for path, x in flatten_with_path(tree):
+        if not isinstance(x, ShardedTensor):
+            continue
+        leaf = "/".join(k for k in path if isinstance(k, str))
+        d = model_dim(x.sharding.spec, taken_by_layer(leaf))
+        if d is None:
+            continue
+        width = x.shape[d] // x.sharding.mesh.shape["model"]
+        out += [(x.shards[k], x.indices[k][d].start // width)
+                for k in x.firsts]
+    return out
 
 
 def _prefill_step(cfg):
@@ -245,8 +267,7 @@ def plan_cell(cfg, shape, mesh, mesh_name: str, *, remat: str = "dots",
     local = dataclasses.replace(shape, global_batch=B // n)
     run, args = _step(cfg, local, remat=remat, accum=accum,
                       model=mesh.shape.get("model", 1))
-    with MS.recording_nodes() as node_position, \
-            LiveBytes(node_position) as live:
+    with LiveBytes(position_blocks(args)) as live:
         out = run()
         del out
     del run, args

@@ -217,7 +217,11 @@ def mamba2_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
         yfs = [y.float() for y in ys]
         # each position's sum of squares in float64 (a float32 square is
         # exact there), summed in position order: the whole d_inner's sum
-        # rounds once, to float32, whatever the split
+        # rounds once, to float32, whatever the split. The unsplit path
+        # below takes its mean in float32, so the two round differently:
+        # float32 partials would round twice, and put zamba2's (2, 2)
+        # step at 1.4156e-7 from the unsplit one, 1% over PARAM_ATOL in
+        # tests/test_torch_train_model_split.py (1.27e-7 with these)
         ss = MS.psum(MS.shares(n, lambda j: torch.square(
             yfs[j].double()).sum(-1, keepdim=True))).float()
         rms = torch.rsqrt(ss / (yfs[0].shape[-1] * n) + 1e-5)

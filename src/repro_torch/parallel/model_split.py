@@ -23,34 +23,13 @@ computes each position's share from position j's blocks
 This module is the one place where positions exchange values: copies
 between cards (item 12(e)) and one process a position (item 12(f)) turn
 these sums into peer copies or ``torch.distributed`` collectives.
-``position()`` names the position whose share is being computed, which
-the dry run reads to count one position's bytes (``launch.dryrun``).
 """
 
 from __future__ import annotations
 
-from contextlib import contextmanager
 from typing import Callable
 
 import torch
-
-_POSITION: list = [None]
-
-
-@contextmanager
-def at_position(j: int | None):
-    """Marks the work inside as position ``j``'s share (None: every
-    position's)."""
-    before, _POSITION[0] = _POSITION[0], j
-    try:
-        yield
-    finally:
-        _POSITION[0] = before
-
-
-def position() -> int | None:
-    """The position whose share is being computed, or None."""
-    return _POSITION[0]
 
 
 class Blocks:
@@ -100,49 +79,10 @@ def whole(p: dict) -> dict:
 
 
 def shares(n: int, share: Callable[[int], object]) -> list:
-    """``[share(0), ..., share(n - 1)]``, each computed as its position's
-    (``at_position``); under ``recording_nodes``, the autograd nodes each
-    one makes are noted as its position's."""
-    out = []
-    for j in range(n):
-        first = _next_node() if _SPANS[0] is not None else None
-        with at_position(j):
-            out.append(share(j))
-        if first is not None:
-            _SPANS[0].append((first, _next_node(), j))
-    return out
-
-
-_SPANS: list = [None]
-
-
-def _next_node() -> int:
-    """The sequence number the next autograd node made here will get."""
-    with torch.enable_grad():
-        return torch.zeros((), requires_grad=True).clone().grad_fn \
-            ._sequence_nr() + 1
-
-
-@contextmanager
-def recording_nodes():
-    """-> a function from an autograd node to the position whose share
-    made it (None: none did), for nodes made inside the context: the dry
-    run counts a backward's buffers at the position whose node makes
-    them."""
-    spans: list = []
-    before, _SPANS[0] = _SPANS[0], spans
-
-    def node_position(node) -> int | None:
-        seq = node._sequence_nr()
-        for first, end, j in spans:
-            if first <= seq < end:
-                return j
-        return None
-
-    try:
-        yield node_position
-    finally:
-        _SPANS[0] = before
+    """``[share(0), ..., share(n - 1)]``: the positions' shares, computed
+    one after another in this process (one process a position, item
+    12(f), runs each on its own)."""
+    return [share(j) for j in range(n)]
 
 
 def psum(parts: list) -> torch.Tensor:

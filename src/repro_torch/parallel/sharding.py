@@ -180,15 +180,8 @@ class ShardedTensor:
     def block_zeros(self, dtype: torch.dtype) -> "ShardedTensor":
         """Zeros of ``dtype`` split as this leaf, one tensor a distinct
         block: the positions that hold a block share its tensor (a
-        gradient accumulator; see ``blocks``). A block of a leaf split
-        over ``model`` is made as its position's (``model_split``)."""
-        d = model_dim(self.sharding.spec)
-        zeros = []
-        for k, x in zip(self.firsts, self.blocks()):
-            with MS.at_position(None if d is None else
-                                self.indices[k][d].start // x.shape[d]):
-                zeros.append(torch.zeros(x.shape, dtype=dtype,
-                                         device=x.device))
+        gradient accumulator; see ``blocks``)."""
+        zeros = [x.new_zeros(x.shape, dtype=dtype) for x in self.blocks()]
         return ShardedTensor([zeros[b] for b in self.block_of],
                              self.sharding, self.shape, dtype)
 
@@ -231,20 +224,20 @@ def model_dim(spec: PartitionSpec, stacked: bool = False) -> int | None:
 
 class _Plan(NamedTuple):
     """A tensor of ``shape``, ``dtype`` and ``device`` whose part
-    ``index[b]`` is input block b (``_build``); ``position``: the
-    ``model`` position whose block it is (None: the whole leaf)."""
+    ``index[b]`` is input block b (``_build``)."""
     shape: torch.Size
     dtype: torch.dtype
     device: torch.device
     index: tuple
-    position: int | None = None
 
 
 def _build(plan: _Plan, blocks) -> torch.Tensor:
-    with MS.at_position(plan.position):
-        out = torch.empty(plan.shape, dtype=plan.dtype, device=plan.device)
-        for index, block in zip(plan.index, blocks):
-            out[index].copy_(block)  # the cast of ``block.to(dtype)``
+    # made from a block, as ``block_zeros`` makes its zeros: the dry run
+    # counts a tensor made from one position's blocks at that position
+    out = blocks[0].new_empty(plan.shape, dtype=plan.dtype,
+                              device=plan.device)
+    for index, block in zip(plan.index, blocks):
+        out[index].copy_(block)      # the cast of ``block.to(dtype)``
     return out
 
 
@@ -268,11 +261,9 @@ class GatherFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        with MS.at_position(ctx.plan.position):
-            return (None, *(grad[index].to(device=dev, dtype=dtype,
-                                           copy=True)
-                            for index, (dtype, dev) in zip(ctx.plan.index,
-                                                           ctx.blocks)))
+        return (None, *(grad[index].to(device=dev, dtype=dtype, copy=True)
+                        for index, (dtype, dev) in zip(ctx.plan.index,
+                                                       ctx.blocks)))
 
 
 class SplitAtUse:
@@ -395,7 +386,7 @@ def _position_plan(x: ShardedTensor, dtype, d: int, j: int, parts,
             idx[dd] = slice(idx[dd].start - lo, idx[dd].stop - lo)
             index.append(tuple(idx))
             inputs.append(t)
-    return _Plan(torch.Size(shape), dtype, x.device, tuple(index), j), inputs
+    return _Plan(torch.Size(shape), dtype, x.device, tuple(index)), inputs
 
 
 def _pack(t: torch.Tensor):

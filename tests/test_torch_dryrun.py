@@ -280,20 +280,23 @@ def test_placing_on_the_production_mesh_splits_into_meta_shards(mesh_name):
 
 def test_train_temp_counts_one_model_position():
     """On a mesh whose ``model`` axis is m > 1 a train cell's temporaries
-    are one position's: ``LiveBytes`` counts an allocation made as a
-    position's share for that position alone, and the reduced qwen2-0.5b
-    cell's peak falls as m grows, by at least the share of its MLPs'
-    saved activations that the other positions hold."""
-    from repro_torch.parallel import model_split as MS
-
-    with D.LiveBytes() as live:
-        shared = torch.empty(1000, device="meta")
-        with MS.at_position(0):
-            a = torch.empty(300, device="meta")
-        with MS.at_position(1):
-            b = torch.empty(200, device="meta")
-    assert live.peak == 4 * (1000 + 300)
-    del shared, a, b
+    are one position's: ``LiveBytes`` counts a tensor made from one
+    position's blocks (and from what they made) for that position alone,
+    and the reduced qwen2-0.5b cell's peak falls as m grows, by at least
+    the share of its MLPs' saved activations that the other positions
+    hold."""
+    w0, w1 = (torch.empty(8, 10, device="meta") for _ in range(2))
+    x = torch.empty(4, 8, device="meta")
+    with D.LiveBytes([(w0, 0), (w1, 1)]) as live:
+        w = torch.cat([w0, w1], 1)      # of both: every position's
+        shared = x @ w                  # made from it: every position's
+        a = x @ w0                      # position 0's
+        a2 = a * 2                      # made from it: still 0's
+        b = x @ w1[:, :5]               # a view of 1's block: 1's
+    assert live.live == {None: 4 * (8 * 20 + 4 * 20), 0: 4 * 2 * 4 * 10,
+                         1: 4 * 4 * 5}
+    assert live.peak == 4 * (8 * 20 + 4 * 20 + 2 * 4 * 10)
+    del w, shared, a, a2, b
 
     cfg = ARCHS["qwen2-0.5b"].reduced()
     batch, seq = 8, 64

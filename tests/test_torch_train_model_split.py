@@ -27,8 +27,9 @@ seeds with numpy; the meshes repeat the one CPU.
   routing tie, ROADMAP Queue 3), from the parameters and batches of
   ``tests/test_torch_train_sharded.py``: on (2, 2) and (1, 2) meshes,
   for all six families under ``remat`` "none" and "dots" (and "full" for
-  the hybrid), two steps within ``LOSS_ULPS`` (losses) and
-  ``PARAM_ATOL`` (parameters) of ``make_train_step(accum=2)`` and of the
+  the hybrid), two steps within ``LOSS_ULPS`` (losses), ``GRAD_REL``
+  (grad norms), ``PARAM_ATOL`` (parameters) and ``MOMENT_REL`` (m and v,
+  rel_rms) of ``make_train_step(accum=2)`` and of the
   unsplit step (``accum=1``, the (1, m) meshes; on (2, 2) a MoE's
   capacity is a microbatch's, so ``accum=2`` is its unsplit step). From
   a float32 init the gradients agree within rel_rms 1e-4, while the
@@ -82,6 +83,8 @@ torch.set_num_threads(1)   # small tensors: threads only contend
 
 LOSS_ULPS = 3              # as tests/test_torch_train_sharded.py
 PARAM_ATOL = 1.4e-7
+GRAD_REL = 1e-4
+MOMENT_REL = {"m": 1e-4, "v": 2e-4}
 SUBLAYER_TOL = 4e-6       # about 30 float32 steps of the output's scale
 ARCHS6 = ("qwen2-0.5b", "moonshot-v1-16b-a3b", "rwkv6-3b", "zamba2-1.2b",
           "whisper-tiny", "pixtral-12b")
@@ -468,14 +471,24 @@ STEPS = [(arch, remat) for arch in ARCHS6 for remat in ("none", "dots")] \
 @pytest.mark.parametrize("arch,remat", STEPS)
 def test_split_step_is_the_accum_step_to_float32(arch, remat, data, model):
     """Two steps on a (k, m) mesh against ``accum=k`` on one device (k =
-    1: the unsplit step): the losses within ``LOSS_ULPS``, the parameters
-    within ``PARAM_ATOL``."""
+    1: the unsplit step): the losses within ``LOSS_ULPS``, the grad norms
+    within ``GRAD_REL``, the parameters within ``PARAM_ATOL``, m and v
+    within ``MOMENT_REL`` (measured: 37 float32 steps, 2.2e-6, on
+    rwkv6's (1, 2) norm; moments 5.4e-6)."""
     got = _run(arch, data, model, remat=remat)
     want = _run(arch, 1, 1, accum=data, remat=remat)
     for a, b in zip(got[0], want[0]):
         assert _ulps(a, b) <= LOSS_ULPS, (a, b)
+    for a, b in zip(got[1], want[1]):
+        assert abs(float(a) - float(b)) <= GRAD_REL * float(b), (a, b)
     worst = max(float((a - b).abs().max()) for a, b in zip(got[2], want[2]))
     assert worst <= PARAM_ATOL, worst
+    for name, gs, ws in (("m", got[3], want[3]), ("v", got[4], want[4])):
+        for a, b in zip(gs, ws):
+            if b.any():
+                assert _rel_rms(a, b) <= MOMENT_REL[name], name
+            else:
+                assert not a.any(), name
 
 
 def _rel_rms(got: torch.Tensor, want: torch.Tensor) -> float:
