@@ -278,12 +278,15 @@ and audio families), and checks the results. Phases:
    against ``accum=2``: losses and grad norms within half a bfloat16
    step, the parameter, m and v differences printed, the split route's
    peak held to the other route's plus its repeated shards and gathers,
-   two timed rounds and a profiled step of each route; (c) (1, 2) against
-   the unsplit step likewise; (d)-(e) ``launch.train`` saved on (2, 2)
-   after one step and resumed onto (4, 1) and (1, 1) for one more,
-   bitwise the ``accum`` steps, and
-   ``apply_resize`` (2, 2) → (4, 1) bitwise; (f) (2, 1), no compute
-   split, at 4 layers: bitwise ``accum=2``.
+   two timed rounds and a profiled step of the ``accum`` and the split
+   route; (c) (1, 2) against the unsplit step likewise; (d)-(e)
+   ``launch.train`` one step on (2, 2) in this process, (g) the same on
+   four processes, one a mesh position, all on the card and joined by
+   ``parallel.dist`` (``gloo``, host-staged): its losses and checkpoint
+   bitwise (d)'s, its seconds, collectives and peaks printed; its
+   checkpoint resumed onto (4, 1) and (1, 1) for one more step, bitwise
+   the ``accum`` steps, and ``apply_resize`` (2, 2) → (4, 1) bitwise; (f)
+   (2, 1), no compute split, at 4 layers: bitwise ``accum=2``.
 
 Matrix products of the plain versions run in full float32 where their
 inputs are float32: TF32 is switched off for matmuls and cuDNN.
@@ -4799,22 +4802,32 @@ SHARDED_DRAWS = 1 << 20
 SHARDED_STEPS = 3
 SPLIT_ROWS_LAYERS = 4
 # (b) also runs, on (2, 2), SPLIT_TIMED_ROUNDS rounds of one more step of
-# the accum route, the split route and the split route with its
-# gathers-again hooks off, then one profiled step of each: where the
-# split route's time goes (split_step_launches).
+# the accum route and the split route, then one profiled step of each:
+# where the split route's time goes (split_step_launches). The split
+# route with its gathers-again hooks off went when (g) came, for the
+# smoke's time (PERF.md keeps its last reading).
 SPLIT_TIMED_ROUNDS = 2
 # (d) launch.train at published width cut to SHARDED_RESTART_LAYERS
 # layers and sequences of SHARDED_RESTART_SEQ (1024 until the model split
 # came: a batch's draws over the vocabulary took 0.74 s, eight batches
-# of the smoke's time), saved on (2, 2) at step SHARDED_RESTART_AT (zlib
-# level 0), resumed onto (4, 1) and onto (1, 1) for as many more steps
+# of the smoke's time), SHARDED_RESTART_AT steps on (2, 2) in this
+# process (it saved there until (g) came; (g)'s save takes its place);
+# (g) the same run on SHARDED_PROCESS_RANKS processes, one a position of
+# the (2, 2) mesh, every one on the card (launch.train under a
+# torch.distributed group, parallel.dist: gloo through pinned host
+# buffers), saved at SHARDED_RESTART_AT (zlib level 0): its losses and
+# every leaf of its checkpoint's params, m and v bitwise (d)'s; its
+# checkpoint resumed onto (4, 1) and onto (1, 1) for as many more steps
 # (2 and 2 until the model split came, for the smoke's time), each
 # continuation's losses bitwise the accum=4 / accum=1 steps from the same
 # checkpoint; (e) apply_resize (2, 2) -> (4, 1) of that state, every
-# shard bitwise.
+# shard bitwise. A rank that fails, or runs past SHARDED_PROCESS_DEADLINE
+# seconds, fails the phase.
 SHARDED_RESTART_LAYERS = 2
 SHARDED_RESTART_SEQ = 256
 SHARDED_RESTART_AT = 1
+SHARDED_PROCESS_RANKS = 4
+SHARDED_PROCESS_DEADLINE = 300
 
 
 def card_mesh(dev, data: int, model: int):
@@ -4939,15 +4952,11 @@ def split_step_launches(tag: str, cfg, ref, got, batch, data: int) -> None:
     """Where the split route's time goes: SPLIT_TIMED_ROUNDS rounds of one
     more step of each route in turn, unprofiled (wall and the process's
     CPU seconds), then one profiled step of each (launches, device ms):
-    the ``accum`` route, the split route, and the split route with
-    ``gathers_not_saved`` off (autograd then keeps the gathered layers,
-    so nothing is gathered again). Counted on the split route's profiled
-    step: its gathers (``gathers``, those again included), the gathers
-    again (``regathers``), the block copies of both, and the autograd
-    inputs of a step (a block's layer each, one gradient copy and one sum
-    a row)."""
-    from functools import partial
-
+    the ``accum`` route and the split route. Counted on the split route's
+    profiled step: its gathers (``gathers``, those again included), the
+    gathers again (``regathers``), the block copies of both, and the
+    autograd inputs of a step (a block's layer each, one gradient copy
+    and one sum a row)."""
     from repro_torch.models import lm
     from repro_torch.parallel import sharding as SH
     from repro_torch.parallel.sharding import ShardedTensor
@@ -4968,10 +4977,7 @@ def split_step_launches(tag: str, cfg, ref, got, batch, data: int) -> None:
     split_step = TS.make_train_step(cfg, remat="none")
     routes = {"accum": (TS.make_train_step(cfg, accum=data, remat="none"),
                         ref, contextlib.nullcontext),
-              "split": (split_step, got, contextlib.nullcontext),
-              "split_hooks_off": (split_step, got, partial(
-                  patched, (TS, "gathers_not_saved",
-                            contextlib.nullcontext)))}
+              "split": (split_step, got, contextlib.nullcontext)}
     out = {name: dict(step_s=[], cpu_s=[]) for name in routes}
     for _ in range(SPLIT_TIMED_ROUNDS):
         for name, (step, state, ctx) in routes.items():
@@ -4997,11 +5003,9 @@ def split_step_launches(tag: str, cfg, ref, got, batch, data: int) -> None:
         for path, x in lm.flatten(got[0]).items()
         if isinstance(x, ShardedTensor))
     print(f"{tag}/launches: {json.dumps(out)}")
-    check(out["split"]["regathers"] > 0
-          and out["split_hooks_off"]["regathers"] == 0
-          and out["accum"]["gathers"] == 0,
-          f"{tag}: gathers again {out}: the hooks were not on, or off, "
-          f"where they should be")
+    check(out["split"]["regathers"] > 0 and out["accum"]["gathers"] == 0,
+          f"{tag}: gathers again {out}: the hooks were not on where they "
+          f"should be, or the accum route gathered")
 
 
 def _trees_equal(got, want) -> bool:
@@ -5150,14 +5154,130 @@ def split_steps(dev) -> None:
         torch.cuda.empty_cache()
 
 
+def _restart_cfg():
+    from repro_torch.configs import ARCHS
+
+    return ARCHS, dataclasses.replace(ARCHS[TRAIN_ARCH],
+                                      n_layers=SHARDED_RESTART_LAYERS)
+
+
+def _timed_step_maker(real, times: dict):
+    """``make_train_step`` whose steps record their seconds, when the
+    first started and the last ended (``times``), and the last state."""
+    def make(cfg, **kw):
+        step = real(cfg, **kw)
+
+        def timed(params, opt, batch):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            times.setdefault("first_start", t0)
+            out = step(params, opt, batch)
+            torch.cuda.synchronize()
+            times["last_end"] = time.time()
+            times.setdefault("step_s", []).append(times["last_end"] - t0)
+            times["state"] = out[:2]
+            return out
+
+        return timed
+
+    return make
+
+
+def process_route_rank(rank: int, world: int, work: str,
+                       spawned: float) -> None:
+    """Phase 21(g): rank ``rank`` of ``launch.train`` on the (2, 2) mesh of
+    ``world`` processes (``parallel.dist``; every rank on ``cuda:0``), as
+    (d) runs it, saved at SHARDED_RESTART_AT into ``work/g``. Writes its
+    losses, seconds (start-up: from the spawn to its first step; the
+    step; the save: from the step's end to the save's publication),
+    collectives and peak bytes to ``work/rank<rank>.json``; a failure's
+    traceback to ``work/err<rank>.txt``."""
+    import os
+    import traceback
+    from functools import partial
+
+    work = Path(work)
+    try:
+        sys.path.insert(0, str(SRC))
+        from repro_torch.launch import train as launch_train
+        from repro_torch.parallel import dist
+        from repro_torch.runtime import checkpoint as ckpt
+
+        dist.init(rank, world, init_method=f"file://{work / 'init'}")
+        torch.cuda.set_device(dist.local_device("cuda"))
+        torch.backends.cuda.matmul.allow_tf32 = False   # as the smoke's
+        torch.backends.cudnn.allow_tf32 = False         # own process
+        archs, cfg = _restart_cfg()
+        times: dict = {}
+        dist.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        make = _timed_step_maker(launch_train.make_train_step, times)
+        with patched((launch_train, "ARCHS",
+                      dict(archs, **{TRAIN_ARCH: cfg})),
+                     (launch_train, "make_train_step", make),
+                     (ckpt, "save_async", partial(ckpt.save_async,
+                                                  level=0))):
+            res = launch_train.train(
+                TRAIN_ARCH, steps=SHARDED_RESTART_AT,
+                ckpt_dir=str(work / "g"), ckpt_every=SHARDED_RESTART_AT,
+                model_parallel=2, reduced=False, batch=TRAIN_BATCH,
+                seq=SHARDED_RESTART_SEQ, log_every=1, device="cuda")
+        end = time.time()
+        (work / f"rank{rank}.json").write_text(json.dumps(dict(
+            losses=res["losses"], device=str(dist.local_device("cuda")),
+            startup_s=times["first_start"] - spawned,
+            step_s=times["step_s"], save_s=end - times["last_end"],
+            collectives=dist.COUNTS,
+            peak_bytes=torch.cuda.max_memory_allocated())))
+        dist.destroy()
+    except BaseException:
+        (work / f"err{rank}.txt").write_text(traceback.format_exc())
+        os._exit(1)
+
+
+def process_route(tmp: Path) -> list:
+    """Phase 21(g): the ranks, spawned together; each one's record, in
+    rank order. A rank that fails or outlives the deadline fails the
+    phase (the others are ended first)."""
+    import multiprocessing
+
+    work = tmp / "ranks"
+    work.mkdir()
+    ctx = multiprocessing.get_context("spawn")
+    spawned = time.time()
+    procs = [ctx.Process(target=process_route_rank,
+                         args=(r, SHARDED_PROCESS_RANKS, str(work),
+                               spawned))
+             for r in range(SHARDED_PROCESS_RANKS)]
+    for p in procs:
+        p.start()
+    end = time.monotonic() + SHARDED_PROCESS_DEADLINE
+    for p in procs:
+        p.join(max(0.0, end - time.monotonic()))
+    codes = []
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+        codes.append(p.exitcode)
+    errs = "".join(f"rank {f.name}: {f.read_text()[-2000:]}"
+                   for f in sorted(work.glob("err*.txt")))
+    check(codes == [0] * SHARDED_PROCESS_RANKS,
+          f"train/process_2x2: ranks ended with {codes} (None: killed at "
+          f"the {SHARDED_PROCESS_DEADLINE} s deadline) {errs}")
+    return [json.loads((work / f"rank{r}.json").read_text())
+            for r in range(SHARDED_PROCESS_RANKS)]
+
+
 def elastic_restart(dev) -> None:
-    """Phase 21(d) and (e)."""
+    """Phase 21(d), (g) and (e)."""
     import shutil
     import tempfile
     from functools import partial
 
-    from repro_torch.configs import ARCHS, ShapeSpec
+    from repro_torch.configs import ShapeSpec
     from repro_torch.launch import train as launch_train
+    from repro_torch.parallel import dist
     from repro_torch.parallel.sharding import (ShardedTensor, ShardingRules,
                                                place)
     from repro_torch.runtime import checkpoint as ckpt
@@ -5166,30 +5286,70 @@ def elastic_restart(dev) -> None:
     from repro_torch.train import step as TS
     from repro_torch.train.data import make_batch_fn
 
-    cfg = dataclasses.replace(ARCHS[TRAIN_ARCH],
-                              n_layers=SHARDED_RESTART_LAYERS)
+    archs, cfg = _restart_cfg()
     run = dict(reduced=False, batch=TRAIN_BATCH, seq=SHARDED_RESTART_SEQ,
                log_every=1, device=str(dev))
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_split_"))
     at = SHARDED_RESTART_AT
     try:
+        times: dict = {}
         with patched((launch_train, "ARCHS",
-                      dict(ARCHS, **{TRAIN_ARCH: cfg})),
-                     (ckpt, "save_async", partial(ckpt.save_async,
-                                                  level=0))):
+                      dict(archs, **{TRAIN_ARCH: cfg})),
+                     (launch_train, "make_train_step", _timed_step_maker(
+                         launch_train.make_train_step, times))):
             t0 = time.perf_counter()
             first = launch_train.train(TRAIN_ARCH, steps=at,
-                                       ckpt_dir=str(tmp / "a"),
-                                       ckpt_every=at,
                                        mesh=card_mesh(dev, 2, 2), **run)
-            save_s = time.perf_counter() - t0
-            ckpt_bytes = sum(f.stat().st_size
-                             for f in (tmp / "a" / f"step_{at}").iterdir())
-            p = OPT.tree_map(lambda x: x.float(),
-                             TS.init_params(cfg, device=dev))
-            o = OPT.init(p)
-            state = ckpt.restore({"params": p, "m": o.m, "v": o.v,
-                                  "step": o.step}, tmp / "a", at, device=dev)
+            first_s = time.perf_counter() - t0
+        one_params, one_opt = times.pop("state")
+        torch.cuda.empty_cache()
+        # (g) the same run, one process a mesh position
+        t0 = time.perf_counter()
+        ranks = process_route(tmp)
+        process_s = time.perf_counter() - t0
+        ckpt_bytes = sum(f.stat().st_size
+                         for f in (tmp / "ranks" / "g" /
+                                   f"step_{at}").iterdir())
+        p = OPT.tree_map(lambda x: x.float(),
+                         TS.init_params(cfg, device=dev))
+        o = OPT.init(p)
+        state = ckpt.restore({"params": p, "m": o.m, "v": o.v,
+                              "step": o.step}, tmp / "ranks" / "g", at,
+                             device=dev)
+        same_losses = all([tuple(x) for x in r["losses"]] == first["losses"]
+                          for r in ranks)
+        same_state = (_trees_equal(one_params, state["params"])
+                      and _trees_equal(one_opt.m, state["m"])
+                      and _trees_equal(one_opt.v, state["v"])
+                      and int(state["step"]) == int(one_opt.step))
+        del one_params, one_opt, p, o
+        torch.cuda.empty_cache()
+        kinds = {k: [r["collectives"][k] for r in ranks]
+                 for k in dist.KINDS}
+        print(f"train/process_2x2: ranks={len(ranks)} devices="
+              f"{[r['device'] for r in ranks]} transport={dist.TRANSPORT} "
+              f"layers={cfg.n_layers} batch={TRAIN_BATCH} "
+              f"seq={SHARDED_RESTART_SEQ} losses={ranks[0]['losses']} "
+              f"one_process_losses={first['losses']} "
+              f"bitwise_one_process_losses={same_losses} "
+              f"bitwise_one_process_checkpoint={same_state} "
+              f"startup_s={[round(r['startup_s'], 3) for r in ranks]} "
+              f"step_s={[[round(t, 3) for t in r['step_s']] for r in ranks]} "
+              f"one_process_step_s={[round(t, 3) for t in times['step_s']]} "
+              f"save_s={[round(r['save_s'], 3) for r in ranks]} "
+              f"wall_s={process_s:.3f} one_process_run_s={first_s:.3f} "
+              f"collectives_by_rank={json.dumps(kinds)} "
+              f"peak_bytes={[r['peak_bytes'] for r in ranks]} "
+              f"checkpoint_bytes={ckpt_bytes}")
+        check(same_losses, f"train/process_2x2: the ranks' losses "
+              f"{[r['losses'] for r in ranks]} are not the one-process "
+              f"run's {first['losses']}")
+        check(same_state, "train/process_2x2: the ranks' checkpoint is not "
+              "bitwise the one-process run's params, m and v")
+        with patched((launch_train, "ARCHS",
+                      dict(archs, **{TRAIN_ARCH: cfg})),
+                     (ckpt, "save_async", partial(ckpt.save_async,
+                                                  level=0))):
             batch_fn = make_batch_fn(cfg, ShapeSpec(
                 "custom", SHARDED_RESTART_SEQ, TRAIN_BATCH, "train"), seed=0,
                 device=dev)
@@ -5198,7 +5358,7 @@ def elastic_restart(dev) -> None:
                 tag = f"train/elastic_2x2_to_{data}x{model}"
                 d = tmp / f"{data}x{model}"
                 d.mkdir()
-                shutil.copytree(tmp / "a" / f"step_{at}",
+                shutil.copytree(tmp / "ranks" / "g" / f"step_{at}",
                                 d / f"step_{at}")
                 t0 = time.perf_counter()
                 got = launch_train.train(TRAIN_ARCH, steps=2 * at,
@@ -5220,12 +5380,12 @@ def elastic_restart(dev) -> None:
                 check(got["losses"] == want,
                       f"{tag}: the continuation's losses {got['losses']} "
                       f"differ from the accum={accum} steps' {want}")
-                print(f"{tag}: layers={cfg.n_layers} batch={TRAIN_BATCH} "
+                print(f"{tag}: from the ranks' checkpoint "
+                      f"layers={cfg.n_layers} batch={TRAIN_BATCH} "
                       f"seq={SHARDED_RESTART_SEQ} "
                       f"first_losses={first['losses']} "
                       f"losses={got['losses']} bitwise_accum_{accum}=True "
-                      f"resume_s={resume_s:.3f} save_run_s={save_s:.3f} "
-                      f"checkpoint_bytes={ckpt_bytes}")
+                      f"resume_s={resume_s:.3f}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # (e) the restored state moved from (2, 2) to (4, 1)
@@ -5254,7 +5414,7 @@ def elastic_restart(dev) -> None:
 
 
 def sharded_training_on_card(dev, cpu: Worker | None = None) -> None:
-    """Phase 21, (a)-(f), each part's seconds printed."""
+    """Phase 21, (a)-(g), each part's seconds printed ((g) with (d)-(e))."""
     t0 = time.perf_counter()
     log1p_card_vs_cpu(dev, cpu or Worker(cpu_references))
     t1 = time.perf_counter()
@@ -5266,7 +5426,7 @@ def sharded_training_on_card(dev, cpu: Worker | None = None) -> None:
     split_rows_bitwise(dev)
     t4 = time.perf_counter()
     print(f"phase21/seconds: a={t1 - t0:.3f} b_c={t2 - t1:.3f} "
-          f"d_e={t3 - t2:.3f} f={t4 - t3:.3f}")
+          f"d_g_e={t3 - t2:.3f} f={t4 - t3:.3f}")
 
 
 class Phases:

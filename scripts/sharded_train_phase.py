@@ -14,16 +14,21 @@ against the unsplit step likewise; each split route's peak at most the other rou
 the shards that repeat a block and the largest layer's and top-level
 gathers, and at most the other route's less the split leaves in their
 use type plus those two; on (2, 2) two rounds of one more step of the
-``accum`` route, the split route and the split route with its
-gathers-again hooks off (wall and CPU seconds), then one profiled step
-of each (launches, device ms, the gathers counted); (d) ``launch.train`` at 2 layers saved on (2, 2), resumed onto
-(4, 1) and (1, 1), each bitwise the ``accum=4`` / ``accum=1`` steps from
-the same checkpoint; (e) ``apply_resize`` (2, 2) → (4, 1) bitwise; (f)
-a (2, 1) mesh at 4 layers, no compute split, bitwise ``accum=2``.
+``accum`` route and the split route (wall and CPU seconds), then one
+profiled step of each (launches, device ms, the gathers counted); (d)
+``launch.train`` at 2 layers, one step on (2, 2) in this process; (g)
+the same on four processes, one a mesh position, every one on the card
+(``parallel.dist``: ``gloo`` through pinned host buffers), its losses
+and checkpoint bitwise (d)'s, its seconds, collectives and peaks
+printed, its checkpoint resumed onto (4, 1) and (1, 1), each bitwise the
+``accum=4`` / ``accum=1`` steps from it; (e) ``apply_resize`` (2, 2) →
+(4, 1) bitwise; (f) a (2, 1) mesh at 4 layers, no compute split,
+bitwise ``accum=2``.
 Prints the card, each part's seconds, the steps' seconds, each route's
 peak bytes, those counts and the launches.
-Builds no kernel (training takes the plain route). About a minute on an
-H100; a failed check exits non-zero. Needs a CUDA card.
+Builds no kernel (training takes the plain route). About two minutes on
+an H100 (its CPU references run in this process); a failed check exits
+non-zero. Needs a CUDA card.
 """
 
 from __future__ import annotations

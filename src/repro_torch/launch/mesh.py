@@ -17,7 +17,9 @@ CPU tests and the chip smoke's one-card blocks use it.
 
 ``make_local_mesh`` builds the (data, model) mesh of training over the
 host's devices (a ``DeviceMesh``); ``parallel.sharding`` places parameter
-trees on it. ``make_production_mesh`` builds the dry run's 16×16 and
+trees on it. Under an initialised process group (``parallel.dist``) it
+builds the mesh of the group's ranks instead, one a position, and the
+mesh knows this rank's position (``groups``). ``make_production_mesh`` builds the dry run's 16×16 and
 2×16×16 meshes, of ``meta`` devices: the dry run (``launch.dryrun``)
 reads shapes and shardings from them and allocates nothing.
 """
@@ -90,20 +92,27 @@ class DeviceMesh:
     """A mesh of devices with named axes: ``devices`` is an array of
     ``torch.device`` of the mesh's shape, ``shape`` maps each axis name to
     its extent (as a ``jax.sharding.Mesh``'s does) and ``device`` is the
-    first device, where a leaf that no axis splits is placed."""
+    first device, where a leaf that no axis splits is placed.
 
-    def __init__(self, devices, axis_names: Sequence[str]):
+    ``groups`` (a ``parallel.dist.MeshGroups``) makes it the mesh of a
+    process group: this process is position ``groups.rank`` (in the
+    devices' flat order), holds only that position's shards, and
+    ``device`` is its own device."""
+
+    def __init__(self, devices, axis_names: Sequence[str], groups=None):
         self.devices = np.asarray(devices, dtype=object)
         self.axis_names = tuple(axis_names)
         if self.devices.ndim != len(self.axis_names) or not self.devices.size:
             raise ValueError(f"a mesh of shape {self.devices.shape} cannot "
                              f"carry axes {self.axis_names}")
         self.shape = dict(zip(self.axis_names, self.devices.shape))
-        self.device = self.devices.flat[0]
+        self.groups = groups
+        self.device = self.devices.flat[0 if groups is None else groups.rank]
 
     def __repr__(self) -> str:
         devs = [str(d) for d in self.devices.flat]
-        return f"DeviceMesh({self.shape}, {devs})"
+        where = "" if self.groups is None else f", {self.groups}"
+        return f"DeviceMesh({self.shape}, {devs}{where})"
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
@@ -122,8 +131,23 @@ def make_local_mesh(model: int = 1, *,
                     device: str | torch.device = DEFAULT_DEVICE
                     ) -> DeviceMesh:
     """The (data, model) mesh of this host's devices of ``device``'s type
-    (every CUDA device, or the one CPU), shaped ``(n // model, model)``."""
+    (every CUDA device, or the one CPU), shaped ``(n // model, model)``.
+    Under an initialised process group, the mesh of its ranks, shaped
+    ``(world // model, model)``, this process one of its positions: the
+    grid holds this rank's device (``parallel.dist.local_device``), the
+    only one it uses."""
     kind, n = _inventory(resolve_device(device))
+    if torch.distributed.is_available() and torch.distributed.is_initialized():
+        from repro_torch.parallel import dist
+
+        world = torch.distributed.get_world_size()
+        if model < 1 or world % model:
+            raise ValueError(f"model={model} does not divide the {world} "
+                             "ranks of the process group")
+        groups = dist.mesh_groups(world // model, model)
+        grid = np.empty((world // model, model), dtype=object)
+        grid.fill(dist.local_device(kind))
+        return DeviceMesh(grid, ("data", "model"), groups=groups)
     if model < 1 or n % model:
         raise ValueError(f"model={model} does not divide the {n} visible "
                          f"{kind} device(s)")

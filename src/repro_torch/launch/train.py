@@ -6,7 +6,13 @@ automatically from the latest complete step).
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \
       --device cuda --steps 50 --batch 8 --seq 128 --ckpt-dir /tmp/ckpt
 
-(``--reduced --device cpu`` for a seconds-long CPU run.)
+(``--reduced --device cpu`` for a seconds-long CPU run.) One process a
+mesh position (ROADMAP Queue 1 item 12(f)):
+
+  PYTHONPATH=src python -m torch.distributed.run --standalone \
+      --nproc-per-node 4 -m repro_torch.launch.train --arch qwen2-0.5b \
+      --reduced --device cpu --model-parallel 2 --steps 2
+
 
 The parameters and AdamW's m and v are placed by
 ``ShardingRules.tree_shardings`` on the mesh (FSDP over ``data``, TP/EP
@@ -21,6 +27,16 @@ with every parameter split on the CPU. Without it the mesh is
 restores its checkpoint onto the mesh it is given, whatever mesh wrote
 it (an elastic restart); on a one-device mesh nothing is split and the
 route is the unsplit one.
+
+Under ``torch.distributed.run`` with a world size above 1, ``main``
+joins the process group (``parallel.dist.init``: ``gloo``, each rank its
+share of the host's CPU threads) and ``make_local_mesh`` makes the
+(world // model_parallel, model_parallel) mesh of the ranks: each rank
+holds its own position's shards, computes its own data row and ``model``
+share, and meets the others through ``parallel.dist``'s collectives,
+bitwise the one-process route on the same mesh shape. Every rank of a
+one-card host uses ``cuda:0``. Rank 0 prints and writes the checkpoints;
+every rank returns the same dict.
 
 Parameters are kept in float32, as the reference keeps them, and cast to
 the activation type at use (``train.step.params_at_use``): an update
@@ -41,8 +57,11 @@ from __future__ import annotations
 import argparse
 import time
 
+import torch
+
 from repro_torch.configs import ARCHS, ShapeSpec
 from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.parallel import dist
 from repro_torch.parallel.sharding import (NamedSharding, PartitionSpec as P,
                                            ShardingRules, place)
 from repro_torch.runtime import checkpoint as CKPT
@@ -61,6 +80,8 @@ def train(arch: str, *, reduced: bool = True, steps: int = 50,
         cfg = cfg.reduced()
     if mesh is None:
         mesh = make_local_mesh(model=model_parallel, device=device)
+    groups = getattr(mesh, "groups", None)
+    lead = groups is None or groups.rank == 0
     rules = ShardingRules(mesh)
     shape = ShapeSpec("custom", seq, batch, "train")
 
@@ -84,7 +105,8 @@ def train(arch: str, *, reduced: bool = True, steps: int = 50,
             opt_state = OPT.AdamWState(step=state["step"], m=state["m"],
                                        v=state["v"])
             start_step = last
-            print(f"resumed from step {last}")
+            if lead:
+                print(f"resumed from step {last}")
 
     step_fn = make_train_step(cfg, remat=remat)
     batch_fn = make_batch_fn(cfg, shape, seed=seed, device=mesh.device)
@@ -98,8 +120,9 @@ def train(arch: str, *, reduced: bool = True, steps: int = 50,
         if step % log_every == 0 or step == steps - 1:
             l = float(metrics["loss"])
             losses.append((step, l))
-            print(f"step {step:5d}  loss {l:.4f}  "
-                  f"({time.time() - t0:.1f}s)", flush=True)
+            if lead:
+                print(f"step {step:5d}  loss {l:.4f}  "
+                      f"({time.time() - t0:.1f}s)", flush=True)
         if ckpt_dir and (step + 1) % ckpt_every == 0:
             pending_save = CKPT.save_async(
                 {"params": params, "m": opt_state.m, "v": opt_state.v,
@@ -124,11 +147,20 @@ def main():
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args()
-    res = train(args.arch, reduced=args.reduced, steps=args.steps,
-                batch=args.batch, seq=args.seq, ckpt_dir=args.ckpt_dir,
-                ckpt_every=args.ckpt_every, remat=args.remat,
-                model_parallel=args.model_parallel, device=args.device)
-    print(f"loss {res['first_loss']:.4f} -> {res['final_loss']:.4f}")
+    ranks = dist.world_from_env()
+    if ranks > 1:
+        dist.init()
+    try:
+        res = train(args.arch, reduced=args.reduced, steps=args.steps,
+                    batch=args.batch, seq=args.seq, ckpt_dir=args.ckpt_dir,
+                    ckpt_every=args.ckpt_every, remat=args.remat,
+                    model_parallel=args.model_parallel, device=args.device)
+        if ranks == 1 or torch.distributed.get_rank() == 0:
+            print(f"loss {res['first_loss']:.4f} -> "
+                  f"{res['final_loss']:.4f}")
+    finally:
+        if ranks > 1:
+            dist.destroy()
 
 
 if __name__ == "__main__":

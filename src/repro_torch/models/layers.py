@@ -206,7 +206,7 @@ def attention(
     if n > 1:
         kv_split = isinstance(p["wk"], MS.Blocks) and cross_kv is None
 
-        def share(j):
+        def share(j, p, x, cross_kv):
             q = MS.at(p, j)
             hq = q["wq"].shape[1]
             n_kv = (cross_kv[0].shape[2] if cross_kv is not None
@@ -218,7 +218,7 @@ def attention(
                               cross_kv=cross_kv, use_flash=use_flash,
                               kv_heads=kv_heads)[0]
 
-        return MS.psum(MS.shares(n, share)), None
+        return MS.psum(MS.shares(n, share, p, x, cross_kv)), None
     return _attention(p, x, cfg, causal=causal, positions=positions,
                       kv_cache=kv_cache, cache_index=cache_index,
                       cross_kv=cross_kv, use_flash=use_flash)
@@ -312,7 +312,8 @@ def apply_mlp(p: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
     positions, ``b_down`` added once after the sum."""
     n = MS.positions(p["w_up"])
     if n > 1:
-        y = MS.psum(MS.shares(n, lambda j: _mlp(MS.at(p, j), x, kind)))
+        y = MS.psum(MS.shares(n, lambda j, p, x: _mlp(MS.at(p, j), x, kind),
+                              p, x))
     else:
         y = _mlp(p, x, kind)
     return y + p["b_down"] if "b_down" in p else y

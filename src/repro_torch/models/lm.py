@@ -164,8 +164,8 @@ def unembed(params: dict, x: torch.Tensor, cfg: ModelConfig):
     head = (params["embed"]["table"] if cfg.tie_embeddings
             else params["lm_head"])
     if isinstance(head, MS.Blocks):
-        return MS.shares(head.n, lambda j: head_logits(
-            x, head.block(j), cfg, j))
+        return MS.shares(head.n, lambda j, x: head_logits(
+            x, head.block(j), cfg, j), x)
     return head_logits(x, head, cfg, 0)
 
 

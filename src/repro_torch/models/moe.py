@@ -105,7 +105,7 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig,
     rank[order] = torch.arange(order.numel(), device=order.device)
     per_tok = rank.view(N, k).sort(dim=1).values       # ascending expert
 
-    def rows_of(q, lo: int, n_e: int, slots):
+    def rows_of(q, lo: int, n_e: int, slots, eb, sg):
         # ---- grouped expert FFN (hot spot) over experts lo .. lo + n_e
         eb_q = eb if n_e == E else eb[lo:lo + n_e]
         if use_kernel:
@@ -129,17 +129,18 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig,
 
     n = MS.positions(p["w_gate"])
     if n == 1:
-        return rows_of(p, 0, E, dest).reshape(B, S, D)
+        return rows_of(p, 0, E, dest, eb, sg).reshape(B, S, D)
 
-    def share(j):
-        q = MS.at(p, j)
+    def share(j, q, eb, sg):
+        q = MS.at(q, j)
         n_e = q["w_gate"].shape[0]
         local = dest - j * n_e * C
         slots = torch.where((local >= 0) & (local < n_e * C), local,
                             n_e * C)
-        return rows_of(q, j * n_e, n_e, slots)
+        return rows_of(q, j * n_e, n_e, slots, eb, sg)
 
-    return MS.psum(MS.shares(n, share)).reshape(B, S, D)
+    experts = {k: p[k] for k in ("w_gate", "w_up", "w_down")}
+    return MS.psum(MS.shares(n, share, experts, eb, sg)).reshape(B, S, D)
 
 
 def aux_load_balance_loss(logits: torch.Tensor, expert_idx: torch.Tensor,

@@ -173,19 +173,20 @@ def time_mix(p, x, cfg: ModelConfig, *, shift_prev=None, state0=None,
                  for name in "rkvg"}
         w = _decay(p, x, xs, x.dtype)
 
-        def share(j):
-            q = MS.at({k: p[k] for k in ("wr", "wk", "wv", "wg", "wo",
-                                         "bonus_u")}, j)
+        def share(j, q, mixed, w, ln_x, state0):
+            q = MS.at(q, j)
             r, k, v, g = (mixed[c] @ q["w" + c].to(x.dtype)
                           for c in "rkvg")
             cols = slice(j * r.shape[-1], (j + 1) * r.shape[-1])
             h = q["bonus_u"].shape[0]
             return _heads_out(q, x, cfg, (r, k, v, g, w[..., cols]),
-                              p["ln_x"][cols], None if state0 is None
+                              ln_x[cols], None if state0 is None
                               else state0[:, j * h:(j + 1) * h], use_kernel)
 
-        ys, states = zip(*MS.shares(n, share))
-        return MS.psum(list(ys)), (x[:, -1:], torch.cat(states, 1))
+        heads = {k: p[k] for k in ("wr", "wk", "wv", "wg", "wo", "bonus_u")}
+        ys, states = zip(*MS.shares(n, share, heads, mixed, w, p["ln_x"],
+                                    state0))
+        return MS.psum(list(ys)), (x[:, -1:], MS.cat(states, 1))
     if n > 1:
         p = MS.whole(p)
     y, state = _heads_out(p, x, cfg, _project(p, x, xs, x.dtype), p["ln_x"],
@@ -222,13 +223,15 @@ def channel_mix(p, x, *, shift_prev=None):
     xs = _token_shift(x, shift_prev)
     xk = _mix(x, xs, p["mu_k"].to(x.dtype))
 
-    def out(q):
+    def out(q, xk=xk):
         h = torch.square(torch.relu(xk @ q["w_in"].to(x.dtype)))
         return h @ q["w_out"].to(x.dtype)
 
     n = MS.positions(p["w_in"])
     if n > 1:
-        return MS.psum(MS.shares(n, lambda j: out(MS.at(p, j)))), x[:, -1:]
+        cols = {k: p[k] for k in ("w_in", "w_out")}
+        return MS.psum(MS.shares(n, lambda j, cols, xk: out(
+            MS.at(cols, j), xk), cols, xk)), x[:, -1:]
     return out(p), x[:, -1:]
 
 

@@ -201,8 +201,8 @@ def loss_fn(params: dict, tokens: torch.Tensor, labels: torch.Tensor,
                      use_moe_kernel=use_moe_kernel)
     if prefix_embeds is not None:
         rows = slice(prefix_embeds.shape[1], None)
-        logits = ([b[:, rows] for b in logits] if isinstance(logits, list)
-                  else logits[:, rows])
+        logits = (MS.each(logits, lambda b: b[:, rows])
+                  if isinstance(logits, list) else logits[:, rows])
     return xent(logits, labels)
 
 
@@ -227,8 +227,8 @@ def vocab_parallel_xent(hidden: torch.Tensor, params: dict,
     head = (params["embed"]["table"] if cfg.tie_embeddings
             else params["lm_head"])
     if isinstance(head, MS.Blocks):
-        return xent(MS.shares(head.n, lambda j: head_logits(
-            hidden, head.block(j), cfg, j)), labels)
+        return xent(MS.shares(head.n, lambda j, hidden: head_logits(
+            hidden, head.block(j), cfg, j), hidden), labels)
     w = unembed_matrix(params, cfg, hidden.dtype)        # (D, Vp)
     logits = (hidden @ w).float()                        # (B, S, Vp)
     pv, v = logits.shape[-1], cfg.vocab_size

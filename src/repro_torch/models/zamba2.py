@@ -204,7 +204,7 @@ def mamba2_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     if n > 1 and isinstance(p["A_log"], MS.Blocks):
         inner = {k: v for k, v in p.items() if k not in ("out_norm", "w_out")}
 
-        def scan(j):
+        def scan(j, inner, x, conv_carry, ssm_state):
             q = MS.at(inner, j)
             h, c = q["A_log"].shape[0], q["conv_x"].shape[1]
             return _inner(q, x, cfg,
@@ -213,8 +213,9 @@ def mamba2_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                           None if ssm_state is None
                           else ssm_state[:, j * h:(j + 1) * h])
 
-        ys, zs, convs, states = zip(*MS.shares(n, scan))
-        yfs = [y.float() for y in ys]
+        ys, zs, convs, states = zip(*MS.shares(n, scan, inner, x,
+                                               conv_carry, ssm_state))
+        yfs = MS.each(ys, lambda y: y.float())
         # each position's sum of squares in float64 (a float32 square is
         # exact there), summed in position order: the whole d_inner's sum
         # rounds once, to float32, whatever the split. The unsplit path
@@ -224,11 +225,11 @@ def mamba2_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
         # tests/test_torch_train_model_split.py (1.27e-7 with these)
         ss = MS.psum(MS.shares(n, lambda j: torch.square(
             yfs[j].double()).sum(-1, keepdim=True))).float()
-        rms = torch.rsqrt(ss / (yfs[0].shape[-1] * n) + 1e-5)
+        rms = torch.rsqrt(ss / (MS.own(yfs).shape[-1] * n) + 1e-5)
         outer = {k: p[k] for k in ("out_norm", "w_out")}
-        y = MS.psum(MS.shares(n, lambda j: _gate_out(
-            MS.at(outer, j), yfs[j] * rms, zs[j], x.dtype)))
-        return y, (torch.cat(convs, -1), torch.cat(states, 1))
+        y = MS.psum(MS.shares(n, lambda j, outer, rms: _gate_out(
+            MS.at(outer, j), yfs[j] * rms, zs[j], x.dtype), outer, rms))
+        return y, (MS.cat(convs, -1), MS.cat(states, 1))
     if n > 1:
         p = MS.whole(p)
     y, z, new_conv, state = _inner(p, x, cfg, conv_carry, ssm_state)

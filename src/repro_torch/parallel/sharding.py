@@ -27,9 +27,14 @@ axis of extent > 1 gives a ``ShardedTensor``: the global shape and dtype,
 the sharding, and one local shard a mesh position, on that position's
 device, in the order of jax's ``addressable_shards`` (the mesh's devices
 flattened); positions that the spec replicates hold equal copies. One
-process drives every position, as the reference's ``jit`` drives every
-device of its host; a mesh may repeat a device (``launch.mesh``), so the
-split runs on one card or on the CPU too. ``train.step.make_train_step``
+process may drive every position, as the reference's ``jit`` drives
+every device of its host; a mesh may repeat a device (``launch.mesh``),
+so the split runs on one card or on the CPU too. On the mesh of a
+process group (``DeviceMesh.groups``, ``parallel.dist``) each process is
+one position and its ``ShardedTensor`` holds only that position's shard
+(``local``): a gather takes the other positions' blocks from
+``dist.all_gather``, over the FSDP subgroup where the blocks lie in this
+rank's ``model`` column, else over every rank. ``train.step.make_train_step``
 trains on such trees, a microbatch each of ``data_rows``, reading each
 split leaf through ``SplitAtUse``: gathered at use (a stacked leaf a
 layer at a time) by ``GatherFn``, whose backward is the reduce-scatter.
@@ -49,6 +54,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.parallel import dist
 from repro_torch.parallel import model_split as MS
 
 
@@ -120,7 +126,10 @@ class NamedSharding:
 class ShardedTensor:
     """A leaf split over a mesh: ``shape`` and ``dtype`` are the global
     leaf's, ``shards[i]`` is mesh position i's local block (its index
-    ``indices[i]``, on ``sharding.mesh.devices.flat[i]``)."""
+    ``indices[i]``, on ``sharding.mesh.devices.flat[i]``). On the mesh of
+    a process group ``local`` is this process's position and ``shards``
+    holds its shard alone; ``local`` is None where one process holds
+    every position."""
 
     def __init__(self, shards, sharding: NamedSharding, shape,
                  dtype: torch.dtype):
@@ -137,6 +146,8 @@ class ShardedTensor:
                               len(blocks)) for index in self.indices)
         self.firsts = tuple(self.block_of.index(b)
                             for b in range(len(blocks)))
+        groups = getattr(sharding.mesh, "groups", None)
+        self.local = None if groups is None else groups.rank
 
     @property
     def device(self) -> torch.device:
@@ -153,6 +164,8 @@ class ShardedTensor:
     def blocks(self) -> list[torch.Tensor]:
         """The distinct blocks, each the shard of the first position that
         holds it (``indices[firsts[b]]`` is block b's index)."""
+        if self.local is not None:
+            raise ValueError("a process holds its own shard only")
         return [self.shards[k] for k in self.firsts]
 
     def gather(self, device=None, dtype: torch.dtype | None = None,
@@ -160,15 +173,35 @@ class ShardedTensor:
         """The global tensor on ``device`` (default: the mesh's first),
         each shard cast to ``dtype`` first if given: bitwise the leaf that
         was split. Each block is read from the first position that holds
-        it. ``out``, if given, is written and returned."""
+        it (on a process group's mesh, through ``dist.all_gather``: every
+        rank calls it). ``out``, if given, is written and returned."""
         if out is None:
             out = torch.empty(self.shape, dtype=dtype or self.dtype,
                               device=self.device if device is None
                               else device)
+        if self.local is not None:
+            fetch = _Fetch(self, dtype or self.dtype,
+                           range(len(self.firsts)))
+            for k, block in zip(self.firsts, fetch()):
+                out[self.indices[k]].copy_(block)
+            return out
         for k in self.firsts:
             shard = self.shards[k]
             out[self.indices[k]].copy_(shard if dtype is None
                                        else shard.to(dtype))
+        return out
+
+    def gather_on(self, root: int = 0) -> torch.Tensor | None:
+        """On a process group's mesh: the global tensor on rank ``root``
+        (on the host; None on the other ranks), through
+        ``dist.gather``; every rank calls it."""
+        groups = self.sharding.mesh.groups
+        got = dist.gather(self.shards[0], groups.world, root)
+        if got is None:
+            return None
+        out = torch.empty(self.shape, dtype=self.dtype)
+        for k in self.firsts:
+            out[self.indices[k]].copy_(got[k])
         return out
 
     def map_shards(self, fn) -> "ShardedTensor":
@@ -180,7 +213,12 @@ class ShardedTensor:
     def block_zeros(self, dtype: torch.dtype) -> "ShardedTensor":
         """Zeros of ``dtype`` split as this leaf, one tensor a distinct
         block: the positions that hold a block share its tensor (a
-        gradient accumulator; see ``blocks``)."""
+        gradient accumulator; see ``blocks``). On a process group's mesh,
+        the own shard's zeros."""
+        if self.local is not None:
+            return ShardedTensor([self.shards[0].new_zeros(
+                self.shards[0].shape, dtype=dtype)], self.sharding,
+                self.shape, dtype)
         zeros = [x.new_zeros(x.shape, dtype=dtype) for x in self.blocks()]
         return ShardedTensor([zeros[b] for b in self.block_of],
                              self.sharding, self.shape, dtype)
@@ -196,7 +234,11 @@ class ShardedTensor:
 # layer at a time (``models.lm.layer``), and under ``gathers_not_saved``
 # autograd keeps, in place of a layer's gathered tensor, how to gather it
 # again, so the layers gathered in the forward do not stay alive until
-# the backward.
+# the backward. On a process group's mesh the autograd leaves stand for
+# the blocks without holding them (zeros expanded to a block's shape):
+# a gather fetches the blocks through ``dist.all_gather`` (``_Fetch``,
+# again where it gathers again), and the backward hands each leaf its
+# block's part of this rank's gradient, which the step exchanges.
 
 # The stacks the forwards take a layer at a time (``models.lm.layer``,
 # which indexes a leaf with ``[i]``). Wider than ``ShardingRules``'s
@@ -224,14 +266,65 @@ def model_dim(spec: PartitionSpec, stacked: bool = False) -> int | None:
 
 class _Plan(NamedTuple):
     """A tensor of ``shape``, ``dtype`` and ``device`` whose part
-    ``index[b]`` is input block b (``_build``)."""
+    ``index[b]`` is input block b (``_build``). ``fetch`` (a ``_Fetch``)
+    gets the blocks on a process group's mesh, where the inputs stand for
+    them."""
     shape: torch.Size
     dtype: torch.dtype
     device: torch.device
     index: tuple
+    fetch: object = None
+
+
+class _Fetch:
+    """How a process of a process group's mesh gets blocks ``ids`` of
+    ``x`` (of layer ``layer`` of a stacked leaf) in ``dtype``: each rank
+    casts its shard (its layer, or zeros where its shard does not hold
+    the layer) and ``dist.all_gather``s it over ``x``'s ``data``
+    subgroup when the blocks lie in this rank's ``model`` column, else
+    over every rank; block b is read from the first member that holds
+    it."""
+
+    def __init__(self, x: ShardedTensor, dtype: torch.dtype, ids,
+                 layer: int | None = None):
+        groups = x.sharding.mesh.groups
+        ids = list(ids)
+        col = {x.block_of[r] for r in groups.data.ranks}
+        self.group = (groups.data if all(b in col for b in ids)
+                      else groups.world)
+        held = [x.block_of[r] for r in self.group.ranks]
+        self.take = [held.index(b) for b in ids]
+        self.x, self.dtype = x, dtype
+        self.row = None
+        if layer is not None:
+            own = x.indices[groups.rank][0]
+            self.row = (layer - own.start if own.start <= layer < own.stop
+                        else -1)
+
+    def __call__(self) -> list[torch.Tensor]:
+        own = self.x.shards[0]
+        if self.row is not None:
+            own = (own[self.row] if self.row >= 0
+                   else own.new_zeros(own.shape[1:]))
+        got = dist.all_gather(own.to(self.dtype), self.group)
+        return [got[k] for k in self.take]
+
+
+def _fetch(x: ShardedTensor, dtype, ids, layer: int | None = None):
+    """The ``_Fetch`` of a plan on a process group's mesh, else None."""
+    return None if x.local is None else _Fetch(x, dtype, ids, layer)
+
+
+def _placeholder(x: ShardedTensor) -> torch.Tensor:
+    """A block of ``x`` as an autograd leaf stands for it on a process
+    group's mesh: zeros of the block's shape, expanded from one."""
+    return torch.zeros((), dtype=x.dtype, device=x.device).expand(
+        x.sharding.shard_shape(x.shape))
 
 
 def _build(plan: _Plan, blocks) -> torch.Tensor:
+    if plan.fetch is not None:    # the inputs stand for the blocks
+        blocks = plan.fetch()
     # made from a block, as ``block_zeros`` makes its zeros: the dry run
     # counts a tensor made from one position's blocks at that position
     out = blocks[0].new_empty(plan.shape, dtype=plan.dtype,
@@ -287,14 +380,21 @@ class SplitAtUse:
     ``layer(i)`` in them, where position j's block of layer i is gathered
     over the FSDP axes only when a layer asks for it, and carries how to
     gather it again (``gathers_not_saved``); ``whole()`` on those blocks
-    gathers the leaf or the layer whole."""
+    gathers the leaf or the layer whole.
+
+    On a process group's mesh the inputs stand for the blocks
+    (``_placeholder``) and each plan fetches them (``_Fetch``); ``top()``
+    gathers this rank's ``model`` position's block alone, and the layers
+    ask for no other."""
 
     def __init__(self, x: ShardedTensor, dtype: torch.dtype,
                  stacked: bool):
         self.dtype = dtype
         self.inputs: list[torch.Tensor] = []
         self.slots: list[tuple] = []
-        blocks = [(x.indices[k], x.shards[k]) for k in x.firsts]
+        self._col = None if x.local is None else x.sharding.mesh.groups.col
+        blocks = [(x.indices[k], x.shards[k] if x.local is None
+                   else _placeholder(x)) for k in x.firsts]
         d = model_dim(x.sharding.spec, stacked)
         self.n = x.sharding.mesh.shape["model"] if d is not None else 1
         if not stacked:
@@ -302,9 +402,11 @@ class SplitAtUse:
                 self.slots.append((b, None))
                 self.inputs.append(block.detach().requires_grad_())
             self._whole = _Plan(x.shape, dtype, x.device,
-                                tuple(index for index, _ in blocks))
-            self._positions = [_position_plan(x, dtype, d, j, list(
-                zip([index for index, _ in blocks], self.inputs)))
+                                tuple(index for index, _ in blocks),
+                                _fetch(x, dtype, range(len(blocks))))
+            self._positions = [_position_plan(x, dtype, d, j, [
+                (index, inp, b) for b, ((index, _), inp) in enumerate(
+                    zip(blocks, self.inputs))])
                 for j in range(self.n)] if d is not None else None
             self._dim = d
             return
@@ -312,18 +414,21 @@ class SplitAtUse:
         for b, (index, block) in enumerate(blocks):
             lo = index[0].start
             for j in range(lo, index[0].stop):
-                parts[j].append((index[1:], len(self.inputs)))
+                parts[j].append((index[1:], len(self.inputs), b))
                 self.slots.append((b, j - lo))
                 self.inputs.append(block[j - lo].detach().requires_grad_())
         self._layers = [
             (_Plan(x.shape[1:], dtype, x.device,
-                   tuple(index for index, _ in part)),
-             [self.inputs[n] for _, n in part]) for part in parts]
+                   tuple(index for index, _, _ in part),
+                   _fetch(x, dtype, [b for _, _, b in part], i)),
+             [self.inputs[n] for _, n, _ in part])
+            for i, part in enumerate(parts)]
         self._dim = None if d is None else d - 1
         self._positions = None if d is None else [
             [_position_plan(x, dtype, d, j, [
-                (index, self.inputs[n]) for index, n in part], layer=True)
-             for j in range(self.n)] for part in parts]
+                (index, self.inputs[n], b) for index, n, b in part],
+                layer=i) for j in range(self.n)]
+            for i, part in enumerate(parts)]
 
     def whole(self) -> torch.Tensor:
         return GatherFn.apply(self._whole, *self.inputs)
@@ -331,12 +436,15 @@ class SplitAtUse:
     def top(self):
         """The leaf outside the stacks as the loss reads it: gathered
         whole, or, split over ``model``, each position's block gathered
-        (a ``Blocks``)."""
+        (a ``Blocks``; on a process group's mesh, this rank's position's
+        alone)."""
         if self._positions is None:
             return self.whole()
-        got = [GatherFn.apply(plan, *inputs)
-               for plan, inputs in self._positions]
-        return MS.Blocks(self.n, self._dim, self.dtype, got.__getitem__)
+        cols = range(self.n) if self._col is None else [self._col]
+        got = {j: GatherFn.apply(self._positions[j][0],
+                                 *self._positions[j][1]) for j in cols}
+        return MS.Blocks(self.n, self._dim, self.dtype, got.__getitem__,
+                         self.whole)
 
     def layer(self, i: int):
         """Layer ``i``, gathered, or its ``Blocks`` (see the class). A
@@ -368,25 +476,29 @@ class SplitAtUse:
 
 
 def _position_plan(x: ShardedTensor, dtype, d: int, j: int, parts,
-                   layer: bool = False):
+                   layer: int | None = None):
     """(plan, inputs): position j's block of ``x`` (dimension ``d`` split
-    over ``model``), or of one layer of it (``layer``: ``parts`` index
-    the layer's dimensions), from the ``(index, input)`` ``parts`` that
-    lie in it, each placed at its index within the block."""
+    over ``model``), or of layer ``layer`` of it (``parts`` then index
+    the layer's dimensions), from the ``(index, input, block id)``
+    ``parts`` that lie in it, each placed at its index within the
+    block."""
     n = x.sharding.mesh.shape["model"]
     width = x.shape[d] // n
     lo = j * width
-    shape = list(x.shape[1:] if layer else x.shape)
-    dd = d - layer
+    stacked = layer is not None
+    shape = list(x.shape[1:] if stacked else x.shape)
+    dd = d - stacked
     shape[dd] = width
-    index, inputs = [], []
-    for idx, t in parts:
+    index, inputs, ids = [], [], []
+    for idx, t, b in parts:
         if idx[dd].start // width == j:
             idx = list(idx)
             idx[dd] = slice(idx[dd].start - lo, idx[dd].stop - lo)
             index.append(tuple(idx))
             inputs.append(t)
-    return _Plan(torch.Size(shape), dtype, x.device, tuple(index)), inputs
+            ids.append(b)
+    return _Plan(torch.Size(shape), dtype, x.device, tuple(index),
+                 _fetch(x, dtype, ids, layer)), inputs
 
 
 def _pack(t: torch.Tensor):
@@ -420,7 +532,8 @@ def device_put(x, sharding: NamedSharding):
     moved whole to the mesh's device when no axis of extent > 1 splits
     it, else split into a ``ShardedTensor``, each shard a copy of its
     block on its position's device (``meta`` shards on a meta mesh
-    allocate nothing)."""
+    allocate nothing; on a process group's mesh, this rank's shard
+    alone)."""
     mesh = sharding.mesh
     if isinstance(x, ShardedTensor):
         x = x.gather(mesh.device)
@@ -429,9 +542,12 @@ def device_put(x, sharding: NamedSharding):
     if all(mesh.shape[a] == 1 for a in named):
         return x.to(mesh.device)
     shape = sharding.shard_shape(tuple(x.shape))
+    places = list(zip(sharding.shard_indices(tuple(x.shape)),
+                      mesh.devices.flat))
+    if getattr(mesh, "groups", None) is not None:
+        places = places[mesh.groups.rank:mesh.groups.rank + 1]
     shards = []
-    for index, dev in zip(sharding.shard_indices(tuple(x.shape)),
-                          mesh.devices.flat):
+    for index, dev in places:
         shard = torch.empty(shape, dtype=x.dtype, device=dev)
         shards.append(shard.copy_(x[index]))
     return ShardedTensor(shards, sharding, x.shape, x.dtype)

@@ -22,7 +22,13 @@ are checked to fit), and a uint32 leaf restores as int64, as
 ``parallel.sharding.ShardedTensor``: it is gathered to the host in the
 caller's thread and written whole, the reference's shape-canonical
 format, and ``restore(shardings=)`` places each leaf by its sharding, on
-whatever mesh that sharding names.
+whatever mesh that sharding names. On the mesh of a process group (one
+process a position, ``parallel.dist``) every rank calls ``save`` or
+``save_async``: the split leaves are gathered to rank 0
+(``ShardedTensor.gather_on``), rank 0 alone writes, and every rank
+returns (``save``, or the handle's ``join``) once rank 0 has published
+the step, or raises if it failed; ``restore(shardings=)`` has every rank
+read the file and keep its own shard.
 
 Compression is zstd when the ``zstandard`` package is installed and the
 stdlib's ``zlib`` otherwise; the manifest records the codec, and a zstd
@@ -63,6 +69,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.parallel import dist
 from repro_torch.parallel.sharding import ShardedTensor, device_put
 
 try:
@@ -168,15 +175,29 @@ def _disk_array(leaf) -> tuple[np.ndarray, str]:
     return arr, str(arr.dtype)
 
 
+def _groups(tree):
+    """The mesh groups of ``tree``'s leaves split over a process group's
+    mesh, or None."""
+    return next((x.sharding.mesh.groups for _, x in _leaf_paths(tree)
+                 if isinstance(x, ShardedTensor) and x.local is not None),
+                None)
+
+
 def _host_copy(tree):
     """The tree on the host: tensors copied without a synchronisation
     each (to pinned memory from a CUDA device), then one synchronisation
-    per device; host arrays copied."""
+    per device; host arrays copied. A tree split over a process group's
+    mesh is gathered to rank 0 (every rank calls this), and the other
+    ranks get None."""
     leaves = [leaf for _, leaf in _leaf_paths(tree)]
+    groups = _groups(tree)
+    root = groups is None or groups.rank == 0
     out, devices = [], set()
     for leaf in leaves:
         if isinstance(leaf, ShardedTensor):
-            leaf = leaf.gather()
+            leaf = leaf.gather() if leaf.local is None else leaf.gather_on(0)
+        if not root:
+            continue
         if isinstance(leaf, torch.Tensor) and leaf.is_cuda:
             devices.add(leaf.device)
             out.append(leaf.detach().to("cpu", non_blocking=True))
@@ -186,7 +207,7 @@ def _host_copy(tree):
             out.append(np.array(leaf, copy=True))
     for d in devices:
         torch.cuda.synchronize(d)
-    return _rebuild(tree, iter(out))
+    return _rebuild(tree, iter(out)) if root else None
 
 
 _STEP_LOCKS: dict[str, threading.Lock] = {}
@@ -202,7 +223,21 @@ def _step_lock(final: Path) -> threading.Lock:
 
 def save(tree, directory: str | Path, step: int, *, level: int = 3) -> Path:
     """Write ``tree`` as step ``step`` under ``directory``; returns the
-    published ``step_<step>`` directory."""
+    published ``step_<step>`` directory (see the module docstring for a
+    tree split over processes)."""
+    groups = _groups(tree)
+    if groups is not None:
+        host = _host_copy(tree)
+        exc = None
+        if host is not None:
+            try:
+                save(host, directory, step, level=level)
+            except BaseException as e:     # raised below, after the others
+                exc = e                    # have heard of it
+        _published(groups, step, exc is None)
+        if exc is not None:
+            raise exc
+        return Path(directory) / f"step_{step}"
     if any(isinstance(x, ShardedTensor) for _, x in _leaf_paths(tree)):
         tree = _host_copy(tree)
     directory = Path(directory)
@@ -242,18 +277,29 @@ def save(tree, directory: str | Path, step: int, *, level: int = 3) -> Path:
     return final
 
 
+def _published(groups, step: int, ok: bool) -> None:
+    """Every rank learns whether rank 0 published ``step``; a rank other
+    than 0 raises where it did not."""
+    if not dist.agree(ok, groups.world) and groups.rank != 0:
+        raise RuntimeError(f"rank 0 failed to publish checkpoint step "
+                           f"{step}")
+
+
 class AsyncSave:
     """Handle for a background ``save``; failures re-raise in the caller.
 
     ``join()``/``result()`` block for the writer thread and re-raise
     whatever it raised; ``result()`` returns the published checkpoint
-    directory."""
+    directory. For a tree split over processes (``groups``) every rank
+    holds a handle, rank 0's thread writes, and the first ``join`` of
+    each rank returns once rank 0's has published the step."""
 
-    def __init__(self, thread: threading.Thread, step: int):
+    def __init__(self, thread: threading.Thread, step: int, groups=None):
         self._thread = thread
         self.step = step
         self._exc: BaseException | None = None
         self._path: Path | None = None
+        self._groups = groups
 
     def done(self) -> bool:
         return not self._thread.is_alive()
@@ -263,6 +309,12 @@ class AsyncSave:
         if self._thread.is_alive():
             raise TimeoutError(
                 f"async save of step {self.step} still running")
+        if self._groups is not None:
+            groups, self._groups = self._groups, None
+            try:
+                _published(groups, self.step, self._exc is None)
+            except RuntimeError as e:
+                self._exc = e
         if self._exc is not None:
             raise self._exc
 
@@ -278,17 +330,21 @@ def save_async(tree, directory: str | Path, step: int, *,
     synchronisation a device), compress and write it in a background
     thread. Returns an :class:`AsyncSave` whose ``result()``/``join()``
     re-raise any background failure."""
+    groups = _groups(tree)
     host_tree = _host_copy(tree)
     handle: AsyncSave
 
     def _work():
+        if host_tree is None:      # a rank other than 0: rank 0 writes
+            handle._path = Path(directory) / f"step_{step}"
+            return
         try:
             handle._path = save(host_tree, directory, step, level=level)
         except BaseException as e:  # surfaced via join()/result()
             handle._exc = e
 
     t = threading.Thread(target=_work, daemon=True)
-    handle = AsyncSave(t, step)
+    handle = AsyncSave(t, step, groups)
     t.start()
     return handle
 
@@ -365,7 +421,8 @@ def restore(example_tree, directory: str | Path, step: int, *,
     leaf comes back as a tensor on ``device`` (uint32 leaves as int64),
     or, with ``shardings`` (a tree of ``NamedSharding`` shaped as
     ``example_tree``), placed by its sharding (``device_put``: split over
-    that sharding's mesh, whatever mesh it was saved from)."""
+    that sharding's mesh, whatever mesh it was saved from; on a process
+    group's mesh each rank reads the file and keeps its own shard)."""
     if shardings is not None:
         host = restore(example_tree, directory, step, device="cpu")
         return _rebuild(example_tree, iter(

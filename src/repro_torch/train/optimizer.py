@@ -21,7 +21,11 @@ accumulators, ``ShardedTensor.block_zeros``) and updates each shard in
 place from its block's gradient. The update is elementwise once the clip
 scale is known, so each shard's values are those of the unsplit leaf's
 update, bit for bit; the global norm assembles one split gradient at a
-time whole, so its sum is the unsplit leaf's too.
+time whole, so its sum is the unsplit leaf's too. On the mesh of a
+process group (one process a position, ``parallel.dist``) a leaf holds
+its own shard alone: the norm assembles each split gradient through
+``ShardedTensor.gather``'s all-gather (every rank the same, bitwise),
+and AdamW updates the own shard.
 """
 
 from __future__ import annotations

@@ -18,10 +18,16 @@ AdamW updates in float32 and stores back in the leaf's own type.
 
 Parameters may also be split over a (data, model) mesh
 (``parallel.sharding.ShardedTensor`` leaves), the port's stand-in for
-the reference's step under its mesh: one process drives every position,
-as the reference's ``jit`` drives every device of its host. The batch is
-taken in as many contiguous microbatches as the mesh has data rows
-(``sharding.data_rows``). A split leaf is read through
+the reference's step under its mesh. One process may drive every
+position, as the reference's ``jit`` drives every device of its host:
+the batch is then taken in as many contiguous microbatches as the mesh
+has data rows (``sharding.data_rows``), one after another. On the mesh
+of a process group (``parallel.dist``, one process a position) each
+process takes its own data row's microbatch and computes its own
+``model`` position's share (``model_split.on``); the values meet only
+through ``dist``'s collectives, each followed by the one-process route's
+own ordered sum, so the two routes are bitwise on the same mesh shape
+(see ``train_step``). A split leaf is read through
 ``sharding.SplitAtUse``: gathered where it is used, cast to the type the
 layers use it in, a stacked leaf one layer at a time (``lm.layer``, as
 the reference's ``lax.scan`` over layers gathers a layer an iteration),
@@ -53,6 +59,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm, lm_module
+from repro_torch.parallel import dist
+from repro_torch.parallel import model_split as MS
 from repro_torch.parallel.sharding import (ShardedTensor, SplitAtUse,
                                            data_rows, flatten_with_path,
                                            gathers_not_saved, path_str,
@@ -142,10 +150,12 @@ def make_train_step(cfg: ModelConfig, *, accum: int = 1,
                    vocab_parallel=vocab_parallel)
     use = use_dtypes(cfg)
 
-    def value_and_grad(params, batch):
+    def value_and_grad(params, batch, groups=None):
         """-> (loss, a gradient a leaf in ``OPT.leaves`` order): the
         leaf's, in its dtype; for a split leaf, (slot, gradient) pairs of
-        its ``SplitAtUse`` inputs, each rounded to the leaf's dtype."""
+        its ``SplitAtUse`` inputs, each rounded to the leaf's dtype.
+        ``groups``: this process's position on a process group's mesh
+        (``model_split.on``)."""
         ps = OPT.leaves(params)
         at_use = {}
         for path, x in flatten_with_path(params):
@@ -157,7 +167,7 @@ def make_train_step(cfg: ModelConfig, *, accum: int = 1,
         xs = [a for u in at_use.values()
               for a in (u.inputs if isinstance(u, SplitAtUse) else (u,))]
         with torch.enable_grad(), (gathers_not_saved() if split
-                                   else nullcontext()):
+                                   else nullcontext()), MS.on(groups):
             l = loss(lm.unflatten({
                 name: u.top() if isinstance(u, SplitAtUse)
                 and not taken_by_layer(name) else u
@@ -184,6 +194,9 @@ def make_train_step(cfg: ModelConfig, *, accum: int = 1,
                                  "data rows; accum must be 1")
             n = data_rows(split[0].sharding.mesh,
                           next(iter(batch.values())).shape[0])
+            if split[0].local is not None:
+                return process_step(params, opt_state, batch, n,
+                                    split[0].sharding.mesh.groups)
         if n == 1 and not split:
             l, grads = value_and_grad(params, batch)
         else:
@@ -215,7 +228,78 @@ def make_train_step(cfg: ModelConfig, *, accum: int = 1,
         params, opt_state, gnorm = OPT.update(params, grads, opt_state)
         return params, opt_state, {"loss": l, "grad_norm": gnorm}
 
+    def process_step(params, opt_state, batch, n, groups):
+        """The step of one process of a process group's mesh: its own
+        data row's microbatch (the whole batch where the mesh's rows do
+        not split it, n = 1), its own ``model`` position's share. The
+        rows' losses and unsplit leaves' gradients are all-gathered over
+        the ``data`` subgroup and added in row order; each split leaf's
+        gradients of the blocks that the subgroup's ranks hold are
+        all-to-all'd there, so each rank receives every row's gradient of
+        its own block and adds them in row order into its float32
+        accumulator: the one-process route's sums, in its order."""
+        ps = OPT.leaves(params)
+        rows = groups.data if n > 1 else None
+        if rows is not None:
+            batch = {k: v.reshape((n, v.shape[0] // n) + v.shape[1:])
+                     [groups.row] for k, v in batch.items()}
+        li, gi = value_and_grad(params, batch, groups)
+        l = torch.zeros((), dtype=torch.float32, device=ps[0].device)
+        for x in _row_parts(li, rows):
+            l = l + x
+        l = l / n
+        grads = []
+        for k, p in enumerate(ps):
+            if isinstance(p, ShardedTensor):
+                acc = p.block_zeros(torch.float32)
+                for x in _own_block_rows(p, gi[k], rows, groups.rank):
+                    acc.shards[0].add_(x)
+                acc.shards[0].div_(n)
+            else:
+                acc = torch.zeros(p.shape, dtype=torch.float32,
+                                  device=p.device)
+                for x in _row_parts(gi[k], rows):
+                    acc.add_(x)
+                acc = acc / n
+            grads.append(acc)
+            gi[k] = None
+        params, opt_state, gnorm = OPT.update(params, grads, opt_state)
+        return params, opt_state, {"loss": l, "grad_norm": gnorm}
+
     return train_step
+
+
+def _row_parts(x: torch.Tensor, rows) -> list:
+    """Every data row's ``x``, in row order (``rows``: the ``data``
+    subgroup; None: this rank's alone)."""
+    return [x] if rows is None else dist.all_gather(x, rows)
+
+
+def _block_grad(p: ShardedTensor, grads: list, b: int) -> torch.Tensor:
+    """Block ``b``'s gradient from a split leaf's (slot, gradient) pairs
+    (``value_and_grad``'s): a stacked block's layers stacked; zeros where
+    this rank's loss does not reach it (adding them is adding nothing:
+    an accumulator that starts at +0 never holds −0)."""
+    shape = p.sharding.shard_shape(p.shape)
+    got = [(j, g) for (bb, j), g in grads if bb == b]
+    if got[0][0] is None:
+        g = got[0][1]
+        return g if g is not None else p.shards[0].new_zeros(shape)
+    return torch.stack([g if g is not None
+                        else p.shards[0].new_zeros(shape[1:])
+                        for _, g in got])
+
+
+def _own_block_rows(p: ShardedTensor, grads: list, rows,
+                    rank: int) -> list:
+    """Every data row's gradient of this rank's block of ``p``, in row
+    order: each row's gradients of the blocks that the ``data``
+    subgroup's ranks hold, all-to-all'd (``rows`` None: this rank's own
+    row alone)."""
+    if rows is None:
+        return [_block_grad(p, grads, p.block_of[rank])]
+    return dist.all_to_all([_block_grad(p, grads, p.block_of[r])
+                            for r in rows.ranks], rows)
 
 
 def _div_blocks(acc: ShardedTensor, n: int) -> ShardedTensor:

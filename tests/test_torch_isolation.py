@@ -62,6 +62,7 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.rl, repro_torch.rl.features, repro_torch.rl.policy, "
             "repro_torch.rl.rollout, repro_torch.rl.train, "
             "repro_torch.launch.mesh, repro_torch.parallel.sharding, "
+            "repro_torch.parallel.dist, repro_torch.launch.train, "
             "repro_torch.runtime.campaign;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')];"
