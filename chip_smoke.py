@@ -2668,6 +2668,34 @@ SERVE_LOG_P_ATOL, SERVE_EXPECTED_RTOL, SERVE_ENTROPY_ATOL = 1e-4, 1.5e-5, 1e-5
 SERVE_NEAR_TIE = 2e-4
 
 
+def loadgen_grid(grid_mod, families, dev):
+    """Phase 14(a)'s load generator's grid (traced, ASA, clean)."""
+    from repro_torch.xsim.state import ASA
+
+    cfg = grid_mod.XSimConfig(**SERVE_LOADGEN).with_trace()
+    return families.family_grid(cfg, "clean", policy_ids=(ASA,),
+                                n_seeds=SERVE_SEEDS, shrink=1 / 64.0,
+                                seed=0, device=dev)
+
+
+def loadgen_stream(grid_mod, grid, final) -> list:
+    """The request stream ``(t_sim, tenant, observed_wait or None)`` of
+    the load generator's swept grid, in simulated-time order: a tenant's
+    stage-0 submit-lead query, then every observed stage start."""
+    cfg = grid.cfg
+    waits, valid = grid_mod.stage_waits(final, cfg)
+    sl = slice(cfg.max_jobs - cfg.max_stages, cfg.max_jobs)
+    starts = final.start[:, sl].cpu().numpy()
+    events: list[tuple[float, int, float | None]] = []
+    for t in range(grid.n):
+        events.append((cfg.t0, t, None))
+        for y in range(cfg.max_stages):
+            if valid[t, y]:
+                events.append((float(starts[t, y]), t, float(waits[t, y])))
+    events.sort(key=lambda e: (e[0], e[1]))
+    return events
+
+
 def build_traffic(grid_mod, families, policies, backfill, dev) -> dict:
     """Phase 14(a): ``benchmarks/serve_latency.py::build_traffic`` on the
     port. The load generator's sweep runs through the scan kernel, and
@@ -2675,12 +2703,8 @@ def build_traffic(grid_mod, families, policies, backfill, dev) -> dict:
     bitwise equal and every launch ``fused``. Returns the request stream
     ``(t_sim, tenant, observed_wait or None)`` in simulated-time order,
     the traced final state, its labels and the scan's launches."""
-    from repro_torch.xsim.state import ASA
-
-    cfg = grid_mod.XSimConfig(**SERVE_LOADGEN).with_trace()
-    grid = families.family_grid(cfg, "clean", policy_ids=(ASA,),
-                                n_seeds=SERVE_SEEDS, shrink=1 / 64.0,
-                                seed=0, device=dev)
+    grid = loadgen_grid(grid_mod, families, dev)
+    cfg = grid.cfg
     fleet = policies.init_fleet(int(grid.geo_idx.max()) + 1, device=dev)
     torch.cuda.synchronize()
     reset_scan_counts(backfill)
@@ -2701,18 +2725,7 @@ def build_traffic(grid_mod, families, policies, backfill, dev) -> dict:
           "serve/loadgen: the plain path launched the kernel")
     check(states_equal(final, plain),
           "serve/loadgen: kernel path and plain path differ")
-    waits, valid = grid_mod.stage_waits(final, cfg)
-    sl = slice(cfg.max_jobs - cfg.max_stages, cfg.max_jobs)
-    starts = final.start[:, sl].cpu().numpy()
-    events: list[tuple[float, int, float | None]] = []
-    for t in range(grid.n):
-        # the stream opens with the stage-0 submit-lead query, then every
-        # observed stage start feeds the posterior
-        events.append((cfg.t0, t, None))
-        for y in range(cfg.max_stages):
-            if valid[t, y]:
-                events.append((float(starts[t, y]), t, float(waits[t, y])))
-    events.sort(key=lambda e: (e[0], e[1]))
+    events = loadgen_stream(grid_mod, grid, final)
     n_obs = sum(1 for e in events if e[2] is not None)
     check(grid.n >= SERVE_MIN_TENANTS,
           f"serve/loadgen: {grid.n} tenants, fewer than {SERVE_MIN_TENANTS}")
@@ -3465,12 +3478,13 @@ def _replay_in_step(server, events) -> tuple[list, float]:
     return out, time.perf_counter() - t0
 
 
-def sharded_service(events, dev) -> None:
+def sharded_service(events, dev) -> dict:
     """Phase 16(c): phase 14's stream through a server of
     ``ServeConfig(n_shards=1)`` and one over ``SERVE_SHARD_BLOCKS`` blocks
     on the card: decisions, slots and tables (posteriors and keys, every
     replica) bitwise equal; the sharded server restored from its
-    checkpoint, its replicas bitwise the live one's."""
+    checkpoint, its replicas bitwise the live one's. Returns the
+    ``n_shards=1`` server's decisions, slots and table."""
     import tempfile
 
     from repro_torch.launch.mesh import ScenariosMesh
@@ -3506,6 +3520,260 @@ def sharded_service(events, dev) -> None:
           f"decisions_per_s_n_shards_1={len(events) / one_s:.3f} "
           f"decisions_per_s_sharded={len(events) / sharded_s:.3f} "
           f"bitwise_equal=True restored_bitwise=True")
+    return dict(decisions=want, slots=one._slot_of,
+                table=serve_asa.first_replica(one._table))
+
+
+# (e) one process a block: FLEET_RANKS processes, every one on cuda:0
+# (parallel.dist, gloo through pinned host buffers), spawned after phase 9
+# beside phases 10-11 and checked here: (i) phase 4's full-size grid over
+# the ranks' scenarios mesh (27 scenarios a rank), the final states and
+# metrics bitwise phase 4's, the summary's counters equal to phase 4's
+# summary and its float columns bitwise the one-process route's over as
+# many blocks; (ii) phase 14's stream through rank 0's server (the other
+# ranks follow its broadcasts), decisions, slots and every rank's replica
+# bitwise (c)'s one-process server, the replicas restored from rank 0's
+# save bitwise the live ones. A rank that fails, or runs past
+# FLEET_RANKS_DEADLINE seconds from the spawn, fails the phase.
+FLEET_RANKS = SERVE_SHARD_BLOCKS
+FLEET_RANKS_DEADLINE = 900
+
+
+def _digest(x) -> str:
+    """The SHA-1 of a tensor's or an array's bytes (bitwise checks of
+    large state across processes)."""
+    import hashlib
+
+    if isinstance(x, torch.Tensor):
+        x = x.detach().contiguous().view(torch.uint8).cpu().numpy()
+    return hashlib.sha1(np.ascontiguousarray(x).tobytes()).hexdigest()
+
+
+def fleet_ranks_rank(rank: int, world: int, work: str,
+                     spawned: float) -> None:
+    """Phase 16(e): rank ``rank`` of ``world``. Writes its record to
+    ``work/rank<rank>.pt`` (rank 0's holds the gathered final state, the
+    metrics, the summary, the request stream and the decisions); a
+    failure's traceback to ``work/err<rank>.txt``."""
+    import os
+    import traceback
+
+    work = Path(work)
+    try:
+        sys.path.insert(0, str(SRC))
+        from repro_torch import convert
+        from repro_torch.launch.mesh import make_scenarios_mesh
+        from repro_torch.obs import metrics as obs_metrics
+        from repro_torch.parallel import dist
+        from repro_torch.serve import asa as serve_asa
+        from repro_torch.serve.loop import ASAServer, ServeConfig, follow
+        from repro_torch.xsim import backfill, families, policies
+        from repro_torch.xsim import grid as grid_mod
+
+        dist.init(rank, world, init_method=f"file://{work / 'init'}")
+        dev = dist.local_device("cuda")
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False   # as the smoke's
+        torch.backends.cudnn.allow_tf32 = False         # own process
+        mesh = make_scenarios_mesh(device="cuda")
+        rec: dict = {"device": str(dev), "mesh": repr(mesh)}
+        # (i) phase 4's grid, as full_size builds it
+        cfg = grid_mod.XSimConfig(n_warm=512, n_backlog=768,
+                                  n_arrivals=1024, max_stages=9)
+        grid = grid_mod.make_grid(cfg, shrink=1.0, policy_ids=(0, 1, 2),
+                                  n_seeds=2, device=dev)
+        fleet = policies.init_fleet(int(grid.geo_idx.max()) + 1, device=dev)
+        dist.reset_counts()
+        reset_scan_counts(backfill)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        rec["startup_s"] = t0 - spawned
+        final, m = grid_mod.run_grid(grid, fleet, mesh=mesh, device=dev)
+        torch.cuda.synchronize()
+        rec["sweep_s"] = time.time() - t0
+        rec["launches"] = backfill.KERNEL_LAUNCHES["freed_scan"]
+        rec["designs"] = dict(backfill.DESIGN_LAUNCHES)
+        rec["sweep_collectives"] = json.loads(json.dumps(dist.COUNTS))
+        summary = obs_metrics.sharded_sweep_summary(final, mesh,
+                                                    n_steps=cfg.n_steps)
+        rec["final_digest"] = [_digest(x) for x in
+                               convert.to_numpy(final).values()]
+        if rank == 0:
+            rec["final"] = convert.to_numpy(final)
+            rec["metrics"] = {k: v.cpu().numpy() for k, v in m.items()}
+            rec["summary"] = {k: v.cpu() for k, v in summary.items()}
+        del final, m, summary, grid
+        torch.cuda.empty_cache()
+        # (ii) phase 14's stream through rank 0's server
+        scfg = ServeConfig(n_slots=SERVE_SLOTS, batch_size=SERVE_BATCH,
+                           checkpoint_dir=str(work / "serve"))
+        t0 = time.time()
+        if rank == 0:
+            lgrid = loadgen_grid(grid_mod, families, dev)
+            lfin, _ = grid_mod.run_grid(lgrid, policies.init_fleet(
+                int(lgrid.geo_idx.max()) + 1, device=dev), device=dev)
+            events = loadgen_stream(grid_mod, lgrid, lfin)
+            rec["events"] = events
+            t1 = time.time()
+            server = ASAServer(scfg, mesh=mesh, device=dev)
+            rec["decisions"], rec["serve_s"] = _replay_in_step(server,
+                                                               events)
+            rec["slots"] = dict(server._slot_of)
+            server.save(step=1)
+            live = serve_asa.first_replica(server._table)
+            server.stop()
+            restored = ASAServer.restore(scfg, step=1, mesh=mesh,
+                                         device=dev)
+            back = serve_asa.first_replica(restored._table)
+            restored.stop()
+            rec["loadgen_s"] = t1 - t0
+        else:
+            live = follow(scfg, mesh, device=dev)
+            rec["serve_s"] = time.time() - t0
+            back = follow(scfg, mesh, step=1, device=dev)
+        rec["live"] = [x.cpu() for x in live]
+        rec["restored"] = [x.cpu() for x in back]
+        rec["collectives"] = json.loads(json.dumps(dist.COUNTS))
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+        rec["ended_s"] = time.time() - spawned
+        torch.save(rec, work / f"rank{rank}.pt")
+        dist.destroy()
+    except BaseException:
+        (work / f"err{rank}.txt").write_text(traceback.format_exc())
+        os._exit(1)
+
+
+class FleetRanks:
+    """Phase 16(e)'s ranks, spawned together (after phase 9); ``records``
+    waits for them and returns each one's record, in rank order. A rank
+    that fails or outlives the deadline fails the phase (the others are
+    ended first)."""
+
+    def __init__(self):
+        import multiprocessing
+        import tempfile
+
+        self.work = Path(tempfile.mkdtemp(prefix="chip_smoke_fleet_ranks_"))
+        ctx = multiprocessing.get_context("spawn")
+        self.spawned = time.time()
+        self.procs = [ctx.Process(target=fleet_ranks_rank,
+                                  args=(r, FLEET_RANKS, str(self.work),
+                                        self.spawned), daemon=True)
+                      for r in range(FLEET_RANKS)]
+        for p in self.procs:
+            p.start()
+
+    def records(self) -> list:
+        import shutil
+
+        t0 = time.perf_counter()
+        end = time.monotonic() + max(
+            0.0, FLEET_RANKS_DEADLINE - (time.time() - self.spawned))
+        for p in self.procs:
+            p.join(max(0.0, end - time.monotonic()))
+        codes = []
+        for p in self.procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+            codes.append(p.exitcode)
+        errs = "".join(f"rank {f.name}: {f.read_text()[-2000:]}"
+                       for f in sorted(self.work.glob("err*.txt")))
+        check(codes == [0] * FLEET_RANKS,
+              f"sharded/process_ranks: ranks ended with {codes} (None: "
+              f"killed at the {FLEET_RANKS_DEADLINE} s deadline) {errs}")
+        recs = [torch.load(self.work / f"rank{r}.pt", weights_only=False)
+                for r in range(FLEET_RANKS)]
+        shutil.rmtree(self.work, ignore_errors=True)
+        print(f"sharded/process_ranks: waited_s="
+              f"{time.perf_counter() - t0:.3f} ended_s_after_spawn="
+              f"{[round(r['ended_s'], 3) for r in recs]} "
+              f"checked_s_after_spawn={time.time() - self.spawned:.3f}")
+        return recs
+
+    def close(self) -> None:
+        import shutil
+
+        for p in self.procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(self.work, ignore_errors=True)
+
+
+def fleet_ranks_check(ranks: FleetRanks, full: dict, events,
+                      served: dict, dev) -> int:
+    """Phase 16(e): the ranks' records against phase 4's run (``full``),
+    phase 14's stream and (c)'s one-process server (``served``). Returns
+    the ranks' scan launches (all ``fused``)."""
+    from repro_torch import convert
+    from repro_torch.launch.mesh import ScenariosMesh
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.parallel import dist
+    from repro_torch.xsim import compare
+
+    recs = ranks.records()
+    head = recs[0]
+    want = full["final"]
+    check(numpy_equal(head["final"], convert.to_numpy(want)),
+          "sharded/process_ranks: the ranks' final states differ from "
+          "phase 4's")
+    check(all(r["final_digest"] == head["final_digest"] for r in recs),
+          "sharded/process_ranks: the ranks' gathered states differ")
+    want_m = {k: v.cpu().numpy()
+              for k, v in compare.batched_metrics(want).items()}
+    check(numpy_equal(head["metrics"], want_m),
+          "sharded/process_ranks: the ranks' metrics differ from phase 4's")
+    n_steps = full["grid"].cfg.n_steps
+    one = obs_metrics.sharded_sweep_summary(
+        want, ScenariosMesh([dev] * FLEET_RANKS), n_steps=n_steps)
+    whole = obs_metrics.sweep_summary(want, n_steps=n_steps)
+    for k, v in one.items():
+        check(torch.equal(head["summary"][k], v.cpu()),
+              f"sharded/process_ranks: summary {k} is not the one-process "
+              f"route's")
+        if not v.dtype.is_floating_point:
+            check(torch.equal(v, whole[k]),
+                  f"sharded/process_ranks: summary counter {k} differs")
+    designs = {k: sum(r["designs"][k] for r in recs)
+               for k in head["designs"]}
+    launches = sum(r["launches"] for r in recs)
+    check(launches > 0 and designs["fused"] == launches,
+          f"sharded/process_ranks: scan launches {launches}, by design "
+          f"{designs}")
+    check(head["events"] == events,
+          "sharded/process_ranks: rank 0's stream is not phase 14's")
+    check(head["decisions"] == served["decisions"],
+          "sharded/process_ranks: the decisions differ from (c)'s")
+    check(head["slots"] == served["slots"],
+          "sharded/process_ranks: the tenants' slots differ from (c)'s")
+    table = [x.cpu() for x in served["table"]]
+    for r, rec in enumerate(recs):
+        check(all(torch.equal(a, b) for a, b in zip(rec["live"], table)),
+              f"sharded/process_ranks: rank {r}'s replica differs")
+        check(all(torch.equal(a, b)
+                  for a, b in zip(rec["restored"], rec["live"])),
+              f"sharded/process_ranks: rank {r}'s restored replica differs")
+    kinds = {k: [r["collectives"][k] for r in recs] for k in dist.KINDS}
+    grid = full["grid"]
+    print(f"sharded/process_ranks: ranks={FLEET_RANKS} "
+          f"devices={[r['device'] for r in recs]} transport={dist.TRANSPORT}"
+          f" B={grid.n} N={grid.cfg.max_jobs} per_rank={grid.n // FLEET_RANKS}"
+          f" startup_s={[round(r['startup_s'], 3) for r in recs]} "
+          f"sweep_s={[round(r['sweep_s'], 3) for r in recs]} "
+          f"launches_by_rank={[r['launches'] for r in recs]} "
+          f"by_design={designs} bitwise_phase4=True "
+          f"summary_counters_equal=True summary_floats_bitwise_one_process"
+          f"=True peak_bytes={[r['peak_bytes'] for r in recs]}")
+    print(f"sharded/process_ranks_service: requests={len(events)} "
+          f"loadgen_s={head['loadgen_s']:.3f} "
+          f"serve_s={[round(r['serve_s'], 3) for r in recs]} "
+          f"decisions_per_s={len(events) / head['serve_s']:.3f} "
+          f"bitwise_one_process=True restored_bitwise=True")
+    print(f"sharded/process_ranks: sweep_collectives_by_rank="
+          f"{json.dumps([r['sweep_collectives'] for r in recs])} "
+          f"collectives_by_kind={json.dumps(kinds)}")
+    return launches
 
 
 def campaign_on_card(dev) -> None:
@@ -3576,20 +3844,25 @@ def campaign_on_card(dev) -> None:
 
 
 def sharded_and_campaign(faulty: dict, rl_run: dict, events, backfill,
-                         side: Worker, dev) -> dict:
-    """Phase 16, (a)-(d), each part's seconds printed. Returns the scan's
-    launches by path."""
+                         side: Worker, dev, full: dict | None = None,
+                         ranks: FleetRanks | None = None) -> dict:
+    """Phase 16, (a)-(e) ((e) where ``ranks`` were spawned), each part's
+    seconds printed. Returns the scan's launches by path."""
     paths, t0 = {}, time.perf_counter()
     paths["sweep/sharded"] = sharded_sweeps(faulty, backfill, side, dev)
     t1 = time.perf_counter()
     paths["rl/rollout_sharded"] = sharded_rollout(rl_run, side)
     t2 = time.perf_counter()
-    sharded_service(events, dev)
+    served = sharded_service(events, dev)
     t3 = time.perf_counter()
     campaign_on_card(dev)
     t4 = time.perf_counter()
+    if ranks is not None:
+        paths["sweep/full_ranks"] = fleet_ranks_check(ranks, full, events,
+                                                      served, dev)
+    t5 = time.perf_counter()
     print(f"phase16/seconds: a={t1 - t0:.3f} b={t2 - t1:.3f} "
-          f"c={t3 - t2:.3f} d={t4 - t3:.3f}")
+          f"c={t3 - t2:.3f} d={t4 - t3:.3f} e={t5 - t4:.3f}")
     return paths
 
 
@@ -5187,11 +5460,14 @@ def process_route_rank(rank: int, world: int, work: str,
                        spawned: float) -> None:
     """Phase 21(g): rank ``rank`` of ``launch.train`` on the (2, 2) mesh of
     ``world`` processes (``parallel.dist``; every rank on ``cuda:0``), as
-    (d) runs it, saved at SHARDED_RESTART_AT into ``work/g``. Writes its
-    losses, seconds (start-up: from the spawn to its first step; the
-    step; the save: from the step's end to the save's publication),
-    collectives and peak bytes to ``work/rank<rank>.json``; a failure's
-    traceback to ``work/err<rank>.txt``."""
+    (d) runs it, saved at SHARDED_RESTART_AT into ``work/g``, then its
+    params, m and v moved by ``apply_resize`` onto the ranks' (4, 1) mesh.
+    Writes its losses, seconds (start-up: from the spawn to its first
+    step; the step; the save: from the step's end to the save's
+    publication; the resize), collectives, peak bytes and, of the resize,
+    the bytes received, its new shards' bytes and each leaf's digest to
+    ``work/rank<rank>.json``; a failure's traceback to
+    ``work/err<rank>.txt``."""
     import os
     import traceback
     from functools import partial
@@ -5200,8 +5476,13 @@ def process_route_rank(rank: int, world: int, work: str,
     try:
         sys.path.insert(0, str(SRC))
         from repro_torch.launch import train as launch_train
+        from repro_torch.launch.mesh import make_local_mesh
         from repro_torch.parallel import dist
+        from repro_torch.parallel.sharding import (ShardedTensor,
+                                                   ShardingRules)
         from repro_torch.runtime import checkpoint as ckpt
+        from repro_torch.runtime.elastic import apply_resize
+        from repro_torch.train import optimizer as OPT
 
         dist.init(rank, world, init_method=f"file://{work / 'init'}")
         torch.cuda.set_device(dist.local_device("cuda"))
@@ -5223,12 +5504,35 @@ def process_route_rank(rank: int, world: int, work: str,
                 model_parallel=2, reduced=False, batch=TRAIN_BATCH,
                 seq=SHARDED_RESTART_SEQ, log_every=1, device="cuda")
         end = time.time()
+        collectives = json.loads(json.dumps(dist.COUNTS))
+        peak = torch.cuda.max_memory_allocated()
+        # the step's state moved from (2, 2) to (4, 1) of the same ranks
+        params, opt = times["state"]
+        tree = {"params": params, "m": opt.m, "v": opt.v}
+        new = make_local_mesh(1, device="cuda")
+        dist.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        moved = apply_resize(tree, new, ShardingRules(new))
+        torch.cuda.synchronize()
+        resize_s = time.time() - t0
+        leaves = OPT.leaves(moved)
+        split = [isinstance(x, ShardedTensor) for x in leaves]
         (work / f"rank{rank}.json").write_text(json.dumps(dict(
             losses=res["losses"], device=str(dist.local_device("cuda")),
             startup_s=times["first_start"] - spawned,
             step_s=times["step_s"], save_s=end - times["last_end"],
-            collectives=dist.COUNTS,
-            peak_bytes=torch.cuda.max_memory_allocated())))
+            collectives=collectives, peak_bytes=peak,
+            resize_s=resize_s,
+            resize_collectives=json.loads(json.dumps(dist.COUNTS)),
+            resize_shard_bytes=sum(
+                x.shards[0].numel() * x.shards[0].element_size()
+                for x, sp in zip(leaves, split) if sp),
+            resize_peak_bytes=torch.cuda.max_memory_allocated(),
+            resize_split=split,
+            resize_digests=[_digest(x.shards[0] if sp else x)
+                            for x, sp in zip(leaves, split)])))
         dist.destroy()
     except BaseException:
         (work / f"err{rank}.txt").write_text(traceback.format_exc())
@@ -5411,6 +5715,30 @@ def elastic_restart(dev) -> None:
     print(f"train/apply_resize: (2, 2) -> (4, 1) leaves="
           f"{len(OPT.leaves(moved))} split={n_split} shards={n_shards} "
           f"bitwise=True resize_s={resize_s:.3f}")
+    # (g)'s ranks moved their own state alike: each rank's shards against
+    # this one-process resize's at its position, by digest
+    for r, rec in enumerate(ranks):
+        want = [_digest(x.shards[r] if isinstance(x, ShardedTensor) else x)
+                for x in OPT.leaves(moved)]
+        check(rec["resize_split"] == [isinstance(x, ShardedTensor)
+                                      for x in OPT.leaves(moved)]
+              and rec["resize_digests"] == want,
+              f"train/apply_resize_ranks: rank {r}'s shards differ from "
+              "the one-process apply_resize's")
+        got = rec["resize_collectives"]["all_to_all"]["bytes"]
+        check(got <= rec["resize_shard_bytes"],
+              f"train/apply_resize_ranks: rank {r} received {got} B for "
+              f"{rec['resize_shard_bytes']} B of new shards")
+    print(f"train/apply_resize_ranks: (2, 2) -> (4, 1) on "
+          f"{len(ranks)} processes bitwise_one_process=True "
+          f"received_bytes={[r['resize_collectives']['all_to_all']['bytes'] for r in ranks]} "
+          f"new_shard_bytes={[r['resize_shard_bytes'] for r in ranks]} "
+          f"all_to_all_calls="
+          f"{[r['resize_collectives']['all_to_all']['calls'] for r in ranks]} "
+          f"all_gather_bytes (leaves left whole)="
+          f"{[r['resize_collectives']['all_gather']['bytes'] for r in ranks]} "
+          f"resize_s={[round(r['resize_s'], 3) for r in ranks]} "
+          f"peak_bytes={[r['resize_peak_bytes'] for r in ranks]}")
 
 
 def sharded_training_on_card(dev, cpu: Worker | None = None) -> None:
@@ -5538,11 +5866,15 @@ def main() -> None:
 
     # the workers start after the last reading of phases 2-9: the plain
     # paths of phases 10, 13(a), 15(a) and 16(a)-(b) on the card, the CPU
-    # sides of phases 19(d), 20(e) and 21(a), while phases 10 and 11 run
+    # sides of phases 19(d), 20(e) and 21(a), and phase 16(e)'s ranks,
+    # while phases 10 and 11 run
     cpu = Worker(cpu_references)
     atexit.register(cpu.close)
     plain = Worker(side_runs)
     atexit.register(plain.close)
+    # phase 16(e)'s ranks, one process a block, run beside them too
+    fleet_ranks = FleetRanks()
+    atexit.register(fleet_ranks.close)
 
     # phase 10: the Table-1 setting with ASA-Naive under every family;
     # phase 11: that program at full size under the faulty family (counts
@@ -5590,7 +5922,7 @@ def main() -> None:
     # phase 16: the sharded paths over blocks on the card and the ASA
     # campaign (counts reset inside, per path)
     scan_paths.update(sharded_and_campaign(faulty, rl_run, events, backfill,
-                                           plain, dev))
+                                           plain, dev, full, fleet_ranks))
     phases.done("16_sharded_campaign")
 
     # phase 17: training on the card (counts reset inside, per path)

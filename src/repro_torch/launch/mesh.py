@@ -13,7 +13,12 @@ validating the shard count against that type's inventory. A
 devices, repeats allowed: several blocks on one device. That is the
 port's counterpart of the reference's ``Mesh`` over CPU devices faked
 with ``XLA_FLAGS=--xla_force_host_platform_device_count=N``; the port's
-CPU tests and the chip smoke's one-card blocks use it.
+CPU tests and the chip smoke's one-card blocks use it. Under an
+initialised process group (``parallel.dist``) ``make_scenarios_mesh``
+builds the mesh of the group's ranks instead, one block a rank
+(``groups``): each process runs its own block and the results meet in
+``dist`` collectives, as the reference's ``shard_map`` runs every
+device's block at once.
 
 ``make_local_mesh`` builds the (data, model) mesh of training over the
 host's devices (a ``DeviceMesh``); ``parallel.sharding`` places parameter
@@ -36,18 +41,36 @@ from repro_torch.parallel.fleet import SCENARIO_AXIS
 
 
 class ScenariosMesh:
-    """A 1-D ``scenarios`` mesh: one device per block, in mesh order."""
+    """A 1-D ``scenarios`` mesh: one device per block, in mesh order.
+
+    ``groups`` (a ``parallel.dist.Group`` of every rank) makes it the
+    mesh of a process group: block i is rank i's, this process runs block
+    ``groups.index`` alone, and every entry of ``devices`` is this rank's
+    device (``dist.local_device``), the only one it uses."""
 
     axis_names = (SCENARIO_AXIS,)
 
-    def __init__(self, devices: Sequence[str | torch.device]):
+    def __init__(self, devices: Sequence[str | torch.device], groups=None):
         self.devices = tuple(torch.device(d) for d in devices)
         if not self.devices:
             raise ValueError("ScenariosMesh needs at least one device")
+        if groups is not None and groups.size != len(self.devices):
+            raise ValueError(f"a mesh of {len(self.devices)} blocks over "
+                             f"a group of {groups.size} ranks")
         self.shape = {SCENARIO_AXIS: len(self.devices)}
+        self.groups = groups
 
     def __repr__(self) -> str:
-        return f"ScenariosMesh({[str(d) for d in self.devices]})"
+        where = ("" if self.groups is None
+                 else f", rank {self.groups.index} of {self.groups.size}")
+        return f"ScenariosMesh({[str(d) for d in self.devices]}{where})"
+
+
+def _group_world() -> int | None:
+    """The world size of the initialised process group, else None."""
+    d = torch.distributed
+    return d.get_world_size() if d.is_available() and d.is_initialized() \
+        else None
 
 
 def _inventory(device: str | torch.device) -> tuple[str, int]:
@@ -62,9 +85,17 @@ def _inventory(device: str | torch.device) -> tuple[str, int]:
 def shards_arg_error(n_shards: int, flag: str = "--shards", *,
                      device: str | torch.device = DEFAULT_DEVICE
                      ) -> str | None:
-    """None when ``n_shards`` fits the inventory of ``device``'s type,
-    else the error message (the one source of the shard-count check)."""
+    """None when ``n_shards`` fits the inventory of ``device``'s type
+    (under a process group: when it is the group's world size, one block
+    a rank), else the error message (the one source of the shard-count
+    check)."""
     kind, n_dev = _inventory(device)
+    world = _group_world()
+    if world is not None:
+        if n_shards == world:
+            return None
+        return (f"{flag} {n_shards} is not the {world} ranks of the "
+                "process group (one block a rank)")
     if 1 <= n_shards <= n_dev:
         return None
     return (f"{flag} {n_shards} outside the visible device inventory "
@@ -77,12 +108,21 @@ def make_scenarios_mesh(n_shards: int | None = None, *,
                         ) -> ScenariosMesh:
     """A ``scenarios`` mesh over the first ``n_shards`` devices of
     ``device``'s type (``None``: all of them), validated before anything
-    is built."""
+    is built. Under an initialised process group, the mesh of its ranks
+    (``n_shards`` None or the world size), each rank's device
+    ``parallel.dist.local_device``."""
     kind, n_dev = _inventory(device)
-    n = n_dev if n_shards is None else n_shards
+    world = _group_world()
+    n = (n_dev if world is None else world) if n_shards is None \
+        else n_shards
     err = shards_arg_error(n, flag="n_shards", device=device)
     if err is not None:
         raise ValueError(err)
+    if world is not None:
+        from repro_torch.parallel import dist
+
+        return ScenariosMesh([dist.local_device(kind)] * world,
+                             groups=dist.world_group())
     if kind == "cpu":
         return ScenariosMesh([torch.device("cpu")])
     return ScenariosMesh([torch.device("cuda", i) for i in range(n)])

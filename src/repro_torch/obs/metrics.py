@@ -12,7 +12,8 @@ integer sums, so they are exact; the two float columns
 order. ``sharded_sweep_summary`` reduces each block of a ``scenarios``
 mesh on its device, the pad rows masked out, and sums the blocks' raw
 sums: its counters equal ``sweep_summary``'s exactly, its float columns
-to reduction order. ``replay_chain_waits`` reconstructs the ASA chain's
+to reduction order (on a process group's mesh each rank sums its own
+block). ``replay_chain_waits`` reconstructs the ASA chain's
 perceived waits from one scenario's ring on the host.
 """
 
@@ -160,15 +161,20 @@ def sharded_sweep_summary(final: ScenarioState, mesh, *, n_steps: int
     scenario 0, ``parallel.fleet.pad_batch``) masked out, only the
     blocks' raw sums come back to ``final``'s device, where they are added
     in mesh order and the fractions are taken once. Counter columns equal
-    ``sweep_summary``'s exactly; float columns to reduction order."""
+    ``sweep_summary``'s exactly; float columns to reduction order. On a
+    process group's mesh each rank sums its own block, the raw sums are
+    all-gathered, and every rank adds them in mesh order as one process
+    does, so both routes give the same bits."""
     b = pfleet.batch_size(final)
     padded, mask = pfleet.pad_batch(final, mesh.shape[pfleet.SCENARIO_AXIS])
-    blocks = pfleet.split((padded, mask), mesh.devices)
     home = final.steps.device
+    sums = [_sums(scenario_summary(block, n_steps), m)
+            for block, m in pfleet.split((padded, mask), mesh)]
+    if getattr(mesh, "groups", None) is not None:
+        sums = pfleet.all_gather_tree(sums[0], mesh.groups)
     out = None
-    for block, m in blocks:
-        local = pfleet.replicate(
-            _sums(scenario_summary(block, n_steps), m), home)
+    for local in sums:
+        local = pfleet.replicate(local, home)
         out = local if out is None else {k: out[k] + v
                                          for k, v in local.items()}
     return _fleet(out, b, n_steps)

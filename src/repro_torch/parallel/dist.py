@@ -23,6 +23,14 @@ all. ``COUNTS`` counts each kind's calls and the bytes this rank
 receives, as the reference's ``parallel.collectives.collective_stats``
 counts them in HLO.
 
+The fleet's sharded paths (ROADMAP Queue 1 item 12(g)) use the 1-D
+group of a ``scenarios`` mesh, every rank one block (``world_group``):
+``all_gather_many`` brings every rank's tensors (the leaves of its
+block of a batched tree, ``parallel.fleet.all_gather_tree``) to every
+rank in one call, their bytes packed into one buffer, and
+``all_to_all_v`` sends each rank a part of its own size (a resize's
+intersections, ``parallel.sharding.device_put``).
+
 The transport is ``gloo``: on CPU tensors as they are, and on a card
 that several ranks share through pinned host buffers, copied explicitly
 here (gloo's own handling of CUDA tensors covers only some
@@ -209,6 +217,57 @@ def broadcast(t: torch.Tensor, group: Group, src: int = 0) -> torch.Tensor:
     D.broadcast(h, src=group.ranks[src], group=group.pg)
     _count("broadcast", h.numel() * h.element_size())
     return h.to(t.device)
+
+
+def world_group() -> Group:
+    """Every rank of the initialised group, in rank order: the 1-D group
+    of a ``scenarios`` mesh (``launch.mesh.make_scenarios_mesh``)."""
+    return Group(range(D.get_world_size()), None)
+
+
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().reshape(-1).view(torch.uint8)
+
+
+def _from_bytes(buf: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    # a copy: a leaf's bytes may start at an offset its dtype cannot view
+    return buf.clone().view(like.dtype).reshape(like.shape)
+
+
+def all_gather_many(leaves: list[torch.Tensor], group: Group) -> list:
+    """Every member's ``leaves`` (one list of shapes and dtypes on each),
+    in position order, each leaf on the device of this rank's: their
+    bytes packed into one buffer, so one all-gather whatever the number
+    of leaves and dtypes."""
+    if group.size == 1 or not leaves:
+        return [list(leaves)] * group.size
+    parts = [_bytes(x) for x in leaves]
+    sizes = [p.numel() for p in parts]
+    dev = leaves[0].device
+    packed = torch.cat([p.to(dev) for p in parts])
+    return [[_from_bytes(b.to(x.device), x)
+             for b, x in zip(buf.split(sizes), leaves)]
+            for buf in all_gather(packed, group)]
+
+
+def all_to_all_v(parts: list[torch.Tensor], group: Group,
+                 recv_numels: list[int]) -> list[torch.Tensor]:
+    """``parts[k]`` (1-D, one dtype, any length) sent to member k;
+    returns what each member sent this rank, in position order, member k's
+    part ``recv_numels[k]`` elements long (the caller knows the sizes: a
+    resize computes them from the shardings, so no second exchange)."""
+    like = parts[0]
+    if group.size == 1:
+        return list(parts)
+    send = [_bytes(p) for p in parts]
+    h = _to_host(torch.cat(send))
+    isz = like.element_size()
+    out = _host_buffer((sum(recv_numels) * isz,), torch.uint8, like)
+    D.all_to_all_single(out, h, [n * isz for n in recv_numels],
+                        [p.numel() for p in send], group=group.pg)
+    _count("all_to_all", out.numel())
+    got = out.to(like.device).split([n * isz for n in recv_numels])
+    return [g.view(like.dtype) for g in got]
 
 
 def agree(ok: bool, group: Group, src: int = 0) -> bool:

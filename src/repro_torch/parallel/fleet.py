@@ -14,6 +14,14 @@ pads its batch to a multiple of the mesh's blocks. The pad rows land on
 the last block; drained lanes step as exact no-ops, so they can lengthen
 that block's sweep but never change its results.
 
+``split`` and ``gather`` take a ``launch.mesh.ScenariosMesh`` (or a
+sequence of devices). On the mesh of a process group (``mesh.groups``)
+``split`` hands this rank its own block alone and ``gather``
+all-gathers the ranks' blocks (``all_gather_tree``) and
+joins them in mesh order, so every rank holds the whole result, as the
+one-process route's gather would; a caller runs the blocks that
+``blocks`` names, each on its device.
+
 ``shard_spec``/``replicated_spec`` are the two ``PartitionSpec``s a fleet
 sweep ever needs: the leading axis over the ``scenarios`` mesh axis, and
 everything replicated (the policy head's weights, the tenant table).
@@ -23,6 +31,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.parallel import dist
 from repro_torch.parallel.sharding import PartitionSpec
 
 SCENARIO_AXIS = "scenarios"
@@ -94,18 +103,30 @@ def unpad(tree, n_real: int):
     return _tree_map(lambda x: x[:n_real], tree)
 
 
-def split(tree, devices) -> list:
-    """A batched tree whose leading axis divides ``len(devices)`` cut into
-    that many contiguous blocks, block ``i`` moved to ``devices[i]`` (the
-    scatter of the reference's ``shard_spec``)."""
+def blocks(where) -> list[tuple[int, torch.device]]:
+    """(index, device) of each block this process runs: every block of a
+    mesh (or of a sequence of devices), or on a process group's mesh its
+    own block alone."""
+    devices = getattr(where, "devices", where)
+    group = getattr(where, "groups", None)
+    ids = range(len(devices)) if group is None else (group.index,)
+    return [(i, torch.device(devices[i])) for i in ids]
+
+
+def split(tree, where) -> list:
+    """A batched tree whose leading axis divides the number of blocks of
+    ``where`` (a ``ScenariosMesh`` or a sequence of devices) cut into that
+    many contiguous blocks, block ``i`` moved to device ``i`` (the scatter
+    of the reference's ``shard_spec``): those of ``blocks(where)``, in
+    order."""
     b = batch_size(tree)
-    k = len(devices)
+    k = len(getattr(where, "devices", where))
     if b % k:
         raise ValueError(f"batch of {b} does not split into {k} blocks; "
                          "pad it first (pad_batch)")
     per = b // k
     return [_tree_map(lambda x, i=i, d=d: x[i * per:(i + 1) * per].to(d),
-                      tree) for i, d in enumerate(devices)]
+                      tree) for i, d in blocks(where)]
 
 
 def replicate(tree, device: torch.device):
@@ -114,17 +135,36 @@ def replicate(tree, device: torch.device):
     return _tree_map(lambda x: x.to(device), tree)
 
 
-def gather(blocks: list, device: torch.device):
+def gather(outs: list, device: torch.device, mesh=None):
     """The blocks' trees joined along the leading axis in mesh order, on
-    ``device`` (the gather of the reference's ``shard_spec`` output)."""
-    first = blocks[0]
+    ``device`` (the gather of the reference's ``shard_spec`` output). On a
+    process group's ``mesh`` ``outs`` is this rank's block alone, and
+    every rank's block comes from an all-gather."""
+    group = getattr(mesh, "groups", None)
+    if group is not None:
+        (own,) = outs
+        outs = all_gather_tree(own, group)
+    return _join(outs, device)
+
+
+def all_gather_tree(tree, group) -> list:
+    """Every member's ``tree`` (of one structure, shapes and dtypes on
+    each), in position order, on the devices of ``tree``'s tensors: one
+    all-gather of all its tensors (``parallel.dist.all_gather_many``)."""
+    leaves: list = []
+    _tree_map(leaves.append, tree)
+    return [_tree_map(lambda _, it=iter(got): next(it), tree)
+            for got in dist.all_gather_many(leaves, group)]
+
+
+def _join(outs: list, device: torch.device):
+    first = outs[0]
     if isinstance(first, torch.Tensor):
-        return torch.cat([x.to(device) for x in blocks])
+        return torch.cat([x.to(device) for x in outs])
     if isinstance(first, dict):
-        return {k: gather([x[k] for x in blocks], device) for k in first}
+        return {k: _join([x[k] for x in outs], device) for k in first}
     if isinstance(first, tuple) and hasattr(first, "_fields"):
-        return type(first)(*(gather(list(xs), device)
-                             for xs in zip(*blocks)))
+        return type(first)(*(_join(list(xs), device) for xs in zip(*outs)))
     if isinstance(first, (tuple, list)):
-        return type(first)(gather(list(xs), device) for xs in zip(*blocks))
+        return type(first)(_join(list(xs), device) for xs in zip(*outs))
     return first

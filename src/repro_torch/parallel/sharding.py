@@ -527,19 +527,72 @@ def gathers_not_saved():
     return torch.autograd.graph.saved_tensors_hooks(_pack, _unpack)
 
 
+def _overlap(a: tuple, b: tuple) -> tuple | None:
+    """The intersection of two indices (a slice a dimension), or None."""
+    out = tuple(slice(max(p.start, q.start), min(p.stop, q.stop))
+                for p, q in zip(a, b))
+    return None if any(o.start >= o.stop for o in out) else out
+
+
+def _within(index: tuple, outer: tuple) -> tuple:
+    """``index`` relative to the block that starts at ``outer``."""
+    return tuple(slice(i.start - o.start, i.stop - o.start)
+                 for i, o in zip(index, outer))
+
+
+def _numel(index: tuple) -> int:
+    return int(np.prod([i.stop - i.start for i in index]))
+
+
+def _reshard(x: ShardedTensor, sharding: NamedSharding) -> ShardedTensor:
+    """A leaf split over a process group's mesh moved onto another mesh
+    of the same ranks without building it whole anywhere: the first
+    holder of each old block sends every rank the part of it that lies
+    in that rank's new shard (``dist.all_to_all_v``), and each rank
+    assembles its new shard from what it receives, so a rank receives at
+    most its new shard's bytes."""
+    groups = sharding.mesh.groups
+    rank, world = groups.rank, groups.world
+    new = sharding.shard_indices(tuple(x.shape))
+    mine, own = x.indices[x.local], x.shards[0]
+    sends = x.local in x.firsts
+    parts = []
+    for k in range(world.size):
+        cut = _overlap(mine, new[k]) if sends else None
+        parts.append(own.new_empty(0) if cut is None
+                     else own[_within(cut, mine)].reshape(-1))
+    cuts = [_overlap(x.indices[k], new[rank]) if k in x.firsts else None
+            for k in range(world.size)]
+    got = dist.all_to_all_v(parts, world,
+                            [0 if c is None else _numel(c) for c in cuts])
+    shard = torch.empty(sharding.shard_shape(tuple(x.shape)),
+                        dtype=x.dtype, device=sharding.mesh.device)
+    for cut, part in zip(cuts, got):
+        if cut is not None:
+            block = shard[_within(cut, new[rank])]
+            block.copy_(part.view(block.shape))
+    return ShardedTensor([shard], sharding, x.shape, x.dtype)
+
+
 def device_put(x, sharding: NamedSharding):
     """``x`` (a tensor or a ``ShardedTensor``) placed by ``sharding``:
     moved whole to the mesh's device when no axis of extent > 1 splits
     it, else split into a ``ShardedTensor``, each shard a copy of its
     block on its position's device (``meta`` shards on a meta mesh
     allocate nothing; on a process group's mesh, this rank's shard
-    alone)."""
+    alone). A ``ShardedTensor`` of a process group's mesh that moves
+    onto another mesh of the same ranks and stays split is resharded by
+    an all-to-all (``_reshard``); otherwise it is gathered first."""
     mesh = sharding.mesh
-    if isinstance(x, ShardedTensor):
-        x = x.gather(mesh.device)
     named = [a for part in sharding.spec if part
              for a in ((part,) if isinstance(part, str) else part)]
-    if all(mesh.shape[a] == 1 for a in named):
+    whole = all(mesh.shape[a] == 1 for a in named)
+    if isinstance(x, ShardedTensor):
+        if (not whole and x.local is not None
+                and getattr(mesh, "groups", None) is not None):
+            return _reshard(x, sharding)
+        x = x.gather(mesh.device)
+    if whole:
         return x.to(mesh.device)
     shape = sharding.shard_shape(tuple(x.shape))
     places = list(zip(sharding.shard_indices(tuple(x.shape)),

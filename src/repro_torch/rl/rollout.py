@@ -68,7 +68,9 @@ def collect(grid: ScenarioGrid, params, fleet=None, *, pred_seed: int = 1,
     ``freed_scan`` kernel on CUDA). ``n_shards``/``mesh`` split the
     episode batch over a ``scenarios`` mesh (params replicated,
     trajectories gathered), bitwise the single-device rollout, so
-    training curves do not depend on the device count."""
+    training curves do not depend on the device count; on a process
+    group's mesh every rank holds the gathered trajectory, so each rank's
+    ``rl.train.reinforce_step`` gives the same head."""
     with torch.no_grad():
         final, m = run_grid(grid, fleet, pred_seed=pred_seed,
                             freed_mode=freed_mode, params=params,

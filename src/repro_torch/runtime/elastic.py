@@ -10,7 +10,10 @@ reads shapes and dtypes only, so a tree of meta tensors gives the plan
 of a published size without allocating it. ``apply_resize`` re-places
 the leaves on the new mesh (``parallel.sharding.device_put``: a split
 leaf is gathered and split again by the new mesh's sharding, whole on a
-mesh whose axes do not split it): data movement only, so bitwise.
+mesh whose axes do not split it; on the meshes of one process group, a
+leaf that stays split moves by an all-to-all of its blocks'
+intersections, and no rank builds it whole): data movement only, so
+bitwise.
 
 ``resize_schedule`` is the center-side view of the same elasticity: a
 sequence of live capacity changes (the malleable-job model of Dynamic

@@ -41,7 +41,12 @@ slots and updated rows are gathered in mesh order (the reference's tiled
 ``all_gather``), and every replica applies the same full-batch scatter,
 so the replicas stay identical and equal the single-device table bit for
 bit. The decisions are read once, from the first replica, by the read
-the single-device step runs.
+the single-device step runs. On a process group's mesh (``mesh.groups``)
+each rank holds one replica: it computes its own block's rows, the
+ranks' parts are all-gathered in mesh order (one call,
+``parallel.fleet.all_gather_tree``) and every rank applies the full
+batch's scatter to its replica, as the reference's ``gather_all``
+does.
 """
 
 from __future__ import annotations
@@ -130,19 +135,27 @@ def reset_slot(table, slot: int, key: torch.Tensor):
     return asa.ASAState(*out)
 
 
+def pack_query(q: QueryBatch, mask: torch.Tensor) -> torch.Tensor:
+    """A query batch and its mask as one ``(4, B)`` int32 tensor (the wait
+    by its bits): what ``query_to`` copies, and what a process group's
+    server broadcasts (``serve.loop``)."""
+    return torch.stack([q.slot.to(torch.int32),
+                        q.observed_wait.to(torch.float32).view(torch.int32),
+                        q.has_obs.to(torch.int32), mask.to(torch.int32)])
+
+
+def unpack_query(d: torch.Tensor) -> tuple[QueryBatch, torch.Tensor]:
+    """``pack_query``'s inverse, on ``d``'s device."""
+    return (QueryBatch(slot=d[0], observed_wait=d[1].view(torch.float32),
+                       has_obs=d[2].bool()), d[3].bool())
+
+
 def query_to(q: QueryBatch, mask: torch.Tensor,
              device: torch.device) -> tuple[QueryBatch, torch.Tensor]:
     """A host query batch and its mask on ``device`` in one transfer: the
-    four rows packed as int32 (the wait by its bits), copied without a
-    synchronisation, and unpacked on the device."""
-    packed = torch.stack([q.slot.to(torch.int32),
-                          q.observed_wait.to(torch.float32)
-                          .view(torch.int32),
-                          q.has_obs.to(torch.int32),
-                          mask.to(torch.int32)])
-    d = packed.to(device, non_blocking=True)
-    return (QueryBatch(slot=d[0], observed_wait=d[1].view(torch.float32),
-                       has_obs=d[2].bool()), d[3].bool())
+    four rows packed as int32, copied without a synchronisation, and
+    unpacked on the device."""
+    return unpack_query(pack_query(q, mask).to(device, non_blocking=True))
 
 
 def _row_updates(table: asa.ASAState, q: QueryBatch, mask: torch.Tensor
@@ -237,12 +250,13 @@ def first_replica(table) -> asa.ASAState:
 def _sharded_update(replicas: tuple[asa.ASAState, ...], q: QueryBatch,
                     mask: torch.Tensor, mesh) -> tuple[asa.ASAState, ...]:
     """Each block's rows from its device's replica, gathered in mesh
-    order, then the full-batch scatter on every replica."""
+    order, then the full-batch scatter on every replica (on a process
+    group's mesh: this rank's block and its one replica)."""
     devs = _distinct(mesh)
     parts = [_row_updates(replicas[devs.index(d)], bq, bm)
-             for d, (bq, bm) in zip(mesh.devices,
-                                    pfleet.split((q, mask), mesh.devices))]
-    return tuple(_scatter(r, *pfleet.gather(parts, d))
+             for (_i, d), (bq, bm) in zip(pfleet.blocks(mesh),
+                                          pfleet.split((q, mask), mesh))]
+    return tuple(_scatter(r, *pfleet.gather(parts, d, mesh))
                  for r, d in zip(replicas, devs))
 
 

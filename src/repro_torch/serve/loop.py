@@ -58,6 +58,20 @@ mesh's blocks, and the queries are served on the first replica's device.
 Checkpoints are saved from the first replica and restored onto every
 replica; ``ServeSupervisor`` passes the mesh through its restarts.
 
+On a process group's mesh (``launch.mesh.make_scenarios_mesh`` under
+``parallel.dist``) each rank holds one replica. Rank 0's ``ASAServer``
+owns admission, leases, futures, checkpoints and ``obs``; each step it
+broadcasts one message (the padded batch and its mask as
+``serve.asa.pack_query`` packs them, the slot resets its admissions
+made since the last message, a kind: step, stop or keep-alive), and the
+other ranks run :func:`follow` on those messages, applying the same
+resets and stepping their own block of the same batch. ``stop()`` ends
+the followers (the server cannot start again). A step that fails after
+its message went out fails its batch and ends the loop, since the
+replicas may then differ. ``save`` writes rank 0's replica; ``restore``
+on rank 0 and ``follow(step=)`` on the others read the same file.
+``ServeSupervisor`` refuses a process group's mesh (ROADMAP Queue 1).
+
 The registry is not part of the checkpoint: counters describe this
 process's lifetime; a restored server starts them at zero while answering
 bitwise-identically.
@@ -83,10 +97,28 @@ from repro_torch.core import asa as core_asa
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.launch.mesh import make_scenarios_mesh
 from repro_torch.obs.serve_obs import ServeObs
+from repro_torch.parallel import dist
 from repro_torch.parallel import fleet as pfleet
 from repro_torch.runtime import checkpoint
 from repro_torch.runtime.pool import Claim, ResourcePool
 from repro_torch.serve import asa as serve_asa
+
+
+# the kinds of a process group's step message (see the module docstring)
+MSG_STEP, MSG_STOP, MSG_KEEPALIVE, MSG_RESETS = 0, 1, 2, 3
+# rank 0 sends a keep-alive when it has sent nothing for this long, so an
+# idle server's followers never reach the group's collective timeout
+KEEPALIVE_S = 10.0
+
+
+def _message_size(cfg: "ServeConfig") -> int:
+    """Int32 words of a step message: kind, resets count, the resets'
+    slots and admission salts (``batch_size`` each), the packed batch."""
+    return 2 + 2 * cfg.batch_size + 4 * cfg.batch_size
+
+
+def _group_of(mesh):
+    return getattr(mesh, "groups", None)
 
 
 class TableFullError(RuntimeError):
@@ -198,6 +230,14 @@ class ASAServer:
         if mesh is None and cfg.n_shards is not None:
             mesh = make_scenarios_mesh(cfg.n_shards, device=self._device)
         self._mesh = mesh
+        self._group = _group_of(mesh)
+        if self._group is not None and self._group.index != 0:
+            raise ValueError(
+                f"rank {self._group.index} of a process group's server "
+                "follows rank 0's: run serve.loop.follow there")
+        self._resets: list[tuple[int, int]] = []  # (slot, salt) unsent
+        self._released = False       # the followers were sent MSG_STOP
+        self._last_message = time.monotonic()
         self._obs = obs if obs is not None else \
             ServeObs(spans=cfg.obs_spans)
         self._chaos = chaos
@@ -313,6 +353,8 @@ class ASAServer:
             key = serve_asa.slot_key(self.cfg.seed, self._admissions)
             self._table = serve_asa.reset_slot(self._table, slot, key)
             self._dirty.discard(slot)
+            if self._group is not None:
+                self._resets.append((slot, self._admissions))
         self._admissions += 1
         self._slot_of[tenant] = slot
         self._tenant_ids[slot] = tenant
@@ -459,6 +501,9 @@ class ASAServer:
         after the host read), and the loop lives on.  Only an exception
         *outside* the guard (e.g. an injected crash at the boundary)
         kills the loop — and then the crash path drains everything."""
+        if self._released:
+            raise ServerStopped("the process group's followers were "
+                                "stopped: this server cannot step again")
         if self._chaos is not None:
             # boundary hook: bursts land in the queue (drained below, or
             # by the crash path), a crash raise escapes to _run
@@ -508,6 +553,7 @@ class ASAServer:
             live.append((i, fut, req))
         if not live:  # every request failed admission — nothing to serve
             return 0
+        sent = False
         try:
             if self._chaos is not None:
                 self._chaos.before_device_step(self._batches)
@@ -520,7 +566,14 @@ class ASAServer:
             # guards the pad rows (copies of query 0) from ever touching
             # the table; then one transfer to the table's device
             qp, mask = pfleet.pad_batch(q, self.cfg.batch_size)
-            qp, mask = serve_asa.query_to(qp, mask, self._device)
+            if self._group is None:
+                qp, mask = serve_asa.query_to(qp, mask, self._device)
+            else:
+                packed = serve_asa.pack_query(qp, mask)
+                sent = True
+                self._send(MSG_STEP, packed)
+                qp, mask = serve_asa.unpack_query(
+                    packed.to(self._device, non_blocking=True))
             t2 = o.now()
             new_table, dec = serve_asa.serve_step(self._table, qp, mask,
                                                   mesh=self._mesh)
@@ -543,6 +596,10 @@ class ASAServer:
             o.c_step_errors.inc()
             o.instant("step_error", t_err,
                       {"batch": self._batches, "error": repr(e)})
+            if sent:
+                # the followers may have stepped: the replicas can no
+                # longer be held equal, so the loop ends here
+                raise err
             return 0
         self._table = new_table   # commit only after the read succeeded
         t4 = o.now()
@@ -599,6 +656,41 @@ class ASAServer:
                     self._ckpt_handle = None
         return len(live)
 
+    def _send(self, kind: int, packed: Optional[torch.Tensor] = None
+              ) -> None:
+        """Broadcast one message to the followers (rank 0 of a process
+        group): the unsent slot resets, then ``kind`` with ``packed``
+        (``serve.asa.pack_query``'s batch) where it is a step. Resets
+        beyond a message's room go first in messages of their own."""
+        cap = self.cfg.batch_size
+        while True:
+            resets, self._resets = self._resets[:cap], self._resets[cap:]
+            last = not self._resets
+            msg = torch.zeros(_message_size(self.cfg), dtype=torch.int32)
+            msg[0] = kind if last else MSG_RESETS
+            msg[1] = len(resets)
+            if resets:
+                msg[2:2 + len(resets)] = torch.tensor([r[0] for r in resets])
+                msg[2 + cap:2 + cap + len(resets)] = torch.tensor(
+                    [r[1] for r in resets])
+            if last and packed is not None:
+                msg[2 + 2 * cap:] = packed.reshape(-1)
+            dist.broadcast(msg, self._group, 0)
+            self._last_message = time.monotonic()
+            if last:
+                return
+
+    def _keepalive(self) -> None:
+        if (self._group is not None and not self._released and
+                time.monotonic() - self._last_message > KEEPALIVE_S):
+            self._send(MSG_KEEPALIVE)
+
+    def _release(self) -> None:
+        """End the followers' loops (once)."""
+        if self._group is not None and not self._released:
+            self._send(MSG_STOP)
+            self._released = True
+
     def _drain_all_pending_locked(self) -> list[tuple[Request, Future]]:
         """Pop every queued + deferred item (caller holds _ingress_lock)."""
         items: list[tuple[Request, Future]] = []
@@ -648,6 +740,7 @@ class ASAServer:
                     # queue stayed empty for batch_wait_s: yield briefly
                     # so a stopped server exits promptly (sqswatcher's
                     # idle poll)
+                    self._keepalive()
                     self._stop.wait(self.cfg.batch_wait_s)
             o.g_loop_healthy.set(0.0)
         except BaseException as e:
@@ -660,6 +753,9 @@ class ASAServer:
         (``ASAServer.restore`` / :class:`ServeSupervisor`)."""
         if self._thread is not None:
             raise RuntimeError("server already started")
+        if self._released:
+            raise ServerStopped("the process group's followers were "
+                                "stopped: this server cannot start again")
         if self._crashed is not None:
             raise ServerCrashed(
                 "cannot start a crashed server; restore a fresh one "
@@ -677,7 +773,9 @@ class ASAServer:
         or deferred with :class:`ServerStopped` — no future ever hangs
         across a stop.  Idempotent: repeated calls are no-ops.  The
         server can ``start()`` again afterwards (state intact); while
-        stopped, ``submit()`` raises immediately."""
+        stopped, ``submit()`` raises immediately. On a process group's
+        mesh it also ends the followers, and the server cannot start
+        again."""
         o = self._obs
         self._stop.set()
         if self._thread is not None:
@@ -698,6 +796,8 @@ class ASAServer:
             o.g_deferred.set(0)
         o.g_loop_healthy.set(0.0)
         self.stop_metrics_http()
+        if self._crashed is None:
+            self._release()
         if self._ckpt_handle is not None:
             handle, self._ckpt_handle = self._ckpt_handle, None
             handle.result()
@@ -929,6 +1029,11 @@ class ServeSupervisor:
                  max_restarts: int = 10,
                  obs: Optional[ServeObs] = None, *,
                  device: str | torch.device = DEFAULT_DEVICE):
+        if _group_of(mesh) is not None:
+            raise ValueError(
+                "ServeSupervisor does not supervise a process group's "
+                "server yet (ROADMAP Queue 1): run ASAServer on rank 0 and "
+                "serve.loop.follow on the others")
         self.cfg = cfg
         self._mesh = mesh
         self._device = resolve_device(device)
@@ -1019,6 +1124,48 @@ class ServeSupervisor:
         s = self.server.stats
         s["restarts"] = self.restarts
         return s
+
+
+def follow(cfg: ServeConfig, mesh, step: Optional[int] = None, *,
+           device: str | torch.device = DEFAULT_DEVICE
+           ) -> core_asa.ASAState:
+    """A rank other than 0 of a process group's server (``mesh`` its
+    ``scenarios`` mesh): hold one replica of the table (from
+    ``cfg.checkpoint_dir`` at ``step`` when given, as rank 0's
+    ``ASAServer.restore`` reads it), and apply rank 0's messages (its slot
+    resets, then this rank's block of each step) until rank 0 stops.
+    Returns the replica."""
+    group = _group_of(mesh)
+    if group is None or group.index == 0:
+        raise ValueError("follow runs on a rank other than 0 of a process "
+                         "group's mesh")
+    dev = resolve_device(device)
+    table = serve_asa.init_table(cfg.n_slots, cfg.m, cfg.seed, device=dev)
+    if step is not None:
+        tmpl = {"table": table,
+                "tenant_ids": np.full(cfg.n_slots, -1, np.int32),
+                "admissions": np.int32(0),
+                "dirty": np.zeros(cfg.n_slots, bool)}
+        table = checkpoint.restore(tmpl, cfg.checkpoint_dir, step,
+                                   device=dev)["table"]
+    table = serve_asa.replicate(table, mesh)
+    cap = cfg.batch_size
+    home = table[0].log_p.device
+    while True:
+        msg = dist.broadcast(
+            torch.empty(_message_size(cfg), dtype=torch.int32), group, 0)
+        kind, n = int(msg[0]), int(msg[1])
+        for slot, salt in zip(msg[2:2 + n].tolist(),
+                              msg[2 + cap:2 + cap + n].tolist()):
+            table = serve_asa.reset_slot(
+                table, slot, serve_asa.slot_key(cfg.seed, salt))
+        if kind == MSG_STOP:
+            return serve_asa.first_replica(table)
+        if kind == MSG_STEP:
+            qp, mask = serve_asa.unpack_query(
+                msg[2 + 2 * cap:].reshape(4, cap).to(home,
+                                                     non_blocking=True))
+            table, _ = serve_asa.serve_step(table, qp, mask, mesh=mesh)
 
 
 def estimate_lead(state: core_asa.ASAState, bins) -> torch.Tensor:

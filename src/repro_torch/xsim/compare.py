@@ -106,13 +106,15 @@ def sharded_batched_metrics(final: ScenarioState, mesh
     per-scenario columns, and only the ``(B,)`` columns are gathered.
     Equal to ``batched_metrics`` up to reduction order on the summed
     columns, which is why ``run_grid``, whose contract is bitwise,
-    computes its metrics on the gathered states instead."""
+    computes its metrics on the gathered states instead. On a process
+    group's mesh each rank reduces its own block and the columns are
+    all-gathered: every rank holds them all."""
     b = pfleet.batch_size(final)
     padded, _mask = pfleet.pad_batch(final,
                                      mesh.shape[pfleet.SCENARIO_AXIS])
-    blocks = pfleet.split(padded, mesh.devices)
+    blocks = pfleet.split(padded, mesh)
     return pfleet.unpad(pfleet.gather([metrics(x) for x in blocks],
-                                      final.status.device), b)
+                                      final.status.device, mesh), b)
 
 
 def wf_rows(s: ScenarioState, lane: int = 0) -> dict[str, np.ndarray]:

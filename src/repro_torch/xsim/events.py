@@ -753,17 +753,19 @@ def sharded_sweep(batched: ScenarioState, *, mesh, n_steps: int,
     block whose scenarios drain early stops stepping while busier blocks
     run on, and because drained steps are exact no-ops the blocks,
     gathered in mesh order onto the batch's device and unpadded, equal
-    the single-device ``sweep`` bit for bit. The blocks run one after
-    another."""
+    the single-device ``sweep`` bit for bit. One process runs the blocks
+    one after another; on a process group's mesh (``mesh.groups``) each
+    rank sweeps its own block at once with the others and the blocks are
+    all-gathered, so every rank returns the whole batch."""
     n_shards = mesh.shape[pfleet.SCENARIO_AXIS]
     b = pfleet.batch_size(batched)
     padded, _mask = pfleet.pad_batch(batched, n_shards)
     outs = []
-    for dev, block in zip(mesh.devices,
-                          pfleet.split(padded, mesh.devices)):
+    for (_i, dev), block in zip(pfleet.blocks(mesh),
+                                pfleet.split(padded, mesh)):
         outs.append(sweep(
             block, n_steps=n_steps, chunk_steps=chunk_steps,
             bf_passes=bf_passes, freed_mode=freed_mode, pred_mode=pred_mode,
             naive=naive, params=pfleet.replicate(params, dev),
             rl_mode=rl_mode, faults=faults, device=dev))
-    return pfleet.unpad(pfleet.gather(outs, batched.status.device), b)
+    return pfleet.unpad(pfleet.gather(outs, batched.status.device, mesh), b)

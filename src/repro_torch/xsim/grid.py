@@ -444,10 +444,11 @@ def run_grid(grid: ScenarioGrid, fleet: asa.ASAState | None = None, *,
     split over the blocks of a ``scenarios`` mesh
     (``events.sharded_sweep``; ``mesh`` wins when both are given,
     ``n_shards`` builds one over the first N devices of ``device``'s type
-    with ``launch.mesh.make_scenarios_mesh``). The result is bitwise the
-    single-device sweep's, and the metrics are computed on the gathered
-    states, so they are too. Returns (final_states, metrics dict of (B,)
-    tensors)."""
+    with ``launch.mesh.make_scenarios_mesh``; under a ``torch.distributed``
+    group, the ranks' mesh, one block a rank, every rank returning the
+    whole result). The result is bitwise the single-device sweep's, and
+    the metrics are computed on the gathered states, so they are too.
+    Returns (final_states, metrics dict of (B,) tensors)."""
     dev = resolve_device(device)
     check_device(grid.keys, dev, "the grid")
     pols = grid.policies.cpu().numpy()
