@@ -3630,7 +3630,7 @@ def fleet_ranks_rank(rank: int, world: int, work: str,
         else:
             live = follow(scfg, mesh, device=dev)
             rec["serve_s"] = time.time() - t0
-            back = follow(scfg, mesh, step=1, device=dev)
+            back = follow(scfg, mesh, device=dev)
         rec["live"] = [x.cpu() for x in live]
         rec["restored"] = [x.cpu() for x in back]
         rec["collectives"] = json.loads(json.dumps(dist.COUNTS))

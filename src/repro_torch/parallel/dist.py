@@ -51,6 +51,7 @@ import torch.distributed as D
 _ALL_GATHER = getattr(D, "all_gather_single", None) or \
     D.all_gather_into_tensor
 TIMEOUT_S = 300
+_timeout_s = float(TIMEOUT_S)   # the initialised group's (``init``)
 TRANSPORT = "gloo, host-staged"
 KINDS = ("all_gather", "all_to_all", "gather", "broadcast")
 COUNTS = {k: {"calls": 0, "bytes": 0} for k in KINDS}
@@ -71,12 +72,20 @@ def init(rank: int | None = None, world: int | None = None, *,
     """Join the ``gloo`` process group (``rank``/``world`` from the
     environment that ``torch.distributed.run`` sets when not given), and
     take this rank's share of the host's CPU threads."""
+    global _timeout_s
     D.init_process_group("gloo", init_method=init_method,
                          rank=-1 if rank is None else rank,
                          world_size=-1 if world is None else world,
                          timeout=timedelta(seconds=timeout_s))
+    _timeout_s = float(timeout_s)
     local = int(os.environ.get("LOCAL_WORLD_SIZE", D.get_world_size()))
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // local))
+
+
+def timeout_s() -> float:
+    """The seconds a collective of the initialised group may wait before
+    it fails (``init``'s ``timeout_s``)."""
+    return _timeout_s
 
 
 def world_from_env() -> int:

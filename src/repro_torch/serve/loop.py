@@ -63,13 +63,15 @@ On a process group's mesh (``launch.mesh.make_scenarios_mesh`` under
 owns admission, leases, futures, checkpoints and ``obs``; each step it
 broadcasts one message (the padded batch and its mask as
 ``serve.asa.pack_query`` packs them, the slot resets its admissions
-made since the last message, a kind: step, stop or keep-alive), and the
-other ranks run :func:`follow` on those messages, applying the same
-resets and stepping their own block of the same batch. ``stop()`` ends
-the followers (the server cannot start again). A step that fails after
-its message went out fails its batch and ends the loop, since the
-replicas may then differ. ``save`` writes rank 0's replica; ``restore``
-on rank 0 and ``follow(step=)`` on the others read the same file.
+made since the last message, a kind: step, stop or keep-alive, and the
+replica the server started from: fresh, or the checkpoint step its
+``restore`` read), and the other ranks run :func:`follow` on those
+messages: they start their replicas from the one the first message
+names, then apply the same resets and step their own block of the same
+batch. ``stop()`` ends the followers (the server cannot start again).
+A step that fails after its message went out fails its batch and ends
+the loop, since the replicas may then differ. ``save`` writes rank 0's
+replica; rank 0's ``restore`` and the followers read the same file.
 ``ServeSupervisor`` refuses a process group's mesh (ROADMAP Queue 1).
 
 The registry is not part of the checkpoint: counters describe this
@@ -106,15 +108,17 @@ from repro_torch.serve import asa as serve_asa
 
 # the kinds of a process group's step message (see the module docstring)
 MSG_STEP, MSG_STOP, MSG_KEEPALIVE, MSG_RESETS = 0, 1, 2, 3
-# rank 0 sends a keep-alive when it has sent nothing for this long, so an
-# idle server's followers never reach the group's collective timeout
-KEEPALIVE_S = 10.0
+# rank 0 sends a keep-alive once it has sent nothing for this share of the
+# group's collective timeout, so an idle server's followers never reach it
+KEEPALIVE_SHARE = 0.25
+# a step message's int32 words: kind, the replica it started from (-1
+# fresh, else the checkpoint step), the resets count; then the resets'
+# slots and admission salts (``batch_size`` each) and the packed batch
+_HEAD = 3
 
 
 def _message_size(cfg: "ServeConfig") -> int:
-    """Int32 words of a step message: kind, resets count, the resets'
-    slots and admission salts (``batch_size`` each), the packed batch."""
-    return 2 + 2 * cfg.batch_size + 4 * cfg.batch_size
+    return _HEAD + 2 * cfg.batch_size + 4 * cfg.batch_size
 
 
 def _group_of(mesh):
@@ -236,6 +240,7 @@ class ASAServer:
                 f"rank {self._group.index} of a process group's server "
                 "follows rank 0's: run serve.loop.follow there")
         self._resets: list[tuple[int, int]] = []  # (slot, salt) unsent
+        self._origin = -1            # fresh; restore: the step it read
         self._released = False       # the followers were sent MSG_STOP
         self._last_message = time.monotonic()
         self._obs = obs if obs is not None else \
@@ -668,13 +673,15 @@ class ASAServer:
             last = not self._resets
             msg = torch.zeros(_message_size(self.cfg), dtype=torch.int32)
             msg[0] = kind if last else MSG_RESETS
-            msg[1] = len(resets)
+            msg[1] = self._origin
+            msg[2] = len(resets)
             if resets:
-                msg[2:2 + len(resets)] = torch.tensor([r[0] for r in resets])
-                msg[2 + cap:2 + cap + len(resets)] = torch.tensor(
+                msg[_HEAD:_HEAD + len(resets)] = torch.tensor(
+                    [r[0] for r in resets])
+                msg[_HEAD + cap:_HEAD + cap + len(resets)] = torch.tensor(
                     [r[1] for r in resets])
             if last and packed is not None:
-                msg[2 + 2 * cap:] = packed.reshape(-1)
+                msg[_HEAD + 2 * cap:] = packed.reshape(-1)
             dist.broadcast(msg, self._group, 0)
             self._last_message = time.monotonic()
             if last:
@@ -682,7 +689,8 @@ class ASAServer:
 
     def _keepalive(self) -> None:
         if (self._group is not None and not self._released and
-                time.monotonic() - self._last_message > KEEPALIVE_S):
+                time.monotonic() - self._last_message >
+                KEEPALIVE_SHARE * dist.timeout_s()):
             self._send(MSG_KEEPALIVE)
 
     def _release(self) -> None:
@@ -962,6 +970,7 @@ class ASAServer:
         server._dirty = {s for s in range(cfg.n_slots) if dirty[s]}
         server._admissions = int(tree["admissions"])
         server._batches = step
+        server._origin = step
         if server._pool is not None:
             # leases are process state, not estimator state: every
             # restored tenant starts one fresh TTL ahead
@@ -1126,45 +1135,54 @@ class ServeSupervisor:
         return s
 
 
-def follow(cfg: ServeConfig, mesh, step: Optional[int] = None, *,
-           device: str | torch.device = DEFAULT_DEVICE
-           ) -> core_asa.ASAState:
-    """A rank other than 0 of a process group's server (``mesh`` its
-    ``scenarios`` mesh): hold one replica of the table (from
-    ``cfg.checkpoint_dir`` at ``step`` when given, as rank 0's
-    ``ASAServer.restore`` reads it), and apply rank 0's messages (its slot
-    resets, then this rank's block of each step) until rank 0 stops.
-    Returns the replica."""
-    group = _group_of(mesh)
-    if group is None or group.index == 0:
-        raise ValueError("follow runs on a rank other than 0 of a process "
-                         "group's mesh")
-    dev = resolve_device(device)
+def _replica(cfg: ServeConfig, mesh, step: int, dev: torch.device):
+    """A follower's replica of the table rank 0's server started from:
+    fresh (``step`` -1), or ``cfg.checkpoint_dir``'s at ``step``, as
+    ``ASAServer.restore`` reads it."""
     table = serve_asa.init_table(cfg.n_slots, cfg.m, cfg.seed, device=dev)
-    if step is not None:
+    if step >= 0:
         tmpl = {"table": table,
                 "tenant_ids": np.full(cfg.n_slots, -1, np.int32),
                 "admissions": np.int32(0),
                 "dirty": np.zeros(cfg.n_slots, bool)}
         table = checkpoint.restore(tmpl, cfg.checkpoint_dir, step,
                                    device=dev)["table"]
-    table = serve_asa.replicate(table, mesh)
+    return serve_asa.replicate(table, mesh)
+
+
+def follow(cfg: ServeConfig, mesh, *,
+           device: str | torch.device = DEFAULT_DEVICE
+           ) -> core_asa.ASAState:
+    """A rank other than 0 of a process group's server (``mesh`` its
+    ``scenarios`` mesh): hold one replica of the table, started as rank
+    0's server started (its first message names a fresh table or the
+    checkpoint step its ``restore`` read), and apply rank 0's messages
+    (its slot resets, then this rank's block of each step) until rank 0
+    stops. Returns the replica."""
+    group = _group_of(mesh)
+    if group is None or group.index == 0:
+        raise ValueError("follow runs on a rank other than 0 of a process "
+                         "group's mesh")
+    dev = resolve_device(device)
     cap = cfg.batch_size
-    home = table[0].log_p.device
+    table = None
     while True:
         msg = dist.broadcast(
             torch.empty(_message_size(cfg), dtype=torch.int32), group, 0)
-        kind, n = int(msg[0]), int(msg[1])
-        for slot, salt in zip(msg[2:2 + n].tolist(),
-                              msg[2 + cap:2 + cap + n].tolist()):
+        kind, n = int(msg[0]), int(msg[2])
+        if table is None:
+            table = _replica(cfg, mesh, int(msg[1]), dev)
+            home = table[0].log_p.device
+        for slot, salt in zip(msg[_HEAD:_HEAD + n].tolist(),
+                              msg[_HEAD + cap:_HEAD + cap + n].tolist()):
             table = serve_asa.reset_slot(
                 table, slot, serve_asa.slot_key(cfg.seed, salt))
         if kind == MSG_STOP:
             return serve_asa.first_replica(table)
         if kind == MSG_STEP:
             qp, mask = serve_asa.unpack_query(
-                msg[2 + 2 * cap:].reshape(4, cap).to(home,
-                                                     non_blocking=True))
+                msg[_HEAD + 2 * cap:].reshape(4, cap).to(
+                    home, non_blocking=True))
             table, _ = serve_asa.serve_step(table, qp, mask, mesh=mesh)
 
 

@@ -31,6 +31,7 @@ import torch_dist_ranks as R
 from repro_torch.launch.mesh import DeviceMesh, ScenariosMesh
 from repro_torch.parallel.sharding import ShardedTensor, ShardingRules, place
 from repro_torch.runtime.elastic import apply_resize
+from repro_torch.serve import asa as serve_asa
 from repro_torch.serve.loop import ASAServer, ServeConfig, ServeSupervisor, \
     follow
 from repro_torch.train import optimizer as TO
@@ -70,9 +71,15 @@ def one_process_resize() -> dict:
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """(the one-process route's results by world, the one-process resize,
-    each spawn's ranks' results): the three spawns start first and run
-    while this process computes the one-process route."""
+    each spawn's ranks' results, the serve spawns' under ``"serve"``):
+    the spawns start first and run while this process computes the
+    one-process route. The serve spawns' group times out after
+    ``R.SERVE_TIMEOUT_S``, so their idle server's keep-alives come within
+    the test's time."""
     spawned = {w: R.Ranks("fleet", w, tmp_path_factory.mktemp(f"fleet{w}"))
+               for w in WORLDS}
+    serving = {w: R.Ranks("serve", w, tmp_path_factory.mktemp(f"serve{w}"),
+                          timeout_s=R.SERVE_TIMEOUT_S)
                for w in WORLDS}
     spawned[RESIZE_WORLD] = R.Ranks("resize", RESIZE_WORLD,
                                     tmp_path_factory.mktemp("resize"),
@@ -89,6 +96,11 @@ def runs(tmp_path_factory):
         ranks.check()
         got[w] = [torch.load(ranks.work / f"rank{r}.pt", weights_only=False)
                   for r in range(w)]
+    for w, ranks in serving.items():
+        ranks.check()
+        for r in range(w):
+            got[w][r]["serve"] = torch.load(ranks.work / f"rank{r}.pt",
+                                            weights_only=False)
     return one, resized, got
 
 
@@ -203,8 +215,7 @@ def test_server_and_restart_are_the_one_process_route_bitwise(runs, world):
     (decisions and slots, evictions and re-admissions into freed slots
     included), every follower's replica equals it, and the servers
     restored from the save (rank 0's, the followers' replicas) do too; so
-    does a server run by its loop thread, idle between requests, whose
-    followers take its keep-alives."""
+    does a server run by its loop thread, idle between requests."""
     want, ranks = _case(runs, world, "serve")
     head = ranks[0]
     for key in ("first", "second", "slots", "live_table",
@@ -219,6 +230,36 @@ def test_server_and_restart_are_the_one_process_route_bitwise(runs, world):
 
 
 @pytest.mark.parametrize("world", WORLDS)
+def test_followers_start_from_the_replica_rank_0_restored(runs, world):
+    """Rank 0's server restored from the latest save (no step named)
+    while the followers are started with no step: its first message
+    names the step it read, so every follower's replica starts there and
+    the third stream's decisions and replicas are the one-process
+    server's. (The step-2 replica is not a fresh table, so a follower
+    started fresh would step the wrong posteriors.)"""
+    want, ranks = _case(runs, world, "serve")
+    assert_same(ranks[0]["latest_third"], want["latest_third"])
+    cfg = ServeConfig(**R.SERVE_CFG)
+    fresh = serve_asa.init_table(cfg.n_slots, cfg.m, cfg.seed, device="cpu")
+    assert not all(torch.equal(a, b) for a, b in zip(want["live_table"],
+                                                     fresh))
+    for r, got in enumerate(ranks):
+        assert_same(got["latest_table"], want["latest_table"], f"rank {r}")
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_an_idle_server_keeps_its_followers_alive(runs, world):
+    """The loop thread's server, idle once past a quarter of the group's
+    collective timeout, sends a keep-alive (a message beyond its batches'
+    and the stop), and every follower takes each message it sends."""
+    _, ranks = _case(runs, world, "serve")
+    head = ranks[0]
+    assert head["threaded_messages"] > head["threaded_batches"] + 1
+    for r, got in enumerate(ranks[1:], 1):
+        assert got["threaded_messages"] == head["threaded_messages"], r
+
+
+@pytest.mark.parametrize("world", WORLDS)
 def test_the_ranks_mesh_and_collectives(runs, world):
     """Each rank's mesh is the group's (its block its rank); blocks meet
     in all-gathers, the server's messages in broadcasts, and nothing is
@@ -228,10 +269,12 @@ def test_the_ranks_mesh_and_collectives(runs, world):
         text, index, shape = g["mesh"]
         assert index == r and shape == {"scenarios": world}
         assert f"rank {r} of {world}" in text
-        c = g["counts"]
+        c, s = g["counts"], g["serve"]["counts"]
         assert c["all_gather"]["calls"] > 0
-        assert c["broadcast"]["calls"] > 0
-        assert c["gather"]["calls"] == c["all_to_all"]["calls"] == 0
+        assert s["all_gather"]["calls"] > 0 and s["broadcast"]["calls"] > 0
+        for counts in (c, s):
+            assert counts["gather"]["calls"] == 0
+            assert counts["all_to_all"]["calls"] == 0
         assert g["mesh_checks"] == [None, f"n_shards 1 is not the {world} "
                                     "ranks of the process group (one block "
                                     "a rank)"]

@@ -203,6 +203,9 @@ def serve_query(n: int, seed: int = 0):
 
 
 SERVE_CFG = dict(n_slots=8, batch_size=6)
+# the serve job's group timeout: its idle server sends a keep-alive after
+# a quarter of it
+SERVE_TIMEOUT_S = 30
 
 
 def _serve_stream(server, seed: int, rounds: int = 5) -> list:
@@ -230,32 +233,37 @@ def _serve_stream(server, seed: int, rounds: int = 5) -> list:
 
 def serve_cases(mesh, ckpt: Path) -> dict:
     """An ``ASAServer`` over ``mesh`` (on a process group's mesh: rank 0;
-    the other ranks ``follow``): a stream, a save, evictions and a stream
-    that re-admits into freed slots, then a server restored from the save
-    fed that second stream, then a fresh server's loop thread, idle
-    between requests (keep-alives every idle poll). Its decisions, slots
-    and replicas."""
+    the other ranks ``follow``): a stream, saves at steps 1 and 2 around
+    evictions and a stream that re-admits into freed slots; a server
+    restored at step 1 fed that second stream; a server restored from
+    the latest save (step 2) fed a third; then a fresh server's loop
+    thread, idle between requests and once for longer than the keep-alive
+    period. Its decisions, slots and replicas; on a group, the messages
+    the loop thread's server sent (and each follower took) and its
+    batches."""
+    from repro_torch.parallel import dist
     from repro_torch.serve import asa as serve_asa
     from repro_torch.serve import loop
     from repro_torch.serve.loop import ASAServer, ServeConfig, follow
 
     cfg = ServeConfig(checkpoint_dir=str(ckpt), **SERVE_CFG)
     groups = getattr(mesh, "groups", None)
-    if groups is not None:   # a rank: keep-alives at every idle poll
-        loop.KEEPALIVE_S = 0.0
+    # the followers start each replica as rank 0's server started it
+    # (fresh, restored at step 1, restored from the latest step)
     if groups is not None and groups.index != 0:
-        live = follow(cfg, mesh, device="cpu")
-        restored = follow(cfg, mesh, step=1, device="cpu")
-        threaded = follow(cfg, mesh, device="cpu")
-        return _host(dict(live_table=tuple(live),
-                          restored_table=tuple(restored),
-                          threaded_table=tuple(threaded)))
+        out = {key: tuple(follow(cfg, mesh, device="cpu"))
+               for key in ("live_table", "restored_table", "latest_table")}
+        sent = dist.COUNTS["broadcast"]["calls"]
+        out["threaded_table"] = tuple(follow(cfg, mesh, device="cpu"))
+        out["threaded_messages"] = dist.COUNTS["broadcast"]["calls"] - sent
+        return _host(out)
     server = ASAServer(cfg, mesh=mesh, device="cpu")
     first = _serve_stream(server, seed=9)
     server.save(step=1)
     for t in sorted(server._slot_of)[:3]:
         server.evict(t)
     second = _serve_stream(server, seed=10)
+    server.save(step=2)
     out = dict(first=first, second=second, slots=dict(server._slot_of),
                live_table=tuple(serve_asa.first_replica(server._table)),
                replicas=len(server._table))
@@ -267,17 +275,29 @@ def serve_cases(mesh, ckpt: Path) -> dict:
     out["restored_table"] = tuple(
         serve_asa.first_replica(restored._table))
     restored.stop()
-    # the loop thread: one request at a time, idle between them
+    latest = ASAServer.restore(cfg, mesh=mesh, device="cpu")
+    out["latest_third"] = _serve_stream(latest, seed=11)
+    out["latest_table"] = tuple(serve_asa.first_replica(latest._table))
+    latest.stop()
+    # the loop thread: one request at a time, idle between them; on a
+    # group, once past the keep-alive period (a share of the group's
+    # collective timeout)
+    idle = (loop.KEEPALIVE_SHARE * dist.timeout_s() + 0.5
+            if groups is not None else 0.02)
+    sent = dist.COUNTS["broadcast"]["calls"]
     server = ASAServer(cfg, mesh=mesh, device="cpu")
     server.start()
     threaded = []
     for t in range(4):
-        time.sleep(0.02)
+        time.sleep(idle if t == 2 else 0.02)
         d = server.submit(t, 100.0 * (t + 1)).result(timeout=60)
         threaded.append((d.tenant, d.lead_s, d.expected_s, d.entropy))
     server.stop()
     out["threaded"] = threaded
     out["threaded_table"] = tuple(serve_asa.first_replica(server._table))
+    if groups is not None:
+        out["threaded_messages"] = dist.COUNTS["broadcast"]["calls"] - sent
+        out["threaded_batches"] = server.stats["batches"]
     return _host(out)
 
 
@@ -417,8 +437,8 @@ def job_fail(rank: int, work: Path, model: int) -> None:
 
 
 def job_fleet(rank: int, work: Path, model: int) -> None:
-    """``fleet_cases`` and ``serve_cases`` on the ranks' ``scenarios``
-    mesh, and each rank's collective counts."""
+    """``fleet_cases`` on the ranks' ``scenarios`` mesh, and each rank's
+    collective counts."""
     from repro_torch.launch.mesh import make_scenarios_mesh, \
         shards_arg_error
     from repro_torch.parallel import dist
@@ -426,12 +446,24 @@ def job_fleet(rank: int, work: Path, model: int) -> None:
     mesh = make_scenarios_mesh(device="cpu")
     dist.reset_counts()
     out = fleet_cases(mesh)
-    out["serve"] = serve_cases(mesh, work / "serve_ckpt")
     out["counts"] = json.loads(json.dumps(dist.COUNTS))
     out["mesh"] = (repr(mesh), mesh.groups.index, mesh.shape)
     out["mesh_checks"] = [shards_arg_error(n, flag="n_shards",
                                            device="cpu")
                           for n in (mesh.groups.size, 1)]
+    torch.save(out, work / f"rank{rank}.pt")
+
+
+def job_serve(rank: int, work: Path, model: int) -> None:
+    """``serve_cases`` on the ranks' ``scenarios`` mesh, and each rank's
+    collective counts."""
+    from repro_torch.launch.mesh import make_scenarios_mesh
+    from repro_torch.parallel import dist
+
+    mesh = make_scenarios_mesh(device="cpu")
+    dist.reset_counts()
+    out = serve_cases(mesh, work / "serve_ckpt")
+    out["counts"] = json.loads(json.dumps(dist.COUNTS))
     torch.save(out, work / f"rank{rank}.pt")
 
 
@@ -493,7 +525,7 @@ def job_fleet_cuda(rank: int, work: Path, model: int) -> None:
 
 JOBS = {f.__name__[4:]: f for f in (job_families, job_restarts,
                                     job_collectives, job_fail, job_fleet,
-                                    job_resize, job_fleet_cuda)}
+                                    job_serve, job_resize, job_fleet_cuda)}
 
 
 def _rank(rank: int, world: int, work: str, job: str, model: int,
